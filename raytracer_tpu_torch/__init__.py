@@ -1,0 +1,21 @@
+"""raytracer_tpu_torch: the Whitted ray tracer of ``raytracer_tpu`` on
+PyTorch, with hand-written CUDA kernels for an NVIDIA H100 (sm_90a).
+
+The port keeps the JAX package's module layout and names so that each
+counterpart is easy to find; it never imports JAX or ``raytracer_tpu``.
+
+- ``models``: scene, BVH and cluster builds (host numpy -> device
+  tensors), the Whitted wavefront integrator.
+- ``ops``: eye rays, tile order, the cluster engine's glue
+  (``cluster_trace``) and its CUDA kernels with their plain PyTorch
+  versions (``kernels``), shading, quantization and SSAA.
+- ``utils``: XML ingest, PPM I/O, the native host library, synthetic
+  scenes.
+- ``backend``: device resolution and the kernel build.
+
+Entry points (``render.main``, ``pipeline.render_one_camera``,
+``models.whitted.render_camera``) run on CUDA by default and raise
+without a GPU; ``device="cpu"`` selects the plain versions.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,163 @@
+"""Device resolution and the hand-written CUDA kernel library.
+
+Entry points take ``device="cuda"`` by default and raise when no GPU is
+present; ``device="cpu"`` is the explicit request for the plain PyTorch
+versions of the kernels (``ops.kernels``), which the CPU tests use.
+
+The kernels are CUDA C++ sources in ``csrc/*.cu``.  At first use they are
+compiled by ``nvcc`` for ``sm_90a`` (one process per source, all started
+together), linked into one shared library under ``_build/`` (listed in
+``.gitignore``) and loaded with ctypes.  The library's file name carries
+a hash of the sources and flags, so an edited source is rebuilt.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+
+import torch
+
+PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(PKG_DIR, "_build")
+
+# IEEE rounding op for op, like PyTorch's eager elementwise ops: no fast
+# math, and no contraction of a*b+c into an FMA (-fmad=false), so each
+# kernel can be held EQUAL to its plain version on the card
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-Xcompiler", "-fPIC",
+]
+
+_vp, _i = ctypes.c_void_p, ctypes.c_int
+# C entry points (csrc/*.cu); every one returns cudaGetLastError()
+SIGNATURES = {
+    # act, box, bundle, hit, ent, nt, c, r, stream
+    "rt_ray_mask": [_vp] * 5 + [_i] * 3 + [_vp],
+    # tw, tl, tc, sw, sl, sc, origin, dirs, tri_dat, sph_dat, t, slot,
+    # nt, ct, cs, pt, ps, wt, ws, shared_origin, bfc, stream
+    "rt_closest": [_vp] * 12 + [_i] * 9 + [_vp],
+    # tw, tl, tc, sw, sl, sc, lps, origin, planes, sph_dat, found,
+    # nt, nl, ct, cs, pt, ps, wt, ws, relaxed, stream
+    "rt_shadow": [_vp] * 11 + [_i] * 9 + [_vp],
+}
+
+_lock = threading.Lock()
+_state: dict = {}
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """``torch.device`` for an entry point's ``device`` argument.  CUDA
+    (the default) raises when no GPU is present: the port never carries
+    on on the CPU unless the caller asked for it."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; the port runs on the GPU "
+                "unless device='cpu' (--device cpu) is passed")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        return dev
+    if dev.type != "cpu":
+        raise ValueError(f"unsupported device {device!r}: cuda or cpu")
+    return dev
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu"))
+                  + glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels are built from "
+                           "csrc/ at first use and need the CUDA toolkit")
+    return found
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        with open(src, "rb") as f:
+            h.update(os.path.basename(src).encode() + f.read())
+    return os.path.join(BUILD_DIR, f"libraytracer_kernels-{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile csrc/*.cu (in parallel) and link the kernel library;
+    returns its path.  A no-op when the library for these sources exists."""
+    out = library_path()
+    if os.path.exists(out):
+        return out
+    nvcc = _nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    cu = [s for s in _sources() if s.endswith(".cu")]
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in cu:
+            obj = os.path.join(tmp, os.path.basename(src)[:-3] + ".o")
+            objs.append(obj)
+            procs.append((src, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", src, "-o", obj],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        logs, failed = [], []
+        for src, p in procs:
+            log, _ = p.communicate()
+            logs.append(f"== {os.path.basename(src)}\n{log}")
+            if p.returncode != 0:
+                failed.append(src)
+        with open(os.path.join(BUILD_DIR, "build.log"), "w") as f:
+            f.write("\n".join(logs))
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(logs))
+        tmp_lib = os.path.join(tmp, "lib.so")
+        link = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp_lib, *objs],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + link.stdout)
+        os.replace(tmp_lib, out)
+    return out
+
+
+def kernels() -> ctypes.CDLL:
+    """The loaded kernel library (built at first use)."""
+    with _lock:
+        if "lib" not in _state:
+            t0 = time.perf_counter()
+            lib = ctypes.CDLL(build())
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.rt_error_string.argtypes = [ctypes.c_int]
+            lib.rt_error_string.restype = ctypes.c_char_p
+            _state["build_s"] = time.perf_counter() - t0
+            _state["lib"] = lib
+        return _state["lib"]
+
+
+def build_seconds() -> float:
+    """Seconds the first ``kernels()`` call took (build and load)."""
+    return _state.get("build_s", 0.0)
+
+
+def check(rc: int, name: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a C entry point."""
+    if rc != 0:
+        msg = _state["lib"].rt_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc} {msg}")

@@ -1,0 +1,173 @@
+"""The Whitted integrator as a bounded-depth wavefront loop (port of the
+cluster engine's forward path in ``raytracer_tpu/models/whitted.py``).
+
+The whole wavefront of rays runs through max_depth+1 lockstep bounces with
+a running throughput (the product of mirror tints along the path):
+
+    color     += throughput * local(bounce d)
+    throughput *= mat.mirror            (mirror hits only)
+    ray        = reflection ray          (others go inactive)
+
+Background only for a depth-0 miss, black for deeper misses; ambient
+re-added at every bounce; the loop ends after depth max_depth or when no
+lane is active.  Bounce 0 of an eye wavefront is peeled out so the
+closest-hit kernel can use the shared origin.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from raytracer_tpu_torch.backend import resolve_device
+from raytracer_tpu_torch.models.clusters import ClusterSet
+from raytracer_tpu_torch.models.scene import Camera, SceneData, SceneMeta
+from raytracer_tpu_torch.ops import cluster_trace as ctr
+from raytracer_tpu_torch.ops.camera import camera_vectors, eye_rays_from
+from raytracer_tpu_torch.ops.kernels import TILE
+from raytracer_tpu_torch.ops.shade import Hit, reflection_rays, shade_local
+from raytracer_tpu_torch.ops.tiling import (
+    apply_tile_order, block_permutation, divides, undo_tile_order,
+)
+
+# Activity compaction (stable sort of the carry, live lanes first) from
+# bounce _COMPACT_FROM on, for scenes with max_depth >= _COMPACT_MIN_DEPTH,
+# and only when the wave is SCATTERED: live-tile fraction minus active-
+# lane fraction above _COMPACT_SCATTER.  The JAX package's gate, kept
+# because it decides which rays share a tile (and so, on exact-t ties
+# only, which of two equally near primitives wins).
+_COMPACT_FROM = 2
+_COMPACT_MIN_DEPTH = 3
+_COMPACT_SCATTER = 0.15
+
+
+def _compact_carry(carry):
+    """Stably sort the bounce carry by activity: live lanes first; ``idx``
+    records the permutation."""
+    depth, color, throughput, active, org, dirs, idx = carry
+    perm = torch.argsort((~active).to(torch.int32), stable=True)
+    return (depth, color[perm], throughput[perm], active[perm], org[perm],
+            dirs[perm], idx[perm])
+
+
+def _uncompact_color(color, idx):
+    """Restore accumulated radiance to original ray order (sort by idx)."""
+    return color[torch.argsort(idx, stable=True)]
+
+
+def render_rays(data: SceneData, meta: SceneMeta, origin, dirs,
+                cset: ClusterSet, bfc: bool = False, relaxed: bool = False):
+    """(R, 3) f32 radiance of a wavefront.  ``origin``: (3,) (a shared eye
+    point) or (R, 3); ``dirs``: (R, 3), unnormalized (the camera's)."""
+    r = dirs.shape[0]
+    eye_shared = origin.dim() == 1
+    nl = meta.n_lights
+    shadow_fn = shadow_multi_fn = None
+    if nl > 0:
+        pt = cset.tri_verts.shape[1]
+        if pt * 64 > ctr.SHADOW_PLANES_BYTES_MAX:
+            raise NotImplementedError(
+                f"{pt} triangle slots: shadow plane tables above "
+                f"{ctr.SHADOW_PLANES_BYTES_MAX} bytes need the generic "
+                "any-hit kernel (_any_kernel), ROADMAP queue 2 item 7")
+        planes = [ctr.build_shadow_planes(cset, data.light_pos[l], bfc=bfc)
+                  for l in range(nl)]
+
+        def shadow_fn(org, sdir, mask, l):
+            return ctr.cluster_shadow(cset, planes[l], org, sdir,
+                                      data.light_pos[l], active=mask,
+                                      relaxed=relaxed)
+
+        # all lights in ONE kernel launch while every table fits together
+        if nl >= 2 and nl * pt * 64 <= ctr.SHADOW_PLANES_BYTES_MAX:
+            def shadow_multi_fn(org, masks):
+                return ctr.cluster_shadow_multi(
+                    cset, planes, org, data.light_pos[:nl], masks,
+                    relaxed=relaxed)
+
+    compact = meta.max_depth >= _COMPACT_MIN_DEPTH and r % TILE == 0
+
+    def bounce(carry, shared_eye: bool = False):
+        if compact and carry[0] >= _COMPACT_FROM:
+            act = carry[3]
+            act_f = act.to(torch.float32).mean()
+            live_f = act.reshape(-1, TILE).any(1).to(torch.float32).mean()
+            if bool(live_f - act_f > _COMPACT_SCATTER):
+                carry = _compact_carry(carry)
+        depth, color, throughput, active, cur_org, cur_dir, idx = carry
+        fhit, t, normal, mat, point, offset, _ = ctr.cluster_closest_hit(
+            cset, origin if shared_eye else cur_org, cur_dir,
+            meta.shadow_eps, active=active, bfc=bfc, shared_origin=shared_eye)
+        h = Hit(hit=fhit & active, t=t, normal=normal, mat=mat, point=point,
+                offset=offset)
+        if depth == 0:
+            color = color + torch.where((~h.hit & active)[:, None],
+                                        data.background[None, :], 0.0)
+        local = shade_local(data, meta, cur_dir, h, shadow_fn=shadow_fn,
+                            shadow_multi_fn=shadow_multi_fn)
+        color = color + throughput * torch.where(h.hit[:, None], local, 0.0)
+        refl_org, refl_dir, tint, is_mirror = reflection_rays(data, cur_dir, h)
+        active = active & is_mirror
+        throughput = torch.where(active[:, None], throughput * tint, 0.0)
+        cur_org = torch.where(active[:, None], refl_org, cur_org)
+        cur_dir = torch.where(active[:, None], refl_dir, cur_dir)
+        return depth + 1, color, throughput, active, cur_org, cur_dir, idx
+
+    dev = dirs.device
+    carry = (
+        0,
+        torch.zeros((r, 3), dtype=torch.float32, device=dev),
+        torch.ones((r, 3), dtype=torch.float32, device=dev),
+        torch.ones((r,), dtype=torch.bool, device=dev),
+        origin.expand(r, 3),
+        dirs,
+        torch.arange(r, device=dev),
+    )
+    if eye_shared:
+        carry = bounce(carry, shared_eye=True)
+    while carry[0] <= meta.max_depth and bool(carry[3].any()):
+        carry = bounce(carry)
+    color, idx = carry[1], carry[6]
+    if compact and bool((idx != torch.arange(r, device=dev)).any()):
+        color = _uncompact_color(color, idx)
+    return color
+
+
+def _tile_block_shape():
+    """(bh, bw) pixel block holding exactly TILE rays (8x16 for 128)."""
+    bh = 1 << (max(TILE.bit_length() - 1, 0) // 2)
+    return bh, TILE // bh
+
+
+def render_camera(data: SceneData, meta: SceneMeta, cam: Camera,
+                  cset: ClusterSet, chunk: int = 1 << 22, bfc: bool = False,
+                  relaxed: bool = False, device="cuda"):
+    """Render one camera to an (H, W, 3) f32 radiance image on ``device``
+    (CUDA by default; raises without a GPU).  Rays are reordered into 8x16
+    pixel blocks so every kernel tile is a coherent frustum, and the whole
+    frame is one wavefront; frames above ``chunk`` rays need the streamed
+    band renderer, which is not ported yet."""
+    dev = resolve_device(device)
+    if data.device != dev or cset.tri_dat.device != dev:
+        raise ValueError(f"scene on {data.device} and clusters on "
+                         f"{cset.tri_dat.device}, render on {dev}")
+    h, w = cam.height, cam.width
+    chunk = max(TILE, (chunk // TILE) * TILE)
+    if h * w > chunk:
+        raise NotImplementedError(
+            f"{h * w} rays exceed chunk={chunk}: frames beyond one chunk "
+            "need the streamed band renderer, ROADMAP queue 1 row 11")
+    bh, bw = _tile_block_shape()
+    blocks = perm = inv = None
+    if divides(h, w, bh, bw):
+        blocks = (bh, bw)
+    else:
+        p, i = block_permutation(h, w, bh, bw)
+        perm = torch.from_numpy(p).to(dev)
+        inv = torch.from_numpy(i).to(dev)
+    vec = torch.from_numpy(camera_vectors(cam)).to(dev)
+    origin, dirs = eye_rays_from(vec, w, h)
+    dirs = apply_tile_order(dirs, h, w, blocks, perm).contiguous()
+    color = render_rays(data, meta, origin, dirs, cset, bfc=bfc,
+                        relaxed=relaxed)
+    color = undo_tile_order(color, h, w, blocks, inv)
+    return color.reshape(h, w, 3)

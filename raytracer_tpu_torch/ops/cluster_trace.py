@@ -1,0 +1,384 @@
+"""The cluster engine around its kernels (port of the glue in
+``raytracer_tpu/ops/cluster_trace.py``).
+
+Per trace call:
+
+1. A per-tile cluster mask: the exact per-ray slab test OR-reduced over
+   each 128-ray tile (``ray_cluster_mask``, the ``ray_mask`` kernel), or
+   for shared-origin eye tiles the interval-arithmetic tile test
+   (``tile_cluster_mask``, plain PyTorch).
+2. ``_compact``: the mask becomes a front-to-back id list per tile (stable
+   descending sort of -entry: ties keep the lower cluster id, like
+   ``lax.top_k``), an unclamped count and a bitmask for tiles whose list
+   overflows.
+3. The ``closest`` or ``shadow`` kernel visits each tile's candidates.
+
+The TPU scaffolding is not ported: the ``MAX_NT`` splits (SMEM budget),
+``TPB`` tiles per program and the ``SEG_SLOTS`` segmentation (VMEM
+residency).  The CUDA kernels read the tables from device memory at any
+size, and the JAX package's own tests pin its segmented path equal to
+the unsegmented one.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from raytracer_tpu_torch.models.clusters import ClusterSet
+from raytracer_tpu_torch.ops import kernels
+from raytracer_tpu_torch.ops.kernels import MAX_SPH_LIST, MAX_TRI_LIST, TILE
+from raytracer_tpu_torch.ops.shade import cross
+
+MISS = -1
+_BIG = 1e18     # finite reciprocal sentinel: no inf*0 NaN in slab tests
+_INF = float("inf")
+
+# scenes with at most this many spheres test them densely over all rays
+# (and merge) instead of visiting sphere clusters in the kernels
+SMALL_SPH = 8
+
+# per-light shadow plane tables above this size take the generic any-hit
+# kernel in the JAX package (_any_kernel), which is not ported yet
+SHADOW_PLANES_BYTES_MAX = 8 << 20
+
+
+def _interval_mul(alo, ahi, blo, bhi):
+    p1, p2, p3, p4 = alo * blo, alo * bhi, ahi * blo, ahi * bhi
+    lo = torch.minimum(torch.minimum(p1, p2), torch.minimum(p3, p4))
+    hi = torch.maximum(torch.maximum(p1, p2), torch.maximum(p3, p4))
+    return lo, hi
+
+
+def tile_cluster_mask(origin, dirs, active, cmin, cmax, t_hi, tile: int):
+    """(hit (nt, C) bool, entry lower bound (nt, C) f32): could any ray of
+    the tile hit the cluster box?  Interval arithmetic over the tile's
+    origin and direction boxes (conservative; near-tight for the coherent
+    frusta of shared-origin eye tiles).  ``active``: (R,) or None; closest-
+    hit waves have no t window, so ``t_hi`` must be None."""
+    if t_hi is not None:
+        raise ValueError("tile_cluster_mask takes no t window")
+    r = dirs.shape[0]
+    nt = r // tile
+    o = origin.reshape(nt, tile, 3)
+    d = dirs.reshape(nt, tile, 3)
+    if active is None:
+        o_lo, o_hi = o.amin(1), o.amax(1)
+        d_lo, d_hi = d.amin(1), d.amax(1)
+        none_active = None
+    else:
+        act = active.reshape(nt, tile, 1)
+        o_lo = torch.where(act, o, _INF).amin(1)
+        o_hi = torch.where(act, o, -_INF).amax(1)
+        d_lo = torch.where(act, d, _INF).amin(1)
+        d_hi = torch.where(act, d, -_INF).amax(1)
+        none_active = ~active.reshape(nt, tile).any(1, keepdim=True)
+        # a fully-inactive tile gets a degenerate point interval at 0
+        o_lo = torch.where(none_active, 0.0, o_lo)
+        o_hi = torch.where(none_active, 0.0, o_hi)
+        d_lo = torch.where(none_active, 1.0, d_lo)
+        d_hi = torch.where(none_active, 1.0, d_hi)
+
+    crosses = (d_lo <= 0.0) & (d_hi >= 0.0)
+    i_lo = torch.where(crosses, -_BIG, 1.0 / d_hi)
+    i_hi = torch.where(crosses, _BIG, 1.0 / d_lo)
+
+    n1_lo = cmin[None] - o_hi[:, None]
+    n1_hi = cmin[None] - o_lo[:, None]
+    n2_lo = cmax[None] - o_hi[:, None]
+    n2_hi = cmax[None] - o_lo[:, None]
+    il, ih = i_lo[:, None], i_hi[:, None]
+    t1_lo, t1_hi = _interval_mul(n1_lo, n1_hi, il, ih)
+    t2_lo, t2_hi = _interval_mul(n2_lo, n2_hi, il, ih)
+    entry_lo = torch.minimum(t1_lo, t2_lo).amax(-1)   # (nt, C)
+    exit_hi = torch.maximum(t1_hi, t2_hi).amin(-1)
+    hit = (entry_lo <= exit_hi) & (exit_hi >= 0.0)
+    if none_active is not None:
+        hit &= ~none_active
+    return hit, entry_lo
+
+
+def ray_cluster_mask(origin, dirs, active, cmin, cmax, t_hi, tile: int):
+    """(hit (nt, C) bool, entry (nt, C) f32): does ANY ray of the tile
+    cross the cluster box within its t window (the reference's slab test
+    per ray), and the least slab entry over those rays (+inf when none).
+
+    Zero direction components use the FINITE reciprocal sentinel _BIG, so
+    both slab planes land on the same huge-t side exactly when the origin
+    is outside the slab, without NaN.  The per-ray terms (o*inv, inv, the
+    t window folded with the active mask) are precomputed here into the
+    kernel's (8, R) bundle."""
+    r = dirs.shape[0]
+    nt = r // tile
+    dev = dirs.device
+    nz = dirs != 0.0
+    inv = torch.where(
+        nz, torch.clamp(1.0 / torch.where(nz, dirs, 1.0), -_BIG, _BIG), _BIG)
+    oi = origin * inv
+    thi = (torch.full((r,), _INF, device=dev) if t_hi is None else t_hi)
+    if active is not None:
+        thi = torch.where(active, thi, -_INF)
+        act = active.reshape(nt, tile).any(1).to(torch.int32)
+    else:
+        act = torch.ones((nt,), dtype=torch.int32, device=dev)
+    c = cmin.shape[0]
+    box = torch.full((8, c), _BIG, dtype=torch.float32, device=dev)
+    box[0:3] = cmin.T
+    box[4:7] = cmax.T
+    bundle = torch.cat([oi.T, thi[None], inv.T,
+                        torch.zeros((1, r), dtype=torch.float32, device=dev)])
+    hit, ent = kernels.ray_mask(act, box, bundle.contiguous())
+    return hit != 0, ent
+
+
+def _compact(hit, entry, max_list: int):
+    """(hit, entry) (nt, C) -> (words (nt*W,) i32, ids (nt*max_list,) i32,
+    elist (nt*max_list,) f32, counts (nt,) i32).
+
+    ``ids`` holds each tile's first max_list candidates sorted FRONT TO
+    BACK by slab entry (the order decides exact-t ties in the closest
+    kernel); ``counts`` is unclamped, so a kernel can see the overflow and
+    scan the bitmask ``words`` instead."""
+    nt, c = hit.shape
+    dev = hit.device
+    counts = hit.sum(1).to(torch.int32)
+    k = min(max_list, c)
+    keys = torch.where(hit, -entry, -_INF)
+    vals, ids = torch.sort(keys, dim=1, descending=True, stable=True)
+    ids = ids[:, :k].to(torch.int32)
+    elist = -vals[:, :k]
+    if k < max_list:
+        ids = torch.nn.functional.pad(ids, (0, max_list - k))
+        elist = torch.nn.functional.pad(elist, (0, max_list - k), value=_INF)
+    w = -(-c // 32)
+    hp = torch.nn.functional.pad(hit, (0, w * 32 - c))
+    weights = torch.ones((), dtype=torch.int64, device=dev) << torch.arange(
+        32, dtype=torch.int64, device=dev)
+    words = (hp.reshape(nt, w, 32).to(torch.int64) * weights).sum(-1)
+    words = torch.where(words >= 1 << 31, words - (1 << 32), words)
+    return (words.reshape(-1).to(torch.int32), ids.reshape(-1).contiguous(),
+            elist.reshape(-1), counts)
+
+
+def _lists(thit, shit):
+    """Triangle and sphere shortlists (tw, tl, tc, sw, sl, sc)."""
+    tw, tl, _, tc = _compact(*thit, MAX_TRI_LIST)
+    sw, sl, _, sc = _compact(*shit, MAX_SPH_LIST)
+    return tw, tl, tc, sw, sl, sc
+
+
+def _empty_shit(nt: int, cs: int, device):
+    return (torch.zeros((nt, cs), dtype=torch.bool, device=device),
+            torch.full((nt, cs), _INF, device=device))
+
+
+def _cluster_masks(cset: ClusterSet, origin, dirs, active, t_hi,
+                   mask_fn=ray_cluster_mask):
+    """ONE mask pass over the concatenated triangle+sphere cluster boxes,
+    split into (thit, shit).  Scenes with at most SMALL_SPH spheres get an
+    EMPTY sphere shortlist: their spheres are tested densely instead."""
+    ct_n = cset.tri_cmin.shape[0]
+    if cset.n_sph <= SMALL_SPH:
+        thit = mask_fn(origin, dirs, active, cset.tri_cmin, cset.tri_cmax,
+                       t_hi, TILE)
+        return thit, _empty_shit(thit[0].shape[0], cset.sph_cmin.shape[0],
+                                 dirs.device)
+    cmin = torch.cat([cset.tri_cmin, cset.sph_cmin])
+    cmax = torch.cat([cset.tri_cmax, cset.sph_cmax])
+    hit, ent = mask_fn(origin, dirs, active, cmin, cmax, t_hi, TILE)
+    return (hit[:, :ct_n], ent[:, :ct_n]), (hit[:, ct_n:], ent[:, ct_n:])
+
+
+def _sum3(x):
+    return x[0] + x[1] + x[2]
+
+
+def build_shadow_planes(cset: ClusterSet, light_pos, bfc: bool = False):
+    """(16, Pt) f32 per-light occlusion planes for every triangle slot.
+
+    A shadow ray is a SEGMENT from a surface point o to the light L, so the
+    reference's triangle test (barycentrics >= 0 and 0 <= t < d) is four
+    sign tests of planes that depend only on (triangle, L): the supporting
+    plane and the planes through L and each edge, scaled by one orientation
+    sigma = -sign(n.(L-A)).  Occluded <=> all four, evaluated at o, are
+    >= 0.  Rows: [0:4] sigma*(n, -n.A) (the d-row is -1 on degenerate or
+    padding slots so they never occlude), [4:8] sigma*(m1, -m1.L) with
+    m1 = (A-L)x(B-L), [8:12] edge BC, [12:16] edge CA.  ``bfc`` culls
+    back-facing occluders."""
+    sv = cset.tri_verts
+    a, b, c = sv[0:3], sv[3:6], sv[6:9]
+    lp = light_pos.to(torch.float32).reshape(3, 1)
+    n = cross(b - a, c - a)
+    d0 = -_sum3(n * a)
+    k0 = _sum3(n * (lp - a))
+    la, lb, lc = a - lp, b - lp, c - lp
+    m1 = cross(la, lb)
+    m2 = cross(lb, lc)
+    m3 = cross(lc, la)
+    c1 = -_sum3(m1 * lp)
+    c2 = -_sum3(m2 * lp)
+    c3 = -_sum3(m3 * lp)
+    ok = k0 < 0.0 if bfc else k0 != 0.0
+    s = torch.where(ok, -torch.sign(k0), 0.0)
+    d0 = torch.where(ok, s * d0, -1.0)
+    return torch.cat([
+        s * n, d0[None],
+        s * m1, (s * c1)[None],
+        s * m2, (s * c2)[None],
+        s * m3, (s * c3)[None],
+    ], dim=0).contiguous()
+
+
+def _pad_rays(origin, dirs, *extras):
+    """Pad the ray axis to a multiple of TILE with copies of the last ray;
+    extra per-ray tensors (or None) are padded with zeros.  Returns
+    (r, origin, dirs, *extras)."""
+    r = dirs.shape[0]
+    pad = (-r) % TILE
+    if pad == 0:
+        return (r, origin, dirs) + extras
+    origin = torch.cat([origin, origin[-1:].expand(pad, 3)])
+    dirs = torch.cat([dirs, dirs[-1:].expand(pad, 3)])
+    out = []
+    for e in extras:
+        out.append(None if e is None else torch.cat(
+            [e, torch.zeros((pad,) + tuple(e.shape[1:]), dtype=e.dtype,
+                            device=e.device)]))
+    return (r, origin, dirs) + tuple(out)
+
+
+def _sph_rows(cset: ClusterSet):
+    n = cset.n_sph
+    return [cset.sph_dat[i, :n][None] for i in range(4)]
+
+
+def _small_sphere_test(cset: ClusterSet, origin, dirs):
+    """(t, ok) of shape (R, n_sph): the kernels' sphere quadratic over
+    every (ray, sphere) pair."""
+    ox, oy, oz = origin[:, 0:1], origin[:, 1:2], origin[:, 2:3]
+    dx, dy, dz = dirs[:, 0:1], dirs[:, 1:2], dirs[:, 2:3]
+    return kernels._sph_test(_sph_rows(cset), ox, oy, oz, dx, dy, dz)
+
+
+def _small_sphere_occluded(cset: ClusterSet, origin, dirs, relaxed: bool):
+    """(R,) any sphere hit with t < 1 on the segment origin -> origin+dirs."""
+    ox, oy, oz = origin[:, 0:1], origin[:, 1:2], origin[:, 2:3]
+    dx, dy, dz = dirs[:, 0:1], dirs[:, 1:2], dirs[:, 2:3]
+    return kernels._sph_occluded(_sph_rows(cset), ox, oy, oz, dx, dy, dz,
+                                 relaxed).any(1)
+
+
+def _small_sphere_test_multi(cset: ClusterSet, origin, lps, relaxed: bool):
+    """(R, L) small-sphere occlusion toward every light."""
+    return torch.stack([
+        _small_sphere_occluded(cset, origin, lps[3 * l:3 * l + 3][None] - origin,
+                               relaxed)
+        for l in range(lps.shape[0] // 3)], dim=1)
+
+
+def _merge_small_spheres(cset: ClusterSet, origin, dirs, t_k, slot_k):
+    """Merge the kernel's (t, slot) with the dense small-sphere test under
+    the kernel's rules: strict < so triangles keep exact-t ties, and the
+    lowest sphere slot wins sphere-sphere ties."""
+    t_s, ok = _small_sphere_test(cset, origin, dirs)
+    t_s = torch.where(ok, t_s, _INF)
+    tj, j = t_s.min(dim=1)
+    t_kv = torch.where(slot_k >= 0, t_k, _INF)
+    upd = tj < t_kv
+    pt = cset.tri_dat.shape[1]
+    slot = torch.where(upd, pt + j.to(torch.int32), slot_k)
+    return torch.where(upd, tj, t_k), slot
+
+
+def _slot_to_prim(cset: ClusterSet, slot):
+    """Kernel slot -> global primitive id (MISS for slot < 0)."""
+    pt = cset.tri_dat.shape[1]
+    ps = cset.sph_dat.shape[1]
+    tri_id = cset.tri_slot[torch.clamp(slot, 0, pt - 1).long()]
+    sph_id = cset.sph_slot[torch.clamp(slot - pt, 0, ps - 1).long()]
+    prim = torch.where(slot < pt, tri_id, sph_id)
+    return torch.where(slot < 0, MISS, prim)
+
+
+def cluster_closest_hit(cset: ClusterSet, origin, dirs, shadow_eps: float,
+                        active=None, bfc: bool = False,
+                        shared_origin: bool = False):
+    """Closest hit with shading info from the kernel's (t, slot) and ONE
+    gather of the per-slot table.  ``origin``: (3,) with
+    ``shared_origin`` (eye wavefronts: interval tile mask and the shared-
+    origin kernel), else (R, 3).  Returns (hit, t, normal, mat, point,
+    offset, prim)."""
+    shared = shared_origin and origin.dim() == 1
+    org1 = origin.reshape(3).contiguous() if shared else None
+    origin = origin.expand(dirs.shape).contiguous()
+    r, origin, dirs, active = _pad_rays(origin, dirs.contiguous(), active)
+    mask_fn = tile_cluster_mask if shared else ray_cluster_mask
+    thit, shit = _cluster_masks(cset, origin, dirs, active, None, mask_fn)
+    t, slot = kernels.closest(*_lists(thit, shit),
+                              org1 if shared else origin, dirs,
+                              cset.tri_dat, cset.sph_dat, bfc)
+    if 0 < cset.n_sph <= SMALL_SPH:
+        t, slot = _merge_small_spheres(cset, origin, dirs, t, slot)
+    t, slot = t[:r], slot[:r]
+    origin, dirs = origin[:r], dirs[:r]
+    hit = slot >= 0
+    sslot = torch.where(hit, slot, 0).long()
+    pt = cset.tri_dat.shape[1]
+    pack = cset.slot_pack[sslot]
+    aux = pack[:, 0:3]                  # tri: unit normal; sph: center
+    rad = pack[:, 3]
+    mat = torch.where(hit, pack[:, 4].long(), 0)
+    t = torch.where(hit, t, 1.0)
+    point = origin + t[:, None] * dirs
+    sph_lane = hit & (sslot >= pt)
+    up = torch.tensor([0.0, 0.0, 1.0], device=dirs.device)
+    safe_rad = torch.where(sph_lane, torch.clamp_min(rad, 1e-30), 1.0)
+    n_raw = torch.where(sph_lane[:, None], (point - aux) / safe_rad[:, None], up)
+    n_sphere = n_raw / torch.sqrt((n_raw * n_raw).sum(-1, keepdim=True))
+    normal = torch.where(sph_lane[:, None], n_sphere, aux)
+    normal = torch.where(hit[:, None], normal, up)
+    offset = point + normal * shadow_eps   # f32 multiply, as in JAX
+    prim = torch.where(hit, pack[:, 5].long(), MISS)
+    return hit, t, normal, mat, point, offset, prim
+
+
+def cluster_shadow(cset: ClusterSet, planes, origin, dirs, light_pos,
+                   active=None, relaxed: bool = False):
+    """Occlusion of the segments origin -> light_pos (t < 1) for ONE light;
+    ``dirs`` is the unnormalized segment light_pos - origin (it shapes the
+    tile shortlists; the kernel tests origins against ``planes``)."""
+    r, origin, dirs, active = _pad_rays(origin.contiguous(),
+                                        dirs.contiguous(), active)
+    ones = torch.ones((origin.shape[0],), device=origin.device)
+    thit, shit = _cluster_masks(cset, origin, dirs, active, ones)
+    lists = [x[None] for x in _lists(thit, shit)]
+    lp = light_pos.to(torch.float32).reshape(3).contiguous()
+    found = kernels.shadow(*lists, lp, origin, planes[None], cset.sph_dat,
+                           relaxed)
+    occ = (found & 1) != 0
+    if 0 < cset.n_sph <= SMALL_SPH:
+        occ = occ | _small_sphere_occluded(cset, origin, dirs, relaxed)
+    return occ[:r]
+
+
+def cluster_shadow_multi(cset: ClusterSet, planes_list, origin, light_pos,
+                         active_per_light, relaxed: bool = False):
+    """Occlusion toward ALL lights in ONE kernel launch: light_pos (L, 3),
+    active_per_light (R, L) bool; returns (R, L) bool, per light equal to
+    :func:`cluster_shadow`."""
+    nl = len(planes_list)
+    lp = light_pos.to(torch.float32).reshape(-1).contiguous()
+    acts = [active_per_light[:, l] for l in range(nl)]
+    r, origin, _, *acts = _pad_rays(origin.contiguous(), origin, *acts)
+    ones = torch.ones((origin.shape[0],), device=origin.device)
+    per_light = []
+    for l in range(nl):
+        dirs_l = lp[3 * l:3 * l + 3][None] - origin
+        per_light.append(_lists(*_cluster_masks(cset, origin, dirs_l,
+                                                acts[l], ones)))
+    lists = [torch.stack(x) for x in zip(*per_light)]
+    found = kernels.shadow(*lists, lp, origin, torch.stack(planes_list),
+                           cset.sph_dat, relaxed)
+    occ = torch.stack([(found >> l) & 1 for l in range(nl)], dim=1) != 0
+    if 0 < cset.n_sph <= SMALL_SPH:
+        occ = occ | _small_sphere_test_multi(cset, origin, lp, relaxed)
+    return occ[:r]

@@ -1,0 +1,410 @@
+"""The cluster engine's three hand-written CUDA kernels: wrappers, plain
+PyTorch versions and launch counts.
+
+=========  ===============================  ==============================
+wrapper    CUDA source                      replaces (raytracer_tpu/ops/
+                                            cluster_trace.py)
+=========  ===============================  ==============================
+ray_mask   csrc/ray_mask.cu                 _ray_mask_kernel (:305)
+closest    csrc/closest.cu                  _closest_kernel (:720), shared
+                                            origin and per-ray origin
+shadow     csrc/shadow.cu                   _shadow_kernel (:982) and
+                                            _shadow_kernel_ml (:1135)
+=========  ===============================  ==============================
+
+Each wrapper dispatches on the device of its inputs: CPU tensors go to
+the plain version beside it (``*_plain``), CUDA tensors to the kernel,
+and a kernel that does not build or launch raises; nothing falls back.
+The plain versions take the same arguments and compute the same
+function, visit for visit, in the same IEEE float32 operations (the
+kernels are built with ``-fmad=false``), so on the card each kernel
+equals its plain version bit for bit.  ``launches`` counts kernel
+launches per wrapper (the closest kernel per call shape); the plain
+versions do not count.
+
+Visit semantics (shared by kernel and plain version): a tile's triangle
+clusters are visited first, then its sphere clusters; each side walks
+the tile's compacted id list (front to back by slab entry) when its
+count fits ``MAX_TRI_LIST`` / ``MAX_SPH_LIST``, else every cluster whose
+bit is set, ascending; with at most ``DENSE_SPH_ROWS`` sphere clusters
+in the scene, a tile with any sphere candidate visits every sphere
+cluster, ascending.  The closest hit is the lexicographic minimum of
+(t, lane, visit), which is what the TPU kernel's lanewise accumulator
+and first-lane argmin give.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from raytracer_tpu_torch import backend
+
+TILE = 128           # rays per tile (one CUDA block)
+CLUSTER = 128        # primitive slots per cluster
+MAX_TRI_LIST = 48    # list capacity before the bitmask fallback
+MAX_SPH_LIST = 8
+DENSE_SPH_ROWS = 8   # scenes with <= this many sphere clusters visit all
+
+launches = {"ray_mask": 0, "closest_shared": 0, "closest": 0, "shadow": 0}
+
+# tiles per step of the plain versions: bounds their (tiles, 128, 128)
+# and (tiles, 128, C) temporaries
+_PLAIN_PAIRS = 1 << 23
+
+_INF = float("inf")
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# launch plumbing
+# ---------------------------------------------------------------------------
+
+def _check(name: str, x: torch.Tensor, dtype, shape, device) -> None:
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise ValueError(f"{name} has dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _launch(name: str, counter: str, device: torch.device, *args) -> None:
+    """Call C entry ``rt_<name>`` on the current stream of ``device``
+    (tensors pass as data pointers), raise on its CUDA error code, and
+    count the launch under ``counter``."""
+    lib = backend.kernels()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else int(a)
+                  for a in args]
+        rc = getattr(lib, "rt_" + name)(*c_args, stream)
+    backend.check(rc, name)
+    launches[counter] += 1
+
+
+def _chunks(nt: int, per_tile: int):
+    step = max(1, _PLAIN_PAIRS // max(1, per_tile))
+    for a in range(0, nt, step):
+        yield a, min(a + step, nt)
+
+
+def _visit_table(words, ids, counts, n_clusters: int, max_list: int,
+                 a: int, e: int) -> torch.Tensor:
+    """(e - a, V) int64 cluster ids in visit order for tiles [a, e), -1
+    past a tile's last visit: the list when count <= max_list, else the
+    set bits of the tile's bitmask, ascending."""
+    nt = counts.shape[0]
+    cnt = counts[a:e].long()
+    pos = torch.arange(max_list, device=cnt.device)
+    lst = ids.view(nt, max_list)[a:e].long()
+    lst = torch.where(pos[None] < cnt[:, None], lst, -1)
+    over = cnt > max_list
+    if bool(over.any()):
+        wpt = words.shape[0] // nt
+        shift = torch.arange(32, dtype=torch.int32, device=cnt.device)
+        bits = (words.view(nt, wpt)[a:e, :, None] >> shift) & 1
+        bits = bits.reshape(e - a, wpt * 32)[:, :n_clusters] != 0
+        cid = torch.arange(n_clusters, device=cnt.device)
+        asc = torch.where(bits, cid, n_clusters).sort(dim=1).values
+        asc = torch.where(asc < n_clusters, asc, -1)
+        width = max(max_list, n_clusters)
+        lst = torch.nn.functional.pad(lst, (0, width - max_list), value=-1)
+        asc = torch.nn.functional.pad(asc, (0, width - n_clusters), value=-1)
+        lst = torch.where(over[:, None], asc, lst)
+    n_vis = int(torch.clamp(cnt, max=lst.shape[1]).max()) if e > a else 0
+    return lst[:, :n_vis]
+
+
+def _dense_table(sc, cs: int, a: int, e: int) -> torch.Tensor:
+    """Every sphere cluster, ascending, for tiles with a sphere candidate."""
+    cid = torch.arange(cs, device=sc.device)
+    return torch.where((sc[a:e] != 0)[:, None], cid[None], -1)
+
+
+def _gather(dat: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """(rows, n, 1, CLUSTER) columns of cluster k per tile (k >= 0)."""
+    cols = k.clamp(min=0)[:, None] * CLUSTER + torch.arange(
+        CLUSTER, device=k.device)
+    return dat[:, cols][:, :, None, :]
+
+
+# ---------------------------------------------------------------------------
+# per-pair tests: the float32 operation order of the Pallas kernels
+# (cluster_trace.py:520-568, 621-644, 1031-1035)
+# ---------------------------------------------------------------------------
+
+def _tri_test(r, ox, oy, oz, dx, dy, dz, bfc: bool):
+    nx, ny, nz, w1x, w1y, w1z, w2x, w2y, w2z, naa, w1aa, w2aa = r
+    nd = dx * nx + dy * ny + dz * nz
+    no = ox * nx + oy * ny + oz * nz
+    t = (naa - no) / nd
+    beta = (ox * w1x + oy * w1y + oz * w1z) + t * (dx * w1x + dy * w1y + dz * w1z) - w1aa
+    gamma = (ox * w2x + oy * w2y + oz * w2z) + t * (dx * w2x + dy * w2y + dz * w2z) - w2aa
+    alpha = 1.0 - beta - gamma
+    # all-zero padding rows give t = 0/0 = NaN: every comparison is False
+    ok = (alpha >= 0.0) & (beta >= 0.0) & (gamma >= 0.0) & (t >= 0.0)
+    if bfc:
+        ok = ok & (nd < 0.0)
+    return t, ok
+
+
+def _sph_terms(r, ox, oy, oz, dx, dy, dz):
+    cx, cy, cz, rad = r
+    ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
+    a_q = dx * dx + dy * dy + dz * dz
+    b_q = 2.0 * (dx * ocx + dy * ocy + dz * ocz)
+    c_q = ocx * ocx + ocy * ocy + ocz * ocz - rad * rad
+    disc = b_q * b_q - 4.0 * a_q * c_q
+    return rad, a_q, b_q, c_q, disc
+
+
+def _sph_test(r, ox, oy, oz, dx, dy, dz):
+    """Smaller root even when negative (the reference's quirk); the t2 < 0
+    test is the sign test (sq - b) < 0, division by 2a > 0 kept out."""
+    rad, a_q, b_q, _, disc = _sph_terms(r, ox, oy, oz, dx, dy, dz)
+    sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+    t1 = (-b_q - sq) / (2.0 * a_q)
+    ok = (disc >= 0.0) & ~((t1 < 0.0) & ((sq - b_q) < 0.0)) & (rad > 0.0)
+    return t1, ok
+
+
+def _sph_occluded(r, ox, oy, oz, dx, dy, dz, relaxed: bool):
+    """Any hit with t < 1 on the segment o -> o + d."""
+    if not relaxed:
+        t1, ok = _sph_test(r, ox, oy, oz, dx, dy, dz)
+        return ok & (t1 < 1.0)
+    # sqrt/div-free sign tests (--relaxed-parity)
+    rad, a_q, b_q, c_q, disc = _sph_terms(r, ox, oy, oz, dx, dy, dz)
+    u = 2.0 * a_q + b_q
+    return ((rad > 0.0) & (disc >= 0.0) & ((b_q <= 0.0) | (c_q <= 0.0))
+            & ((u > 0.0) | (disc > u * u)))
+
+
+def _plane_min(r, ox, oy, oz):
+    u0 = ox * r[0] + (oy * r[1] + (oz * r[2] + r[3]))
+    v1 = ox * r[4] + (oy * r[5] + (oz * r[6] + r[7]))
+    v2 = ox * r[8] + (oy * r[9] + (oz * r[10] + r[11]))
+    v3 = ox * r[12] + (oy * r[13] + (oz * r[14] + r[15]))
+    return torch.minimum(torch.minimum(u0, v1), torch.minimum(v2, v3))
+
+
+# ---------------------------------------------------------------------------
+# ray_mask: exact per-ray slab test of every ray against every cluster box
+# ---------------------------------------------------------------------------
+
+def ray_mask(act: torch.Tensor, box: torch.Tensor, bundle: torch.Tensor):
+    """(hit (nt, C) i32, ent (nt, C) f32): does any ray of tile i cross
+    cluster box c within its t window, and the least slab entry over those
+    rays (+inf when none).
+
+    act: (nt,) i32, 0 for tiles without an active ray (written 0 / +inf).
+    box: (8, C) f32 rows [cmin xyz, unused, cmax xyz, unused].
+    bundle: (8, nt*128) f32 rows [o*inv (3), t_hi, inv (3), unused], with
+    inv the clamped reciprocal direction and t_hi -inf on inactive rays.
+    """
+    if bundle.device.type == "cpu":
+        return ray_mask_plain(act, box, bundle)
+    nt, c, dev = act.shape[0], box.shape[1], bundle.device
+    _check("act", act, torch.int32, (nt,), dev)
+    _check("box", box, torch.float32, (8, c), dev)
+    _check("bundle", bundle, torch.float32, (8, nt * TILE), dev)
+    hit = torch.empty((nt, c), dtype=torch.int32, device=dev)
+    ent = torch.empty((nt, c), dtype=torch.float32, device=dev)
+    _launch("ray_mask", "ray_mask", dev, act, box, bundle, hit, ent, nt, c, nt * TILE)
+    return hit, ent
+
+
+def ray_mask_plain(act: torch.Tensor, box: torch.Tensor, bundle: torch.Tensor):
+    """Plain PyTorch version of :func:`ray_mask`."""
+    nt, c = act.shape[0], box.shape[1]
+    hit = torch.zeros((nt, c), dtype=torch.int32, device=bundle.device)
+    ent = torch.full((nt, c), _INF, dtype=torch.float32, device=bundle.device)
+    bx = box[:, None, None, :]
+    b = bundle.view(8, nt, TILE)
+    for a, e in _chunks(nt, TILE * c):
+        oix, oiy, oiz, thi, ix, iy, iz = b[:7, a:e, :, None]
+        t1 = ix * bx[0] - oix
+        t2 = ix * bx[4] - oix
+        nx, fx = torch.minimum(t1, t2), torch.maximum(t1, t2)
+        t1 = iy * bx[1] - oiy
+        t2 = iy * bx[5] - oiy
+        ny, fy = torch.minimum(t1, t2), torch.maximum(t1, t2)
+        t1 = iz * bx[2] - oiz
+        t2 = iz * bx[6] - oiz
+        nz, fz = torch.minimum(t1, t2), torch.maximum(t1, t2)
+        entry = torch.maximum(nx, torch.maximum(ny, nz))
+        exit_ = torch.minimum(fx, torch.minimum(fy, fz))
+        pair = (entry <= exit_) & (exit_ >= 0.0) & (entry <= thi)
+        live = (act[a:e] != 0)[:, None]
+        hit[a:e] = (pair.any(1) & live).to(torch.int32)
+        ent[a:e] = torch.where(
+            live, torch.where(pair, entry, _INF).amin(1), _INF)
+    return hit, ent
+
+
+# ---------------------------------------------------------------------------
+# closest: nearest triangle/sphere hit over each tile's shortlists
+# ---------------------------------------------------------------------------
+
+def closest(tw, tl, tc, sw, sl, sc, origin, dirs, tri_dat, sph_dat,
+            bfc: bool = False):
+    """(t (R,) f32, slot (R,) i32) of each ray's closest hit; (inf, -1) on
+    a miss.  Slots: k*128 + j for triangle cluster k, Pt + k*128 + j for
+    sphere cluster k.
+
+    tw/sw: (nt*W,) i32 candidate bitmasks; tl: (nt*48,) / sl: (nt*8,) i32
+    front-to-back id lists; tc/sc: (nt,) i32 candidate counts (unclamped).
+    origin: (3,) f32 for a shared origin (eye rays) or (R, 3); dirs: (R, 3).
+    tri_dat: (12, Pt), sph_dat: (4, Ps) f32 cluster tables.
+    """
+    if dirs.device.type == "cpu":
+        return closest_plain(tw, tl, tc, sw, sl, sc, origin, dirs, tri_dat,
+                             sph_dat, bfc)
+    dev, r = dirs.device, dirs.shape[0]
+    nt, pt, ps = r // TILE, tri_dat.shape[1], sph_dat.shape[1]
+    ct, cs = pt // CLUSTER, ps // CLUSTER
+    wt, ws = tw.shape[0] // max(nt, 1), sw.shape[0] // max(nt, 1)
+    shared = origin.dim() == 1
+    for name, x, shape in (("tw", tw, (nt * wt,)), ("tl", tl, (nt * MAX_TRI_LIST,)),
+                           ("tc", tc, (nt,)), ("sw", sw, (nt * ws,)),
+                           ("sl", sl, (nt * MAX_SPH_LIST,)), ("sc", sc, (nt,))):
+        _check(name, x, torch.int32, shape, dev)
+    _check("origin", origin, torch.float32, (3,) if shared else (r, 3), dev)
+    _check("dirs", dirs, torch.float32, (nt * TILE, 3), dev)
+    _check("tri_dat", tri_dat, torch.float32, (12, ct * CLUSTER), dev)
+    _check("sph_dat", sph_dat, torch.float32, (4, cs * CLUSTER), dev)
+    t = torch.empty((r,), dtype=torch.float32, device=dev)
+    slot = torch.empty((r,), dtype=torch.int32, device=dev)
+    _launch("closest", "closest_shared" if shared else "closest", dev, tw, tl, tc, sw, sl, sc, origin, dirs, tri_dat,
+            sph_dat, t, slot, nt, ct, cs, pt, ps, wt, ws, int(shared), int(bfc))
+    return t, slot
+
+
+def closest_plain(tw, tl, tc, sw, sl, sc, origin, dirs, tri_dat, sph_dat,
+                  bfc: bool = False):
+    """Plain PyTorch version of :func:`closest`: vectorised over tiles,
+    one step per visit index."""
+    dev, r = dirs.device, dirs.shape[0]
+    nt, pt = r // TILE, tri_dat.shape[1]
+    ct, cs = pt // CLUSTER, sph_dat.shape[1] // CLUSTER
+    t_out = torch.full((nt, TILE), _INF, dtype=torch.float32, device=dev)
+    s_out = torch.full((nt, TILE), -1, dtype=torch.int32, device=dev)
+    d = dirs.view(nt, TILE, 3)
+    for a, e in _chunks(nt, TILE * CLUSTER):
+        n = e - a
+        dx, dy, dz = d[a:e, :, None, 0], d[a:e, :, None, 1], d[a:e, :, None, 2]
+        if origin.dim() == 1:
+            ox, oy, oz = origin[0], origin[1], origin[2]
+        else:
+            o = origin.view(nt, TILE, 3)[a:e]
+            ox, oy, oz = o[:, :, None, 0], o[:, :, None, 1], o[:, :, None, 2]
+        bt = torch.full((n, TILE), _INF, dtype=torch.float32, device=dev)
+        bj = torch.full((n, TILE), CLUSTER, dtype=torch.int64, device=dev)
+        bk = torch.zeros((n, TILE), dtype=torch.int64, device=dev)
+        tri_vis = _visit_table(tw, tl, tc, ct, MAX_TRI_LIST, a, e)
+        sph_vis = (_dense_table(sc, cs, a, e) if cs <= DENSE_SPH_ROWS else
+                   _visit_table(sw, sl, sc, cs, MAX_SPH_LIST, a, e))
+        for vis, dat, k0 in ((tri_vis, tri_dat, 0), (sph_vis, sph_dat, ct)):
+            for v in range(vis.shape[1]):
+                k = vis[:, v]
+                rows = _gather(dat, k)
+                if k0 == 0:
+                    t, ok = _tri_test(rows, ox, oy, oz, dx, dy, dz, bfc)
+                else:
+                    t, ok = _sph_test(rows, ox, oy, oz, dx, dy, dz)
+                t = torch.where(ok & (k >= 0)[:, None, None], t, _INF)
+                tv, jv = t.min(dim=-1)
+                upd = (tv < bt) | ((tv == bt) & (jv < bj))
+                bt = torch.where(upd, tv, bt)
+                bj = torch.where(upd, jv, bj)
+                bk = torch.where(upd, (k + k0)[:, None], bk)
+        slot = torch.where(bk >= ct, pt + (bk - ct) * CLUSTER + bj,
+                           bk * CLUSTER + bj)
+        t_out[a:e] = bt
+        s_out[a:e] = torch.where(bt < _INF, slot, -1).to(torch.int32)
+    return t_out.reshape(r), s_out.reshape(r)
+
+
+# ---------------------------------------------------------------------------
+# shadow: any-hit toward each point light over the tile's shortlists
+# ---------------------------------------------------------------------------
+
+def shadow(tw, tl, tc, sw, sl, sc, lps, origin, planes, sph_dat,
+           relaxed: bool = False):
+    """(R,) i32 bitfield, bit l set iff the segment origin -> light l is
+    occluded (a triangle by the 4-plane test, a sphere with t < 1).
+
+    tw, tl, tc, sw, sl, sc: per-light shortlists stacked on a leading
+    light axis (as in :func:`closest`); lps: (3*L,) f32 light positions;
+    origin: (R, 3) f32; planes: (L, 16, Pt) f32 from
+    ``cluster_trace.build_shadow_planes``; sph_dat: (4, Ps) f32.
+    """
+    if origin.device.type == "cpu":
+        return shadow_plain(tw, tl, tc, sw, sl, sc, lps, origin, planes,
+                            sph_dat, relaxed)
+    dev, r, nl = origin.device, origin.shape[0], planes.shape[0]
+    nt, pt, ps = r // TILE, planes.shape[2], sph_dat.shape[1]
+    ct, cs = pt // CLUSTER, ps // CLUSTER
+    wt, ws = tw.shape[1] // max(nt, 1), sw.shape[1] // max(nt, 1)
+    if not 1 <= nl <= 32:
+        raise ValueError(f"{nl} lights: the bitfield holds 1 to 32")
+    for name, x, shape in (("tw", tw, (nl, nt * wt)), ("tl", tl, (nl, nt * MAX_TRI_LIST)),
+                           ("tc", tc, (nl, nt)), ("sw", sw, (nl, nt * ws)),
+                           ("sl", sl, (nl, nt * MAX_SPH_LIST)), ("sc", sc, (nl, nt))):
+        _check(name, x, torch.int32, shape, dev)
+    _check("lps", lps, torch.float32, (3 * nl,), dev)
+    _check("origin", origin, torch.float32, (nt * TILE, 3), dev)
+    _check("planes", planes, torch.float32, (nl, 16, ct * CLUSTER), dev)
+    _check("sph_dat", sph_dat, torch.float32, (4, cs * CLUSTER), dev)
+    found = torch.empty((r,), dtype=torch.int32, device=dev)
+    _launch("shadow", "shadow", dev, tw, tl, tc, sw, sl, sc, lps, origin, planes,
+            sph_dat, found, nt, nl, ct, cs, pt, ps, wt, ws, int(relaxed))
+    return found
+
+
+def shadow_plain(tw, tl, tc, sw, sl, sc, lps, origin, planes, sph_dat,
+                 relaxed: bool = False):
+    """Plain PyTorch version of :func:`shadow`.  The per-(ray, lane) plane
+    accumulator is a running max that propagates NaN, as on the TPU; the
+    sphere walk's all-lanes early exit is left out (it skips only visits
+    that cannot change a bit)."""
+    dev, r, nl = origin.device, origin.shape[0], planes.shape[0]
+    nt, pt = r // TILE, planes.shape[2]
+    ct, cs = pt // CLUSTER, sph_dat.shape[1] // CLUSTER
+    found = torch.zeros((nt, TILE), dtype=torch.int32, device=dev)
+    o = origin.view(nt, TILE, 3)
+    for a, e in _chunks(nt, TILE * CLUSTER):
+        ox, oy, oz = o[a:e, :, None, 0], o[a:e, :, None, 1], o[a:e, :, None, 2]
+        fnd = torch.zeros((e - a, TILE), dtype=torch.int32, device=dev)
+        seg = [(lps[3 * l] - ox, lps[3 * l + 1] - oy, lps[3 * l + 2] - oz)
+               for l in range(nl)]
+        for l in range(nl):
+            acc = torch.full((e - a, TILE, CLUSTER), -_INF, device=dev)
+            vis = _visit_table(tw[l], tl[l], tc[l], ct, MAX_TRI_LIST, a, e)
+            for v in range(vis.shape[1]):
+                k = vis[:, v]
+                m = _plane_min(_gather(planes[l], k), ox, oy, oz)
+                acc = torch.maximum(acc, torch.where((k >= 0)[:, None, None], m, -_INF))
+            fnd |= (acc >= 0.0).any(-1).to(torch.int32) << l
+            if cs > DENSE_SPH_ROWS:
+                vis = _visit_table(sw[l], sl[l], sc[l], cs, MAX_SPH_LIST, a, e)
+                for v in range(vis.shape[1]):
+                    k = vis[:, v]
+                    hit = _sph_occluded(_gather(sph_dat, k), ox, oy, oz,
+                                        *seg[l], relaxed)
+                    fnd |= (hit.any(-1) & (k >= 0)[:, None]).to(torch.int32) << l
+        if cs <= DENSE_SPH_ROWS:
+            gate = (sc[:, a:e] != 0).any(0)[:, None]
+            for k in range(cs):
+                rows = sph_dat[:, k * CLUSTER:(k + 1) * CLUSTER][:, None, None, :]
+                for l in range(nl):
+                    hit = _sph_occluded(rows, ox, oy, oz, *seg[l], relaxed)
+                    fnd |= (hit.any(-1) & gate).to(torch.int32) << l
+        found[a:e] = fnd
+    return found.reshape(r)

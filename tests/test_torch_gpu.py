@@ -1,0 +1,58 @@
+"""On a machine with a CUDA card: each kernel equals its plain version on
+the card (run with ``python -m pytest tests/test_torch_gpu.py -m gpu``;
+``chip_smoke.py`` does the same at full size).  Skips without a card."""
+
+import dataclasses
+
+import pytest
+import torch
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("scene,kw", [
+    ("terrain_scene", dict(cells=40, mirror_stripes=True)),
+    ("sphere_field", dict(n_spheres=1200)),
+    ("sphere_field", dict(n_spheres=600)),
+])
+def test_kernels_equal_plain_on_card(cuda, scene, kw):
+    from raytracer_tpu_torch.models.bvh import build_bvh
+    from raytracer_tpu_torch.models.clusters import build_clusters
+    from raytracer_tpu_torch.models.whitted import render_camera
+    from raytracer_tpu_torch.ops import kernels as K
+    from raytracer_tpu_torch.utils import synth
+
+    data, meta = getattr(synth, scene)(res=64, device=cuda, **kw)
+    cset = build_clusters(data, meta, build_bvh(data, meta))
+    calls = []
+    wrapped = {n: getattr(K, n) for n in ("ray_mask", "closest", "shadow")}
+
+    def spy(name):
+        def f(*a):
+            calls.append((name, a))
+            return wrapped[name](*a)
+        return f
+
+    for n in wrapped:
+        setattr(K, n, spy(n))
+    try:
+        render_camera(data, meta, dataclasses.replace(meta.cameras[0]), cset,
+                      device=cuda)
+    finally:
+        for n, f in wrapped.items():
+            setattr(K, n, f)
+    assert {n for n, _ in calls} >= {"ray_mask", "closest", "shadow"}
+    for name, args in calls:
+        out_k = wrapped[name](*args)
+        out_p = getattr(K, name + "_plain")(*args)
+        out_k = out_k if isinstance(out_k, tuple) else (out_k,)
+        out_p = out_p if isinstance(out_p, tuple) else (out_p,)
+        for a, b in zip(out_k, out_p):
+            assert torch.equal(a, b), name

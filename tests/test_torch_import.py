@@ -1,0 +1,97 @@
+"""raytracer_tpu_torch stands alone: it imports neither JAX nor the JAX
+package, it runs on CUDA unless asked for the CPU, and its kernel
+wrappers never fall back to a plain version for a non-CPU tensor."""
+
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "raytracer_tpu_torch")
+
+
+def test_render_loads_no_jax(tmp_path):
+    """In a fresh interpreter (this one has JAX loaded by conftest.py):
+    import the port and render the entry scene on the CPU."""
+    code = (
+        "import sys\n"
+        "from raytracer_tpu_torch.render import main\n"
+        f"main([{os.path.join(REPO, 'tests', 'data', 'entry_scene.xml')!r}, "
+        f"'--ssaa', '1', '--device', 'cpu', '--out-dir', {str(tmp_path)!r}])\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
+        "('jax.', 'jaxlib')) or m == 'raytracer_tpu' or m.startswith('raytracer_tpu.'))\n"
+        "print('LOADED', bad)\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=str(tmp_path),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+    assert (tmp_path / "entry_scene.ppm").exists()
+
+
+def _sources():
+    for root, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def test_sources_import_no_jax():
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|raytracer_tpu)(\.|\s|$)",
+                     re.M)
+    found = []
+    for path in _sources():
+        with open(path) as f:
+            found += [f"{path}: {m.group(0).strip()}" for m in pat.finditer(f.read())]
+    assert not found, found
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    from raytracer_tpu_torch import backend
+    from raytracer_tpu_torch.models.whitted import render_camera
+    from raytracer_tpu_torch.pipeline import render_one_camera
+    from raytracer_tpu_torch.render import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        backend.resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main([os.path.join(REPO, "tests", "data", "entry_scene.xml")])
+    for fn in (render_camera, render_one_camera):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn(None, None, None, None)
+    assert backend.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_wrappers_dispatch_on_tensor_device(monkeypatch):
+    """CPU tensors take the plain version and count no launch; any other
+    device goes to the kernel, and a kernel library that cannot be built
+    raises instead of falling back."""
+    from raytracer_tpu_torch import backend
+    from raytracer_tpu_torch.ops import kernels as K
+
+    act = torch.ones(1, dtype=torch.int32)
+    box = torch.zeros((8, 3))
+    bundle = torch.zeros((8, 128))
+    K.reset_launches()
+    hit, ent = K.ray_mask(act, box, bundle)
+    assert hit.shape == (1, 3) and ent.dtype == torch.float32
+    assert sum(K.launches.values()) == 0
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(backend, "_state", {})
+    monkeypatch.setattr(backend, "library_path", lambda: "/nonexistent/lib.so")
+    monkeypatch.setattr(backend, "_nvcc", no_nvcc)
+    meta = [x.to("meta") for x in (act, box, bundle)]
+    with pytest.raises(RuntimeError, match="nvcc"):
+        K.ray_mask(*meta)
+    assert sum(K.launches.values()) == 0

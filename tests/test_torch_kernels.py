@@ -1,0 +1,227 @@
+"""The port's kernel modules (run through their plain PyTorch versions on
+the CPU) against the JAX package's: the slab masks, shortlist compaction
+and the closest-hit kernel in both call shapes, on one accelerator built
+by the JAX package and handed across.  See torch_port_util for why
+continuous outputs carry tolerances."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from raytracer_tpu.ops import cluster_trace as jct
+from raytracer_tpu_torch.ops import cluster_trace as pct
+from raytracer_tpu_torch.ops import kernels as K
+from torch_port_util import (
+    assert_same, float32_ambiguous, jax_accel, prim_slots, scene_rays,
+    shared_inputs,
+)
+
+R = 1024  # a multiple of TILE * TPB = 1024 on the JAX side
+
+
+def _boxes(cs):
+    cmin = np.concatenate([np.asarray(cs.tri_cmin), np.asarray(cs.sph_cmin)])
+    cmax = np.concatenate([np.asarray(cs.tri_cmax), np.asarray(cs.sph_cmax)])
+    return cmin, cmax
+
+
+def _mask_inputs(scene, seed=1):
+    _, _, _, cs = jax_accel(scene)
+    o, d, act = scene_rays(cs, R, seed)
+    d[::9, 0] = 0.0  # zero direction components take the _BIG sentinel
+    thi = np.random.default_rng(seed).uniform(0.3, 1.5, R).astype(np.float32)
+    return (o, d, act) + _boxes(cs) + (thi,)
+
+
+@pytest.mark.parametrize("scene", ["terrain64", "spheres1200", "entry"])
+def test_ray_mask_equals_eager_jnp(scene):
+    """Bit for bit against _ray_mask_jnp run op by op (its docstring: the
+    same math as the Pallas kernel, bitwise)."""
+    o, d, act, cmin, cmax, thi = _mask_inputs(scene)
+    with jax.disable_jit():
+        jh, je = jct._ray_mask_jnp(*map(jnp.asarray, (o, d, act, cmin, cmax, thi)),
+                                   128)
+    ph, pe = pct.ray_cluster_mask(*map(torch.from_numpy, (o, d, act, cmin, cmax, thi)),
+                                  128)
+    assert np.asarray(jh).any()
+    assert_same(ph.numpy(), jh, "hit")
+    assert_same(pe.numpy(), je, "entry")
+
+
+@pytest.mark.parametrize("scene", ["terrain64", "spheres1200"])
+def test_ray_mask_matches_pallas_interpret(scene):
+    """Against the Pallas kernel itself (interpret mode): equal hit bits;
+    entries within 1e-5 relative + 1e-5 absolute (XLA contracts
+    c*inv - o*inv into an FMA there: a few ulps of the products)."""
+    o, d, act, cmin, cmax, thi = _mask_inputs(scene, seed=2)
+    jh, je = jax.jit(jct._ray_cluster_mask_tpu, static_argnums=(6, 7))(
+        *map(jnp.asarray, (o, d, act, cmin, cmax, thi)), 128, True)
+    ph, pe = pct.ray_cluster_mask(*map(torch.from_numpy, (o, d, act, cmin, cmax, thi)),
+                                  128)
+    jh, je = np.asarray(jh), np.asarray(je)
+    assert_same(ph.numpy(), jh, "hit")
+    np.testing.assert_allclose(pe.numpy()[jh], je[jh], rtol=1e-5, atol=1e-5)
+
+
+def test_tile_mask_equals_jax():
+    """The interval tile mask of eye wavefronts: no a*b+c in it, so it is
+    compared exactly against the jitted JAX function."""
+    _, _, _, cs = jax_accel("terrain16")
+    o, d, act = scene_rays(cs, R, 3)
+    o[:] = o[0]  # one shared origin
+    act[:256] = False  # two fully inactive tiles
+    cmin, cmax = _boxes(cs)
+    jh, je = jax.jit(jct.tile_cluster_mask, static_argnums=(6,))(
+        *map(jnp.asarray, (o, d, act, cmin, cmax)), None, 128)
+    ph, pe = pct.tile_cluster_mask(*map(torch.from_numpy, (o, d, act, cmin, cmax)),
+                                   None, 128)
+    assert_same(ph.numpy(), jh, "hit")
+    assert_same(pe.numpy(), je, "entry")
+    assert not ph[:2].any()
+
+
+@pytest.mark.parametrize("c,max_list", [(5, 8), (37, 8), (70, 48)])
+def test_compact_equals_jax(c, max_list):
+    """Front-to-back lists with ties (lower cluster id first, like
+    lax.top_k), unclamped counts and the bitmask words."""
+    rng = np.random.default_rng(c)
+    nt = 16
+    hit = rng.random((nt, c)) < 0.6
+    hit[0] = True          # overflows small lists
+    hit[1] = False         # empty tile
+    entry = rng.integers(0, 6, (nt, c)).astype(np.float32)  # many ties
+    entry[2] = -0.0
+    with jax.disable_jit():
+        jw, jids, jel, jcnt = jct._compact(jnp.asarray(hit), jnp.asarray(entry), max_list)
+    pw, pids, pel, pcnt = pct._compact(torch.from_numpy(hit), torch.from_numpy(entry),
+                                       max_list)
+    assert_same(pw.numpy(), jw, "words")
+    assert_same(pcnt.numpy(), jcnt, "counts")
+    cnt = np.minimum(np.asarray(jcnt), max_list)
+    keep = np.arange(max_list)[None] < cnt[:, None]
+    assert_same(pids.numpy().reshape(nt, -1)[keep],
+                np.asarray(jids).reshape(nt, -1)[keep], "ids")
+    assert_same(pel.numpy().reshape(nt, -1)[keep],
+                np.asarray(jel).reshape(nt, -1)[keep], "entries")
+
+
+def _rays(scene, shared, seed):
+    data, meta, _, cs = jax_accel(scene)
+    eye = np.asarray(meta.cameras[0].position, np.float32) if shared else None
+    o, d, act = scene_rays(cs, R, seed, eye=eye)
+    return cs, (o[0] if shared else o), d, act
+
+
+def _excused(cs, o, d, jslot, pslot, jt, pt_):
+    """The float32-ambiguous lanes (torch_port_util.float32_ambiguous):
+    at most 1% of the rays."""
+    ex = float32_ambiguous(cs, o, d, jslot, pslot, np.where(jslot >= 0, jt, np.inf),
+                           np.where(pslot >= 0, pt_, np.inf))
+    assert ex.sum() <= R // 100, f"{ex.sum()} ambiguous lanes"
+    return ex
+
+
+CLOSEST_CASES = [
+    ("terrain16", False, False), ("terrain16", True, False),
+    ("terrain16", False, True), ("terrain64", False, False),
+    ("spheres600", False, False), ("spheres600", True, False),
+    ("spheres1200", False, False), ("spheres1200", True, False),
+    ("entry", True, False), ("entry", False, True),
+]
+
+
+@pytest.mark.parametrize("scene,shared,bfc", CLOSEST_CASES)
+def test_closest_hit_matches_jax(scene, shared, bfc):
+    """cluster_closest_hit end to end (mask, compaction, closest kernel,
+    small-sphere merge, slot-table epilogue): hit, material and primitive
+    equal, t within rtol 1e-4 and the points and normals within what that
+    t bar allows, on every lane but the float32-ambiguous ones (edge and
+    grazing hits, ties) where XLA's FMA contraction on the JAX side
+    decides."""
+    _, jcs, _, _, pcs = shared_inputs(scene)
+    cs, o, d, act = _rays(scene, shared, seed=7)
+    f = jax.jit(lambda o, d, a: jct.cluster_closest_hit(
+        jcs, o, d, 1e-3, active=a, bfc=bfc, shared_origin=shared,
+        with_slot=True))
+    jhit, jt, jn, jmat, jpt, joff, jprim, jslot = [
+        np.asarray(x) for x in f(*map(jnp.asarray, (o, d, act)))]
+    phit, pt_, pn, pmat, ppt, poff, pprim = [x.numpy() for x in pct.cluster_closest_hit(
+        pcs, torch.from_numpy(o), torch.from_numpy(d), 1e-3,
+        active=torch.from_numpy(act), bfc=bfc, shared_origin=shared)]
+    assert jhit.sum() > R // 32
+    ok = ~_excused(cs, o, d, jslot, prim_slots(cs, pprim), jt, pt_)
+    assert_same(phit[ok], jhit[ok], "hit")
+    assert_same(pprim[ok], jprim[ok], "prim")
+    assert_same(pmat[ok], jmat[ok], "mat")
+    np.testing.assert_allclose(pt_[ok], jt[ok], rtol=1e-4)
+    # the t bar moves a point by up to 1e-4 |t d|, plus rounding of o + t d
+    p_tol = (1e-4 * np.abs(jt) * np.linalg.norm(d, axis=1)
+             + 1e-6 * np.abs(jpt).max())[:, None]
+    assert (np.abs(ppt - jpt)[ok] <= p_tol[ok]).all()
+    assert (np.abs(poff - joff)[ok] <= p_tol[ok]).all()
+    # triangle normals come from the slot table (equal); a sphere normal is
+    # (point - center) / r
+    pt_slots = np.asarray(cs.tri_dat).shape[1]
+    tri = ok & jhit & (jslot < pt_slots)
+    assert_same(pn[tri], jn[tri], "triangle normals")
+    sph = ok & jhit & (jslot >= pt_slots)
+    rad = np.where(sph, np.asarray(cs.sph_dat)[3][np.maximum(jslot - pt_slots, 0)],
+                   1.0)
+    n_tol = 2 * p_tol[:, 0] / rad + 1e-6
+    assert (np.abs(pn - jn).max(1)[sph] <= n_tol[sph]).all()
+
+
+@pytest.mark.parametrize("scene,shared,bfc", CLOSEST_CASES)
+def test_closest_kernel_matches_jax(scene, shared, bfc):
+    """The kernel module alone: the JAX package's own shortlists fed to the
+    port's closest kernel (plain version) and to the JAX call; slots equal
+    and t within rtol 1e-4 on every active lane but the float32-ambiguous
+    ones."""
+    _, jcs, _, _, pcs = shared_inputs(scene)
+    cs, org, d, act = _rays(scene, shared, seed=11)
+    ob = np.broadcast_to(org, d.shape).copy()
+    mask_fn = jct.tile_cluster_mask if shared else None
+    thit, shit = jax.jit(lambda o, d, a: jct._cluster_masks(
+        jcs, o, d, a, None, mask_fn=mask_fn))(*map(jnp.asarray, (ob, d, act)))
+    call = jct._cluster_closest_call_shared if shared else jct._cluster_closest_call
+    jt, js = call(thit, shit, jnp.asarray(org), jnp.asarray(d), jcs.tri_dat,
+                  jcs.sph_dat, cs.n_tri, cs.n_sph, bfc)
+    jt, js = np.asarray(jt), np.asarray(js)
+    to_t = lambda x: torch.from_numpy(np.array(x))  # noqa: E731
+    lists = pct._lists((to_t(thit[0]), to_t(thit[1])),
+                       (to_t(shit[0]), to_t(shit[1])))
+    if scene == "terrain64":  # some tile takes the bitmask scan
+        assert int(lists[2].max()) > K.MAX_TRI_LIST
+    pt_, ps = K.closest(*lists, to_t(org), to_t(d), pcs.tri_dat, pcs.sph_dat, bfc)
+    pt_, ps = pt_.numpy(), ps.numpy()
+    assert (js[act] >= 0).sum() > R // 32
+    ok = act & ~_excused(cs, org, d, js, ps, jt, pt_)
+    assert_same(ps[ok], js[ok], "slot")
+    fin = ok & (js >= 0)
+    np.testing.assert_allclose(pt_[fin], jt[fin], rtol=1e-4)
+
+
+@pytest.mark.parametrize("scene,bfc", [("terrain16", False), ("terrain16", True),
+                                       ("entry", False), ("spheres600", False)])
+def test_shadow_planes_equal(scene, bfc):
+    """build_shadow_planes bit for bit against the JAX function run op by op."""
+    jdata, jcs, pdata, _, pcs = shared_inputs(scene)
+    for l in range(int(np.asarray(jdata.light_valid).sum())):
+        with jax.disable_jit():
+            jp = jct.build_shadow_planes(jcs, jdata.light_pos[l], bfc=bfc)
+        pp = pct.build_shadow_planes(pcs, pdata.light_pos[l], bfc=bfc)
+        assert pp.shape == (16, pcs.tri_dat.shape[1])
+        assert_same(pp.numpy(), jp, f"planes light {l}")
+
+
+@pytest.mark.parametrize("scene", ["entry", "spheres1200"])
+def test_slot_to_prim_equals_jax(scene):
+    _, jcs, _, _, pcs = shared_inputs(scene)
+    n = pcs.tri_dat.shape[1] + pcs.sph_dat.shape[1]
+    slot = np.concatenate([np.arange(-1, n), [-1, 0, n - 1]]).astype(np.int32)
+    with jax.disable_jit():
+        jp = np.asarray(jct._slot_to_prim(jcs, jnp.asarray(slot)))
+    pp = pct._slot_to_prim(pcs, torch.from_numpy(slot)).numpy()
+    assert_same(pp, jp, "prim")

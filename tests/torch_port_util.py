@@ -1,0 +1,215 @@
+"""Shared inputs of the tests that hold raytracer_tpu_torch (the PyTorch
+port, run on the CPU through its plain kernel versions) against
+raytracer_tpu (the JAX reference, pinned to the CPU by conftest.py).
+
+Data crosses between the packages as numpy arrays.  Both sides build
+their scenes with their own code; the kernel and render tests hand the
+JAX package's accelerator to the port (``convert``) so that both trace
+the very same clusters.
+
+A note on float equality: XLA's CPU compiler contracts a*b+c into one
+FMA inside jitted code and inside the Pallas interpreter (slab-mask
+entries and sphere hit t then differ from the same expressions rounded
+op by op), while eager PyTorch and the port's CUDA kernels (-fmad=false)
+round every operation.  Discrete
+results (hit bits, slots, primitives, occlusion bits) must therefore be
+equal; continuous ones are compared to tolerances stated per test, and
+exactly where the JAX side can run op by op (eager jnp).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import os
+
+import numpy as np
+import torch
+
+# the suite runs in several worker processes at once: PyTorch's default of
+# one thread per core in each of them oversubscribes the CPU many times over
+torch.set_num_threads(1)
+
+ENTRY_XML = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                         "entry_scene.xml")
+
+SYNTH = {
+    "terrain16": ("terrain_scene", dict(cells=16, res=64, mirror_stripes=True)),
+    "spheres600": ("sphere_field", dict(n_spheres=600, res=64)),
+    "spheres1200": ("sphere_field", dict(n_spheres=1200, res=64)),
+    # max depth 3 with mirrors: the activity compaction fires at 64x64
+    "terrain16d3": ("terrain_scene", dict(cells=16, res=64, mirror_stripes=True,
+                                          max_depth=3)),
+    # 64 triangle clusters: random rays overflow the 48-entry lists
+    "terrain64": ("terrain_scene", dict(cells=64, res=64, mirror_stripes=True)),
+}
+HOST_SCENES = ["entry", "terrain16", "spheres600", "spheres1200"]
+
+
+def jax_scene(name):
+    if name == "entry":
+        from raytracer_tpu.models.scene import load_scene
+
+        return load_scene(ENTRY_XML)
+    from raytracer_tpu.utils import synth
+
+    fn, kw = SYNTH[name]
+    return getattr(synth, fn)(**kw)
+
+
+def port_scene(name):
+    if name == "entry":
+        from raytracer_tpu_torch.models.scene import load_scene
+
+        return load_scene(ENTRY_XML, device="cpu")
+    from raytracer_tpu_torch.utils import synth
+
+    fn, kw = SYNTH[name]
+    return getattr(synth, fn)(device="cpu", **kw)
+
+
+def numpy_fields(obj) -> dict:
+    """Dataclass fields as numpy arrays (ints stay ints)."""
+    out = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if v is None or isinstance(v, int):
+            out[f.name] = v
+        elif hasattr(v, "numpy") and not isinstance(v, np.ndarray):
+            out[f.name] = v.cpu().numpy() if hasattr(v, "cpu") else np.asarray(v)
+        else:
+            out[f.name] = np.asarray(v)
+    return out
+
+
+def port_meta(meta):
+    """The JAX package's SceneMeta as the port's."""
+    from raytracer_tpu_torch.models.scene import Camera, SceneMeta
+
+    d = dataclasses.asdict(meta)
+    d["cameras"] = tuple(Camera(**c) for c in d["cameras"])
+    return SceneMeta(**d)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_accel(name):
+    """(data, meta, bvh, cset) built by the JAX package (numpy arrays)."""
+    from raytracer_tpu.models.bvh import build_bvh
+    from raytracer_tpu.models.clusters import build_clusters
+
+    data, meta = jax_scene(name)
+    bvh = build_bvh(data, meta)
+    return data, meta, bvh, build_clusters(data, meta, bvh)
+
+
+@functools.lru_cache(maxsize=None)
+def shared_inputs(name):
+    """(jax data, jax cset on device, port data, port meta, port cset):
+    the JAX accelerator handed to the port."""
+    import jax
+
+    from raytracer_tpu_torch.convert import clusters_from_numpy, scene_from_numpy
+
+    data, meta, _, cs = jax_accel(name)
+    pdata = scene_from_numpy(numpy_fields(data), "cpu")
+    pcs = clusters_from_numpy(numpy_fields(cs), "cpu")
+    return (jax.device_put(data), jax.device_put(cs), pdata, port_meta(meta),
+            pcs)
+
+
+def assert_same(a, b, what: str) -> None:
+    """Equal arrays (NaN equals NaN), shape and values."""
+    a = np.asarray(a)
+    b = np.asarray(b)
+    assert a.shape == b.shape, f"{what}: shape {a.shape} vs {b.shape}"
+    if a.dtype.kind == "f":
+        same = (a == b) | (np.isnan(a) & np.isnan(b))
+    else:
+        same = a == b
+    assert same.all(), f"{what}: {int((~same).sum())} of {a.size} differ"
+
+
+def scene_rays(cs, n: int, seed: int, eye=None):
+    """(origin, dirs, active) f32/bool numpy: rays from random points
+    around and above the scene's cluster boxes (or from ``eye``) toward
+    random points inside them, so that most rays hit; 90% active."""
+    cmin = np.concatenate([np.asarray(cs.tri_cmin), np.asarray(cs.sph_cmin)])
+    cmax = np.concatenate([np.asarray(cs.tri_cmax), np.asarray(cs.sph_cmax)])
+    lo, hi = np.nanmin(cmin, 0), np.nanmax(cmax, 0)
+    ext = hi - lo
+    rng = np.random.default_rng(seed)
+    target = rng.uniform(lo, hi, (n, 3))
+    origin = rng.uniform(lo - 0.5 * ext, hi + 0.5 * ext, (n, 3))
+    origin[:, 1] += 0.5 * ext[1] + 1.0
+    if eye is not None:
+        origin[:] = eye
+    dirs = (target - origin).astype(np.float32)
+    active = rng.random(n) < 0.9
+    return origin.astype(np.float32), dirs, active
+
+
+def _pair64(cs, origin, dirs, slot):
+    """Float64 re-evaluation of each ray against the primitive in ``slot``
+    (-1: none): (t, margin, is_sphere), where margin says how far the hit
+    decision is from flipping, relative to its terms (triangles: the least
+    barycentric; spheres: the discriminant over b^2); NaN for slot -1."""
+    tri = np.asarray(cs.tri_dat, np.float64)
+    sph = np.asarray(cs.sph_dat, np.float64)
+    pt = tri.shape[1]
+    d = np.asarray(dirs, np.float64)
+    o = np.broadcast_to(np.asarray(origin, np.float64), d.shape)
+    t = np.full(len(d), np.nan)
+    margin = np.full(len(d), np.nan)
+    s = np.asarray(slot)
+    it = np.nonzero((s >= 0) & (s < pt))[0]
+    if it.size:
+        r = tri[:, s[it]]
+        nd = (d[it] * r[0:3].T).sum(1)
+        tt = (r[9] - (o[it] * r[0:3].T).sum(1)) / nd
+        p = o[it] + tt[:, None] * d[it]
+        beta = (p * r[3:6].T).sum(1) - r[10]
+        gamma = (p * r[6:9].T).sum(1) - r[11]
+        t[it] = tt
+        margin[it] = np.minimum(np.minimum(beta, gamma), 1 - beta - gamma)
+    isp = np.nonzero(s >= pt)[0]
+    if isp.size:
+        r = sph[:, s[isp] - pt]
+        oc = o[isp] - r[0:3].T
+        a = (d[isp] ** 2).sum(1)
+        b = 2 * (d[isp] * oc).sum(1)
+        c = (oc ** 2).sum(1) - r[3] ** 2
+        disc = b * b - 4 * a * c
+        t[isp] = (-b - np.sqrt(np.maximum(disc, 0))) / (2 * a)
+        margin[isp] = disc / (b * b)
+    return t, margin, s >= pt
+
+
+def float32_ambiguous(cs, origin, dirs, slot_a, slot_b, t_a, t_b,
+                      rtol=1e-4, edge=1e-4, graze=1e-3):
+    """Lanes where two float32 evaluations of the same closest-hit query
+    may rightly disagree: a differing slot or a t outside ``rtol``, where
+    one of the two primitives is hit on a triangle edge (least barycentric
+    within ``edge``) or grazing a sphere (discriminant within ``graze`` of
+    b^2), or the two hits tie (float64 t within 1e-6).  Returns the bool
+    mask of those lanes."""
+    shaky = np.zeros(len(np.asarray(dirs)), bool)
+    ts = []
+    for slot in (slot_a, slot_b):
+        t, m, sph = _pair64(cs, origin, dirs, slot)
+        ts.append(t)
+        shaky |= np.abs(np.nan_to_num(m, nan=1.0)) < np.where(sph, graze, edge)
+    tie = np.isclose(ts[0], ts[1], rtol=1e-6, atol=0)
+    differ = (np.asarray(slot_a) != np.asarray(slot_b)) | ~np.isclose(
+        t_a, t_b, rtol=rtol, atol=0)
+    return differ & (shaky | tie)
+
+
+def prim_slots(cs, prim):
+    """Kernel slot of each global primitive id (-1 stays -1)."""
+    tri_slot, sph_slot = np.asarray(cs.tri_slot), np.asarray(cs.sph_slot)
+    pt = tri_slot.shape[0]
+    inv = np.full(max(int(tri_slot.max()), int(sph_slot.max())) + 2, -1)
+    inv[sph_slot[:cs.n_sph]] = pt + np.arange(cs.n_sph)
+    inv[tri_slot[:cs.n_tri]] = np.arange(cs.n_tri)
+    prim = np.asarray(prim)
+    return np.where(prim >= 0, inv[np.maximum(prim, 0)], -1)
