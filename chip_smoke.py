@@ -16,19 +16,35 @@ then:
    (31,752 triangles, 2 lights, mirrors) rendered at --ssaa 2 (4,194,304
    rays, one whole frame) through ``render_one_camera``: build time, warm
    ms/frame, Mrays/s, each kernel's launches in one frame (all > 0), NaN
-   check and non-background share, one frame under torch.profiler (device
-   time by kernel, idle share); the same scene through a 64x64 camera
-   against the CPU render;
+   check and non-background share, the process's CPU time and involuntary
+   context switches over each timed frame, one frame under torch.profiler
+   (device time by kernel, idle share; on the host: PyTorch ops, kernel
+   launches, the ops that wait for the device, sorts, CUDA runtime calls);
+   the same scene through a 64x64 camera against the CPU render;
+3b. big scene: ``terrain_scene(cells=512, res=1024, mirror_stripes=True)``
+   (524,288 triangles, 4,096 clusters: plane tables over the 8 MB budget,
+   so every shadow wave takes the any-hit kernel, and the hierarchical
+   mask) at --ssaa 2 through ``render_one_camera`` (4,194,304 rays in 32
+   chunks of 131,072): build time, warm ms/frame, launches per frame
+   (ray_mask_hier and any > 0, shadow 0), peak device memory, NaN check,
+   non-background share, one profiled frame, and a 64x64 camera against
+   the CPU render; then ``terrain_scene(cells=200, res=512)`` (80,000
+   triangles: one shadow launch per light, the hierarchical mask) once;
 4. each kernel against its plain version ON THE CARD, on the real inputs
-   captured from the phase-3 waves (and from two sphere fields: the
+   captured from the phase-3 and 3b waves (and from two sphere fields: the
    sphere walk with its early exit and the single-light shadow, and the
    dense sphere rows, each also rendered at 64x64 on CUDA and on the CPU
-   and compared; the 64x64 terrain camera gives tiles whose shortlists
-   overflow into the bitmask scan), on a sample of >= 256 tiles, with the
-   other template instance too (bfc for closest, relaxed for shadow):
+   and compared, and rendered once more with the plane budget at 0 so its
+   shadow waves reach the any-hit kernel through ``cluster_any``; the
+   64x64 terrain camera gives tiles whose shortlists overflow into the
+   bitmask scan), on a sample of >= 256 tiles, with the other template
+   instances too (bfc for closest, relaxed for shadow, both for any):
    results must be EQUAL (the kernels round op for op like eager
-   PyTorch, -fmad=false);
-5. timings of each kernel at the phase-3 shapes with its bound;
+   PyTorch, -fmad=false); the hierarchical mask also equals the flat one;
+5. timings of each kernel at the phase-3 shapes (the hierarchical mask
+   and any-hit at the phase-3b shapes, the single-light shadow call at the
+   80,000-triangle terrain's) with its bound from the work the call's data
+   needs (the any-hit kernels' pairs counted up to each ray's first hit);
 
 and prints the kernels' JSON line, then ``{"ok": true, "device": ...}``
 as its last line.  Any failure exits non-zero without that line.  Images
@@ -37,8 +53,10 @@ and a results.json land in smoke_out/ (git-ignored).
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
+import resource
 import statistics
 import subprocess
 import sys
@@ -54,27 +72,38 @@ PEAK_BYTES = 3.35e12
 
 # float operations per (ray, primitive-or-box) pair, counted from the
 # kernel sources: csrc/ray_mask.cu (6 mul, 6 sub, 12 min/max, 3 compare,
-# 1 min), csrc/closest.cu (triangle: 15 mul/add for nd and the two
+# 1 min; the hierarchical kernel the same on the chunks it tests),
+# csrc/closest.cu (triangle: 15 mul/add for nd and the two
 # edge-direction dots, 9 for the origin dots (3 per lane with a shared
 # origin, counted per pair as 0), 1 sub, 1 div, 4 for beta/gamma, 2 for
 # alpha, 4 compares, 2 for the winner; sphere: 3 sub, 6 dot, 1 mul, 6
 # for c_q, 4 for disc, 1 max, 1 sqrt, 3 for t1, 1 div, 5 compares, 2 for
 # the winner), csrc/shadow.cu (4 planes x 6, 3 min, 2 compares; sphere as
-# in closest without the winner)
+# in closest without the winner), csrc/any.cu (triangle as in closest
+# with t < t_max and the OR in place of the winner; sphere as in shadow)
 OPS = {"ray_mask": 28, "tri": 43, "tri_shared": 34, "sph": 33,
-       "plane": 29, "sph_shadow": 31}
+       "plane": 29, "sph_shadow": 31, "tri_any": 43}
 
+KERNELS = ("ray_mask", "ray_mask_hier", "closest_shared", "closest",
+           "shadow", "any")
+# the CUDA kernel functions, as the profiler names them
+KERNEL_FUNCS = ("ray_mask_kernel", "ray_mask_hier_kernel", "closest_kernel",
+                "shadow_kernel", "any_kernel")
 REPLACES = {
     "ray_mask": "raytracer_tpu/ops/cluster_trace.py:305",
+    "ray_mask_hier": "raytracer_tpu/ops/cluster_trace.py:242",
     "closest_shared": "raytracer_tpu/ops/cluster_trace.py:720",
     "closest": "raytracer_tpu/ops/cluster_trace.py:720",
     "shadow": "raytracer_tpu/ops/cluster_trace.py:1135",
+    "any": "raytracer_tpu/ops/cluster_trace.py:837",
 }
 SOURCES = {
     "ray_mask": "raytracer_tpu_torch/csrc/ray_mask.cu",
+    "ray_mask_hier": "raytracer_tpu_torch/csrc/ray_mask.cu",
     "closest_shared": "raytracer_tpu_torch/csrc/closest.cu",
     "closest": "raytracer_tpu_torch/csrc/closest.cu",
     "shadow": "raytracer_tpu_torch/csrc/shadow.cu",
+    "any": "raytracer_tpu_torch/csrc/any.cu",
 }
 
 
@@ -127,39 +156,64 @@ def compare_radiance(a, b, what):
 # ---------------------------------------------------------------------------
 
 class Capture:
-    """Wraps the three kernel wrappers of ops.kernels and keeps the inputs
-    of the first call of each shape: shared-origin closest (bounce 0), the
-    first per-ray-origin closest (bounce 1), the mask that precedes it,
-    and the first shadow call."""
+    """Wraps the kernel wrappers of ops.kernels and keeps the inputs of one
+    call of each shape, the one with the most work (a chunked frame's first
+    chunks may be all sky): shared-origin closest (bounce 0), per-ray-origin
+    closest (bounce >= 1) with the flat mask that precedes it, the flat
+    mask ("ray_mask_first"), shadow, hierarchical mask and any-hit."""
 
     def __init__(self, kernels):
         self.k = kernels
-        self.orig = {n: getattr(kernels, n) for n in ("ray_mask", "closest", "shadow")}
+        self.orig = {n: getattr(kernels, n) for n in (
+            "ray_mask", "ray_mask_hier", "closest", "shadow", "any_hit")}
         self.calls = {}
+        self.score = {}
         self.last_mask = None
 
+    def keep(self, name, a, score):
+        """Keep call ``a`` under ``name`` if score() is the highest yet."""
+        sc = score()
+        if sc > self.score.get(name, -1):
+            self.calls[name], self.score[name] = a, sc
+            return True
+        return False
+
     def __enter__(self):
-        k, orig, calls = self.k, self.orig, self.calls
+        k, orig = self.k, self.orig
+
+        def lists(a):
+            return lambda: int(a[2].sum()) + int(a[5].sum())
 
         def ray_mask(*a):
             self.last_mask = a
-            calls.setdefault("ray_mask_first", a)
+            self.keep("ray_mask_first", a,
+                      lambda: int((a[0] != 0).sum()) * a[1].shape[1])
             return orig["ray_mask"](*a)
 
         def closest(*a):
             shared = a[6].dim() == 1
-            name = "closest_shared" if shared else "closest"
-            if name not in calls:
-                calls[name] = a
-                if not shared:
-                    calls["ray_mask"] = self.last_mask
+            if (self.keep("closest_shared" if shared else "closest", a, lists(a))
+                    and not shared and self.last_mask is not None):
+                self.calls["ray_mask"] = self.last_mask
             return orig["closest"](*a)
 
         def shadow(*a):
-            calls.setdefault("shadow", a)
+            self.keep("shadow", a, lists(a))
             return orig["shadow"](*a)
 
+        def ray_mask_hier(*a):
+            self.last_mask = None
+            nt = a[0].shape[0]
+            self.keep("ray_mask_hier", a, lambda: int(
+                ((a[1].view(nt, -1) != 0) & (a[0] != 0)[:, None]).sum()))
+            return orig["ray_mask_hier"](*a)
+
+        def any_hit(*a):
+            self.keep("any", a, lists(a))
+            return orig["any_hit"](*a)
+
         k.ray_mask, k.closest, k.shadow = ray_mask, closest, shadow
+        k.ray_mask_hier, k.any_hit = ray_mask_hier, any_hit
         return self
 
     def __exit__(self, *exc):
@@ -180,36 +234,56 @@ def sample_tiles(counts, n, gen):
     return torch.unique(torch.cat([work, over]))
 
 
-def slice_mask_args(a, tiles):
-    act, box, bundle = a
-    nt = act.shape[0]
-    b = bundle.view(8, nt, 128)[:, tiles].reshape(8, -1).contiguous()
-    return act[tiles].contiguous(), box, b
+# wrapper arguments with one row per tile (a leading light axis for the
+# shadow kernel's lists) and with one row per ray; the rest (cluster
+# tables, boxes, light positions, a shared origin, flags) are whole
+TILE_ARGS = ("act", "sup", "tw", "tl", "tc", "sw", "sl", "sc")
+RAY_ARGS = ("origin", "dirs", "t_max")
 
 
-def _rows(x, nt, tiles):
-    return x.view(nt, -1)[tiles].reshape(-1).contiguous()
+def named(kname, a):
+    """The captured positional call ``a`` of kernel ``kname`` as a dict
+    keyed by the wrapper's parameter names."""
+    import inspect
+
+    fn = kernel_pairs()[kname][0]
+    bound = inspect.signature(fn).bind(*a)
+    bound.apply_defaults()
+    return dict(bound.arguments)
 
 
-def slice_closest_args(a, tiles):
-    tw, tl, tc, sw, sl, sc, origin, dirs, tri, sph, bfc = a
-    nt = tc.shape[0]
-    sl_ = [_rows(x, nt, tiles) for x in (tw, tl, tc, sw, sl, sc)]
-    if origin.dim() == 2:
-        origin = origin.view(nt, 128, 3)[tiles].reshape(-1, 3).contiguous()
-    d = dirs.view(nt, 128, 3)[tiles].reshape(-1, 3).contiguous()
-    return (*sl_, origin, d, tri, sph, bfc)
+def n_tiles_of(p):
+    return (p["act"] if "act" in p else p["tc"]).shape[-1]
 
 
-def slice_shadow_args(a, tiles):
-    import torch
+def slice_args(kname, a, tiles, **replace):
+    """Call ``a`` of kernel ``kname`` cut to the tiles ``tiles``, with the
+    arguments named in ``replace`` replaced (bfc=..., relaxed=...)."""
+    p = named(kname, a)
+    nt = n_tiles_of(p)
+    for k, x in p.items():
+        if k in TILE_ARGS:
+            lead = tuple(x.shape[:-1])
+            p[k] = x.view(*lead, nt, -1)[..., tiles, :].reshape(*lead, -1).contiguous()
+        elif k in RAY_ARGS and x.shape[0] == nt * 128:
+            rest = tuple(x.shape[1:])
+            p[k] = x.view(nt, 128, *rest)[tiles].reshape(-1, *rest).contiguous()
+        elif k == "bundle":
+            p[k] = x.view(8, nt, 128)[:, tiles].reshape(8, -1).contiguous()
+    p.update(replace)
+    return tuple(p.values())
 
-    tw, tl, tc, sw, sl, sc, lps, origin, planes, sph, relaxed = a
-    nl, nt = tc.shape
-    sl_ = [torch.stack([_rows(x[l], nt, tiles) for l in range(nl)])
-           for x in (tw, tl, tc, sw, sl, sc)]
-    o = origin.view(nt, 128, 3)[tiles].reshape(-1, 3).contiguous()
-    return (*sl_, lps, o, planes, sph, relaxed)
+
+def kernel_pairs():
+    """{kernel: (wrapper, plain version)}."""
+    from raytracer_tpu_torch.ops import kernels as K
+
+    return {"ray_mask": (K.ray_mask, K.ray_mask_plain),
+            "ray_mask_hier": (K.ray_mask_hier, K.ray_mask_hier_plain),
+            "closest": (K.closest, K.closest_plain),
+            "closest_shared": (K.closest, K.closest_plain),
+            "shadow": (K.shadow, K.shadow_plain),
+            "any": (K.any_hit, K.any_hit_plain)}
 
 
 def equal_nan(a, b):
@@ -225,10 +299,7 @@ def kernel_vs_plain(name, args, what):
 
     from raytracer_tpu_torch.ops import kernels as K
 
-    fn = {"ray_mask": (K.ray_mask, K.ray_mask_plain),
-          "closest": (K.closest, K.closest_plain),
-          "closest_shared": (K.closest, K.closest_plain),
-          "shadow": (K.shadow, K.shadow_plain)}[name]
+    fn = kernel_pairs()[name]
     out_k = fn[0](*args)
     out_p = fn[1](*args)
     torch.cuda.synchronize()
@@ -255,31 +326,51 @@ def check_scene_kernels(label, calls, gen, n_tiles=256):
     """Kernel == plain on a tile sample of every captured call."""
     import torch
 
+    from raytracer_tpu_torch.ops import kernels as K
+
     errs = {}
     for name, args in calls.items():
         if args is None:
             continue
+        kname = "ray_mask" if name == "ray_mask_first" else name
+        p = named(kname, args)
         if name.startswith("ray_mask"):
-            tiles = sample_tiles(args[0], n_tiles, gen)
-            sl = slice_mask_args(args, tiles)
-        elif name.startswith("closest"):
-            tiles = sample_tiles(args[2] + args[5], n_tiles, gen)
-            sl = slice_closest_args(args, tiles)
-        else:
-            tiles = sample_tiles((args[2] + args[5]).sum(0), n_tiles, gen)
-            sl = slice_shadow_args(args, tiles)
-        kname = "ray_mask" if name.startswith("ray_mask") else name
+            counts = p["act"]
+        else:  # tiles with a candidate (of any light)
+            counts = (p["tc"] + p["sc"]).view(-1, n_tiles_of(p)).sum(0)
+        tiles = sample_tiles(counts, n_tiles, gen)
+        check(tiles.numel() > 0, f"{label} {name}: no tile with work")
+        sl = slice_args(kname, args, tiles)
         err = kernel_vs_plain(kname, sl, f"{label} ({tiles.numel()} tiles)")
         extra = ""
-        if not name.startswith("ray_mask"):
+        if name == "ray_mask_hier":
+            # the hierarchical mask equals the flat one on the same inputs
+            q = named(kname, sl)
+            flat = K.ray_mask(q["act"], q["box"], q["bundle"])
+            hier = K.ray_mask_hier(*sl)
+            check(all(equal_nan(x, y) for x, y in zip(flat, hier)),
+                  f"{label}: ray_mask_hier != ray_mask")
+            chunks = q["sup"].view(tiles.numel(), -1)
+            extra = (f" and == the flat kernel; {int(chunks.sum())} of "
+                     f"{chunks.numel()} chunks tested")
+        elif name == "any":
+            # the other template instances: bfc, relaxed and both
+            for bfc, relaxed in ((True, False), (False, True), (True, True)):
+                err = max(err, kernel_vs_plain(
+                    kname, slice_args(kname, args, tiles, bfc=bfc, relaxed=relaxed),
+                    f"{label} bfc={bfc} relaxed={relaxed}"))
+            extra = " (also with bfc, relaxed and both)"
+        elif not name.startswith("ray_mask"):
             # the other template instance: bfc for closest, relaxed for shadow
             flag = "bfc" if name.startswith("closest") else "relaxed"
-            err = max(err, kernel_vs_plain(kname, sl[:-1] + (not sl[-1],),
-                                           f"{label} {flag}={not sl[-1]}"))
-            extra = f" (also {flag}={not sl[-1]})"
+            other = not p[flag]
+            err = max(err, kernel_vs_plain(
+                kname, slice_args(kname, args, tiles, **{flag: other}),
+                f"{label} {flag}={other}"))
+            extra = f" (also {flag}={other})"
         errs[kname] = max(errs.get(kname, 0.0), err)
-        if name.startswith("closest"):
-            n_over = int((args[2][tiles] > 48).sum())
+        if name.startswith("closest") or name == "any":
+            n_over = int((p["tc"][tiles] > 48).sum())
             errs["overflowed"] = errs.get("overflowed", 0) + n_over
             extra += f", overflowed lists: {n_over}"
         log(f"  {label} {name}: {tiles.numel()} tiles, kernel == plain{extra}")
@@ -298,40 +389,184 @@ def nbytes(*xs):
                if isinstance(x, torch.Tensor))
 
 
-def work(name, args):
-    """(ops, bytes) the call's data needs: pairs counted from the lists."""
+def _stop_pairs(hit, live):
+    """(n, 128) pairs each ray tests in one visit when it stops at its first
+    hit: the lanes up to the first hit lane, all 128 on a miss; 0 for rays
+    not ``live``.  hit: (n, 128 rays, 128 lanes) bool."""
     import torch
 
+    first = hit.to(torch.uint8).argmax(-1)      # the first hit lane
+    return torch.where(hit.any(-1), first + 1, 128) * live
+
+
+def any_needed(p):
+    """[triangle pairs, sphere pairs, triangle visits, sphere visits] that
+    the any_hit call ``p`` (by name) needs: every ray stops at its first
+    hit and a tile once all its rays are found, as the kernel's loops do.
+    Replayed with the plain version's visit tables and tests."""
+    import torch
+
+    from raytracer_tpu_torch.ops import kernels as K
+
+    tri, sph, tc = p["tri_dat"], p["sph_dat"], p["tc"]
+    nt, ct, cs = tc.shape[0], tri.shape[1] // 128, sph.shape[1] // 128
+    o, d = p["origin"].view(nt, 128, 3), p["dirs"].view(nt, 128, 3)
+    tm = p["t_max"].view(nt, 128, 1)
+    acc = torch.zeros(4, dtype=torch.int64, device=tri.device)
+    for a, e in K._chunks(nt, 128 * 128):
+        ox, oy, oz = (o[a:e, :, None, c] for c in range(3))
+        dx, dy, dz = (d[a:e, :, None, c] for c in range(3))
+        done = torch.zeros((e - a, 128), dtype=torch.bool, device=tri.device)
+        tri_vis = K._visit_table(p["tw"], p["tl"], tc, ct, K.MAX_TRI_LIST, a, e)
+        sph_vis = (K._dense_table(p["sc"], cs, a, e) if cs <= K.DENSE_SPH_ROWS
+                   else K._visit_table(p["sw"], p["sl"], p["sc"], cs,
+                                       K.MAX_SPH_LIST, a, e))
+        for side, vis in ((0, tri_vis), (1, sph_vis)):
+            for v in range(vis.shape[1]):
+                k = vis[:, v]
+                if side == 0:
+                    t, ok = K._tri_test(K._gather(tri, k), ox, oy, oz, dx, dy,
+                                        dz, p["bfc"])
+                    hit = ok & (t < tm[a:e])
+                else:
+                    hit = K._sph_occluded(K._gather(sph, k), ox, oy, oz, dx,
+                                          dy, dz, p["relaxed"], tm[a:e])
+                live = ~done & (k >= 0)[:, None]
+                acc[side] += _stop_pairs(hit, live).sum()
+                acc[2 + side] += live.any(1).sum()
+                done |= hit.any(-1) & live
+    return acc.tolist()
+
+
+def shadow_needed(p):
+    """[triangle pairs, sphere pairs, triangle visits, sphere visits] that
+    the shadow call ``p`` (by name) needs, per light: every ray stops at
+    its first plane hit (a lane whose four planes are all >= 0) and its
+    first sphere hit, a tile once all its rays are found.  A NaN plane
+    value clears its lane for every visit (the running max propagates
+    it), so a ray that meets one needs all its visits, and so does its
+    tile.  Replayed with the plain version's visit tables and tests."""
+    import torch
+
+    from raytracer_tpu_torch.ops import kernels as K
+
+    planes, sph, lps, tc = p["planes"], p["sph_dat"], p["lps"], p["tc"]
+    nl, nt = tc.shape
+    ct, cs = planes.shape[2] // 128, sph.shape[1] // 128
+    o = p["origin"].view(nt, 128, 3)
+    acc = torch.zeros(4, dtype=torch.int64, device=planes.device)
+    for a, e in K._chunks(nt, 128 * 128):
+        n = e - a
+        ox, oy, oz = (o[a:e, :, None, c] for c in range(3))
+        seg = [(lps[3 * l] - ox, lps[3 * l + 1] - oy, lps[3 * l + 2] - oz)
+               for l in range(nl)]
+        done = []
+        for l in range(nl):
+            vis = K._visit_table(p["tw"][l], p["tl"][l], tc[l], ct,
+                                 K.MAX_TRI_LIST, a, e)
+            run = torch.full((n, 128, 128), -float("inf"), device=planes.device)
+            stop = torch.zeros((n, 128), dtype=torch.int64, device=planes.device)
+            every = torch.zeros_like(stop)
+            tile_stop = torch.zeros((n,), dtype=torch.int64, device=planes.device)
+            tile_every = torch.zeros_like(tile_stop)
+            poison = torch.zeros((n, 128), dtype=torch.bool, device=planes.device)
+            dn = torch.zeros((n, 128), dtype=torch.bool, device=planes.device)
+            for v in range(vis.shape[1]):
+                k = vis[:, v]
+                valid = (k >= 0)[:, None]
+                m = K._plane_min(K._gather(planes[l], k), ox, oy, oz)
+                m = torch.where(valid[:, :, None], m, -float("inf"))
+                run = torch.maximum(run, m)
+                stop += _stop_pairs(m >= 0.0, ~dn & valid)
+                every += 128 * valid
+                tile_stop += (~dn & valid).any(1)
+                tile_every += valid[:, 0]
+                poison |= torch.isnan(m).any(-1)
+                dn |= (m >= 0.0).any(-1) & valid
+            acc[0] += torch.where(poison, every, stop).sum()
+            acc[2] += torch.where(poison.any(1), tile_every, tile_stop).sum()
+            dn = (run >= 0.0).any(-1)          # the kernel's occlusion bit
+            if cs > K.DENSE_SPH_ROWS:
+                svis = K._visit_table(p["sw"][l], p["sl"][l], p["sc"][l], cs,
+                                      K.MAX_SPH_LIST, a, e)
+                for v in range(svis.shape[1]):
+                    k = svis[:, v]
+                    hit = K._sph_occluded(K._gather(sph, k), ox, oy, oz,
+                                          *seg[l], p["relaxed"])
+                    live = ~dn & (k >= 0)[:, None]
+                    acc[1] += _stop_pairs(hit, live).sum()
+                    acc[3] += live.any(1).sum()
+                    dn |= hit.any(-1) & live
+            done.append(dn)
+        if cs <= K.DENSE_SPH_ROWS:
+            # one pass over every sphere cluster for all lights, gated on
+            # any light having a sphere candidate
+            gate = (p["sc"][:, a:e] != 0).any(0)[:, None]
+            for k in range(cs):
+                rows = sph[:, k * 128:(k + 1) * 128][:, None, None, :]
+                staged = torch.zeros((n,), dtype=torch.bool, device=sph.device)
+                for l in range(nl):
+                    hit = K._sph_occluded(rows, ox, oy, oz, *seg[l], p["relaxed"])
+                    live = ~done[l] & gate
+                    acc[1] += _stop_pairs(hit, live).sum()
+                    staged |= live.any(1)
+                    done[l] |= hit.any(-1) & live
+                acc[3] += staged.sum()
+    return acc.tolist()
+
+
+def work(name, args):
+    """(ops, bytes) the call's data needs: the mask's tested chunks, the
+    closest kernel's listed pairs (a closest hit needs every one), and for
+    the any-hit kernels the pairs up to each ray's first hit."""
+    import torch
+
+    p = named(name, args)
     if name == "ray_mask":
-        act, box, bundle = args
+        act, box, bundle = p["act"], p["box"], p["bundle"]
         c = box.shape[1]
         ops = int((act != 0).sum()) * 128 * c * OPS["ray_mask"]
         out = act.shape[0] * c * 8
         return ops, nbytes(act, box[[0, 1, 2, 4, 5, 6]], bundle[:7]) + out
+    if name == "ray_mask_hier":
+        # pairs of the chunks tested: coarse bit set in an active tile,
+        # the last chunk counted at its real width
+        act, sup, box, bundle = p["act"], p["sup"], p["box"], p["bundle"]
+        nt, c = act.shape[0], box.shape[1]
+        width = torch.full((sup.numel() // nt,), 128, device=sup.device)
+        width[-1] = c - 128 * (width.numel() - 1)
+        tested = (sup.view(nt, -1) != 0) & (act != 0)[:, None]
+        ops = int((tested * width).sum()) * 128 * OPS["ray_mask"]
+        out = nt * c * 8
+        return ops, nbytes(act, sup, box[[0, 1, 2, 4, 5, 6]], bundle[:7]) + out
+    lists = nbytes(*(p[k] for k in ("tw", "tl", "tc", "sw", "sl", "sc")))
+    sph = p["sph_dat"]
     if name.startswith("closest"):
-        tw, tl, tc, sw, sl, sc, origin, dirs, tri, sph = args[:10]
+        tc, sc, tri = p["tc"], p["sc"], p["tri_dat"]
         cs = sph.shape[1] // 128
         tri_v = int(tc.sum())
         sph_v = (int(((sc > 0).sum())) * cs if cs <= 8 else int(sc.sum()))
-        per = OPS["tri_shared"] if origin.dim() == 1 else OPS["tri"]
+        per = OPS["tri_shared"] if p["origin"].dim() == 1 else OPS["tri"]
         ops = (tri_v * per + sph_v * OPS["sph"]) * 128 * 128
-        byt = (nbytes(tw, tl, tc, sw, sl, sc, origin, dirs)
+        byt = (lists + nbytes(p["origin"], p["dirs"])
                + min(tri.numel(), tri_v * 12 * 128) * 4
-               + min(sph.numel(), sph_v * 4 * 128) * 4 + dirs.shape[0] * 8)
+               + min(sph.numel(), sph_v * 4 * 128) * 4 + p["dirs"].shape[0] * 8)
         return ops, byt
-    tw, tl, tc, sw, sl, sc, lps, origin, planes, sph = args[:10]
-    cs = sph.shape[1] // 128
-    tri_v = int(tc.sum())
-    sph_any = int(((sc > 0).any(0)).sum())
-    sph_v = sph_any * cs * tc.shape[0] if cs <= 8 else int(sc.sum())
-    ops = (tri_v * OPS["plane"] + sph_v * OPS["sph_shadow"]) * 128 * 128
-    byt = (nbytes(tw, tl, tc, sw, sl, sc, lps, origin)
-           + min(planes.numel(), tri_v * 16 * 128) * 4
-           + min(sph.numel(), sph_v * 4 * 128) * 4 + origin.shape[0] * 4)
+    if name == "any":
+        tri_p, sph_p, tri_v, sph_v = any_needed(p)
+        tri, per_tri, rows, per_ray = p["tri_dat"], OPS["tri_any"], 12, (
+            nbytes(p["origin"], p["dirs"], p["t_max"]))
+    else:
+        tri_p, sph_p, tri_v, sph_v = shadow_needed(p)
+        tri, per_tri, rows, per_ray = p["planes"], OPS["plane"], 16, (
+            nbytes(p["lps"], p["origin"]))
+    ops = tri_p * per_tri + sph_p * OPS["sph_shadow"]
+    byt = (lists + per_ray + min(tri.numel(), tri_v * rows * 128) * 4
+           + min(sph.numel(), sph_v * 4 * 128) * 4 + p["origin"].shape[0] * 4)
     return ops, byt
 
 
-def profile_frame(frame, results):
+def profile_frame(frame, results, key_name="profile"):
     """One frame under torch.profiler: device time by kernel, and the
     device's idle share of the frame's wall time."""
     import torch
@@ -359,16 +594,60 @@ def profile_frame(frame, results):
     rows = [(ms, count, name) for name, (ms, count) in by_name.items()]
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    mine = sum(r[0] for r in rows if any(
-        k in r[2] for k in ("ray_mask_kernel", "closest_kernel", "shadow_kernel")))
+    mine = sum(r[0] for r in rows
+               if any(k + "<" in r[2] or k + "(" in r[2] for k in KERNEL_FUNCS))
     log(f"  profiled frame: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms "
-        f"(idle share {1 - busy / wall_ms:.3f}), the three CUDA kernels "
+        f"(idle share {1 - busy / wall_ms:.3f}), the CUDA kernels "
         f"{mine:.3f} ms, other device work {busy - mine:.3f} ms")
     for ms, count, key in rows[:20]:
         log(f"    {ms:9.3f} ms  {count:5d}x  {key[:100]}")
-    results["profile"] = {"wall_ms": wall_ms, "device_busy_ms": busy,
-                          "kernels_ms": mine,
-                          "top": [[ms, c, k[:100]] for ms, c, k in rows[:40]]}
+    host = host_side(prof)
+    log(f"  host side of the profiled frame: {host['top_level_ops']} top-level "
+        f"PyTorch ops, {host['launches']} kernel launches, CPU busy "
+        f"{host['cpu_ms']:.3f} ms of the {wall_ms:.3f} ms wall")
+    for what in ("syncs", "sorts", "runtime"):
+        for key, (count, ms) in host[what].items():
+            log(f"    {what:7s} {key[:60]:60s} {count:6d}x  {ms:9.3f} ms")
+    log("    top host rows by self CPU time:")
+    for key, count, ms in host["top"][:12]:
+        log(f"      {ms:9.3f} ms  {count:6d}x  {key[:80]}")
+    results[key_name] = {"wall_ms": wall_ms, "device_busy_ms": busy,
+                         "kernels_ms": mine, "host": host,
+                         "top": [[ms, c, k[:100]] for ms, c, k in rows[:40]]}
+
+
+# PyTorch ops that copy a device value to the host and wait for it
+SYNC_OPS = ("aten::_local_scalar_dense", "aten::nonzero", "aten::item",
+            "aten::is_nonzero", "aten::unique_consecutive", "aten::_unique2")
+
+
+def host_side(prof):
+    """The host's share of one profiled frame: top-level PyTorch ops,
+    kernel launches, the ops that wait for the device, the sorts and the
+    CUDA runtime calls, each with its count and self CPU ms."""
+    from torch.autograd import DeviceType
+
+    by_name, top_level = {}, 0
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CPU:
+            continue
+        acc = by_name.setdefault(ev.name, [0, 0.0])
+        acc[0] += 1
+        acc[1] += ev.self_cpu_time_total / 1e3
+        if ev.cpu_parent is None and ev.name.startswith("aten::"):
+            top_level += 1
+    pick = lambda f: {k: tuple(v) for k, v in sorted(by_name.items()) if f(k)}
+    runtime = pick(lambda k: k.startswith("cu"))
+    return {
+        "top_level_ops": top_level,
+        "launches": sum(v[0] for k, v in by_name.items() if "LaunchKernel" in k),
+        "cpu_ms": sum(v[1] for v in by_name.values()),
+        "syncs": pick(lambda k: k in SYNC_OPS),
+        "sorts": pick(lambda k: k in ("aten::sort", "aten::argsort")),
+        "runtime": runtime,
+        "top": sorted(([k, v[0], v[1]] for k, v in by_name.items()),
+                      key=lambda r: -r[2])[:40],
+    }
 
 
 def time_call(fn, args, n):
@@ -401,8 +680,6 @@ def time_once(fn, args):
 # ---------------------------------------------------------------------------
 
 def render_scene(data, meta, cset, ssaa, device, res=None):
-    import dataclasses
-
     from raytracer_tpu_torch.pipeline import render_one_camera
 
     cam = meta.cameras[0]
@@ -418,6 +695,104 @@ def build(scene_fn, device, **kw):
     data, meta = scene_fn(device=device, **kw)
     cset = build_clusters(data, meta, build_bvh(data, meta))
     return data, meta, cset
+
+
+def to_cpu(data, meta, cset):
+    """(data, meta, cset) with every tensor moved to the CPU: the same
+    arrays, not a second build."""
+    import torch
+
+    def moved(obj):
+        return dataclasses.replace(obj, **{
+            f.name: getattr(obj, f.name).cpu() for f in dataclasses.fields(obj)
+            if isinstance(getattr(obj, f.name), torch.Tensor)})
+
+    return moved(data), meta, moved(cset)
+
+
+def drive_path(label, data, meta, cset, results, key, must, must_not=()):
+    """The main path of one scene at --ssaa 2 through render_one_camera:
+    a warm-up frame, one frame with the launch counts reset just before
+    and read just after (every kernel of ``must`` launched, none of
+    ``must_not``) and the kernel inputs captured, 5 timed frames, a
+    finite-radiance and coverage check, the scene through a 64x64 camera
+    against the CPU render (captured too), and one profiled frame.
+    Returns (capture, 64x64 capture, launches)."""
+    import numpy as np
+    import torch
+
+    from raytracer_tpu_torch.models.whitted import render_camera
+    from raytracer_tpu_torch.ops import kernels as K
+    from raytracer_tpu_torch.utils.ppm import write_ppm
+
+    dev = cset.tri_dat.device
+    cam = meta.cameras[0]
+    rays = cam.width * 2 * cam.height * 2
+    check(rays == 4_194_304, f"{rays} rays")
+    render_scene(data, meta, cset, 2, dev)          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    with Capture(K) as cap:
+        img = render_scene(data, meta, cset, 2, dev)
+    torch.cuda.synchronize()
+    launches = dict(K.launches)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  launches in one frame: {launches}")
+    log(f"  peak device memory of the frame: {peak} bytes ({peak / 2**30:.3f} GiB)")
+    for name in must:
+        check(launches[name] > 0, f"{name} was not launched on the path")
+    for name in must_not:
+        check(launches[name] == 0, f"{name} was launched on the path")
+    # each frame's wall time, with the process's CPU time and involuntary
+    # context switches (the host descheduling it) over the same frame
+    times, cpu, nivcsw = [], [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        r0 = resource.getrusage(resource.RUSAGE_SELF)
+        t0 = time.perf_counter()
+        render_scene(data, meta, cset, 2, dev)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        r1 = resource.getrusage(resource.RUSAGE_SELF)
+        cpu.append((r1.ru_utime + r1.ru_stime - r0.ru_utime - r0.ru_stime) * 1e3)
+        nivcsw.append(r1.ru_nivcsw - r0.ru_nivcsw)
+    frame_ms = statistics.median(times)
+    log(f"  frame ms (5 warm runs): {[round(t, 3) for t in times]}")
+    log(f"  process CPU ms over each: {[round(t, 3) for t in cpu]}; "
+        f"involuntary context switches: {nivcsw}")
+    log(f"  median {frame_ms:.3f} ms/frame, {rays / frame_ms / 1e3:.3f} Mrays/s "
+        f"(primary rays at ssaa 2)")
+    col = render_camera(data, meta, cam.scaled(2), cset, device=dev)
+    check(bool(torch.isfinite(col).all()), f"{label} radiance has NaN/inf")
+    del col
+    bg = np.array([20, 30, 60], np.uint8)
+    share = float((img != bg).any(-1).mean())
+    log(f"  radiance finite; image {img.shape}, non-background share {share:.4f}")
+    write_ppm(os.path.join(OUT, label + ".ppm"), img)
+    check(img.shape == (1024, 1024, 3) and share > 0.25,
+          f"{label}: the terrain covers less than a quarter of the frame")
+    # the same scene through a 64x64 camera: wide tiles whose shortlists
+    # overflow (the bitmask scan), checked against the CPU render
+    cpu_img = render_scene(*to_cpu(data, meta, cset), 1, "cpu", res=64)
+    with Capture(K) as small_cap:
+        cuda_img = render_scene(data, meta, cset, 1, dev, res=64)
+    compare_images(cuda_img, cpu_img, f"{label} at 64x64, cuda vs cpu")
+    profile_frame(lambda: render_scene(data, meta, cset, 2, dev), results,
+                  key + "_profile")
+    prof = results.get(key + "_profile")
+    if prof:
+        # the profiler slows the host; the device work it saw against the
+        # unprofiled median frame
+        log(f"  device busy {prof['device_busy_ms']:.3f} ms of the unprofiled "
+            f"median {frame_ms:.3f} ms: idle share "
+            f"{1 - prof['device_busy_ms'] / frame_ms:.3f}")
+    results[key] = {"ms": frame_ms, "runs_ms": times, "runs_cpu_ms": cpu,
+                    "runs_nivcsw": nivcsw,
+                    "mrays_per_s": rays / frame_ms / 1e3,
+                    "launches": launches, "non_background": share,
+                    "peak_bytes": peak}
+    return cap, small_cap, launches
 
 
 def run():
@@ -495,62 +870,75 @@ def run():
     log(f"  scene: {meta.n_tris} triangles, {ct} clusters, Pt={pt}, "
         f"{meta.n_lights} lights, max_depth {meta.max_depth}; "
         f"BVH + clusters built in {build_s:.2f} s")
-    cam = meta.cameras[0]
-    rays = cam.width * 2 * cam.height * 2
-    check(rays == 4_194_304, f"{rays} rays")
-    render_scene(data, meta, cset, 2, dev)          # warm-up
-    torch.cuda.synchronize()
-    K.reset_launches()
-    with Capture(K) as cap:
-        img = render_scene(data, meta, cset, 2, dev)
-    torch.cuda.synchronize()
-    launches = dict(K.launches)
-    log(f"  launches in one frame: {launches}")
-    for name in ("ray_mask", "closest_shared", "closest", "shadow"):
-        check(launches[name] > 0, f"{name} was not launched on the main path")
-    times = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        render_scene(data, meta, cset, 2, dev)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    frame_ms = statistics.median(times)
-    log(f"  frame ms (5 warm runs): {[round(t, 3) for t in times]}")
-    log(f"  median {frame_ms:.3f} ms/frame, {rays / frame_ms / 1e3:.3f} Mrays/s "
-        f"(primary rays at ssaa 2)")
-    col = render_camera(data, meta, cam.scaled(2), cset, device=dev)
-    check(bool(torch.isfinite(col).all()), "full-width radiance has NaN/inf")
-    bg = np.array([20, 30, 60], np.uint8)
-    share = float((img != bg).any(-1).mean())
-    log(f"  radiance finite; image {img.shape}, non-background share {share:.4f}")
-    from raytracer_tpu_torch.utils.ppm import write_ppm
+    cap, small_cap, launches = drive_path(
+        "terrain_1024", data, meta, cset, results, "frame",
+        must=("ray_mask", "closest_shared", "closest", "shadow"))
+    del data, cset
 
-    write_ppm(os.path.join(OUT, "terrain_1024.ppm"), img)
-    check(img.shape == (1024, 1024, 3) and share > 0.25,
-          "the terrain covers less than a quarter of the frame")
-    # the same scene through a 64x64 camera: wide tiles whose shortlists
-    # overflow (the bitmask scan), checked against the CPU render
-    small = {"cpu": render_scene(*build(terrain_scene, "cpu", cells=126,
-                                        res=1024, mirror_stripes=True), 1,
-                                 "cpu", res=64)}
-    with Capture(K) as small_cap:
-        small["cuda"] = render_scene(data, meta, cset, 1, dev, res=64)
-    compare_images(small["cuda"], small["cpu"], "full-width terrain at 64x64, cuda vs cpu")
-    profile_frame(lambda: render_scene(data, meta, cset, 2, dev), results)
-    results["frame"] = {"ms": frame_ms, "runs_ms": times,
-                        "mrays_per_s": rays / frame_ms / 1e3,
-                        "launches": launches, "non_background": share}
+    # -- phase 3b: big scene, plane tables over the budget
+    log("== phase 3b: big terrain (cells=512, res=1024, mirrors) at --ssaa 2")
+    from raytracer_tpu_torch.ops import cluster_trace as ctr
+
+    t0 = time.perf_counter()
+    data, meta, cset = build(terrain_scene, dev, cells=512, res=1024,
+                             mirror_stripes=True)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    pt, ct = cset.tri_dat.shape[1], cset.tri_dat.shape[1] // 128
+    n_super = -(-ct // 128)
+    log(f"  scene: {meta.n_tris} triangles, C={ct} clusters, Pt={pt}, "
+        f"S={n_super} superclusters, {meta.n_lights} lights, max_depth "
+        f"{meta.max_depth}; BVH + clusters built in {build_s:.2f} s")
+    check(pt * 64 > ctr.SHADOW_PLANES_BYTES_MAX
+          and n_super * 128 > ctr.SUPER_MIN_CPAD,
+          "the big terrain does not take the big-scene route")
+    results["big_scene"] = {"n_tris": meta.n_tris, "pt": pt, "c": ct,
+                            "s": n_super, "build_s": build_s}
+    bcap, bsmall_cap, big_launches = drive_path(
+        "big_terrain_1024", data, meta, cset, results, "big_frame",
+        must=("ray_mask", "ray_mask_hier", "closest_shared", "closest", "any"),
+        must_not=("shadow",))
+    del data, cset
+
+    # the single-light shadow call at main-path shapes: 80,000 triangles,
+    # each light's plane table within the budget, both together over it
+    log("== phase 3b: mid terrain (cells=200, res=512, mirrors) at --ssaa 2, once")
+    data, meta, cset = build(terrain_scene, dev, cells=200, res=512,
+                             mirror_stripes=True)
+    pt, ct = cset.tri_dat.shape[1], cset.tri_dat.shape[1] // 128
+    log(f"  scene: {meta.n_tris} triangles, C={ct} clusters, Pt={pt}, "
+        f"plane table {pt * 64} bytes per light")
+    check(pt * 64 <= ctr.SHADOW_PLANES_BYTES_MAX < 2 * pt * 64,
+          "the mid terrain's plane tables do not take one launch per light")
+    K.reset_launches()
+    with Capture(K) as mcap:
+        render_scene(data, meta, cset, 2, dev)
+    torch.cuda.synchronize()
+    mid_launches = dict(K.launches)
+    log(f"  launches in one frame: {mid_launches}")
+    for name in ("ray_mask_hier", "shadow"):
+        check(mid_launches[name] > 0, f"{name} was not launched on the mid terrain")
+    log(f"  single-light shadow launches per frame: {mid_launches['shadow']}")
+    check(mid_launches["any"] == 0, "the mid terrain took the any-hit kernel")
+    del data, cset
 
     # -- phase 4: kernel == plain on the card
     log("== phase 4: kernels vs their plain versions on the card")
     gen = torch.Generator().manual_seed(0)
-    errs = check_scene_kernels("terrain", cap.calls, gen)
-    max_err = {n: errs.get(n, 0.0) for n in REPLACES}
-    e = check_scene_kernels("terrain 64x64", small_cap.calls, gen)
+    max_err = {n: 0.0 for n in KERNELS}
+
+    def checked(label, calls):
+        e = check_scene_kernels(label, calls, gen)
+        for n in KERNELS:
+            max_err[n] = max(max_err[n], e.get(n, 0.0))
+        return e
+
+    checked("terrain", cap.calls)
+    e = checked("terrain 64x64", small_cap.calls)
     check(e.get("overflowed", 0) > 0, "no overflowed shortlist was checked")
-    for n in REPLACES:
-        max_err[n] = max(max_err[n], e.get(n, 0.0))
+    checked("big terrain", bcap.calls)
+    checked("big terrain 64x64", bsmall_cap.calls)
+    checked("mid terrain", mcap.calls)
     for label, n_sph in (("sphere_field(20000)", 20000), ("sphere_field(600)", 600)):
         sd, sm, scs = build(sphere_field, dev, n_spheres=n_sph, res=512)
         log(f"  {label}: {sm.n_spheres} spheres, "
@@ -561,53 +949,66 @@ def run():
               f"{label}: image is background")
         compare_images(
             render_scene(sd, sm, scs, 2, dev, res=64),
-            render_scene(*build(sphere_field, "cpu", n_spheres=n_sph, res=512),
-                         2, "cpu", res=64),
+            render_scene(*to_cpu(sd, sm, scs), 2, "cpu", res=64),
             f"{label} at 64x64 ssaa 2, cuda vs cpu")
-        e = check_scene_kernels(label, scap.calls, gen)
-        for n in REPLACES:
-            max_err[n] = max(max_err[n], e.get(n, 0.0))
+        checked(label, scap.calls)
         if n_sph == 20000:
             one_light = scap.calls["shadow"]
+        # the same shadow waves through cluster_any: the sphere walk and
+        # its early exit (157 clusters), the dense rows (5)
+        budget = ctr.SHADOW_PLANES_BYTES_MAX
+        ctr.SHADOW_PLANES_BYTES_MAX = 0
+        try:
+            with Capture(K) as acap:
+                aimg = render_scene(sd, sm, scs, 1, dev)
+        finally:
+            ctr.SHADOW_PLANES_BYTES_MAX = budget
+        compare_images(aimg, simg, f"{label} through cluster_any vs the shadow kernel")
+        checked(label + " through cluster_any", {"any": acap.calls["any"]})
 
-    # -- phase 5: timings at the phase-3 shapes
+    # -- phase 5: timings at the phase-3 and phase-3b shapes
     log("== phase 5: kernel timings at the full-width shapes")
-    fns = {"ray_mask": (K.ray_mask, K.ray_mask_plain),
-           "closest_shared": (K.closest, K.closest_plain),
-           "closest": (K.closest, K.closest_plain),
-           "shadow": (K.shadow, K.shadow_plain)}
+    pairs = kernel_pairs()
     rows = []
-    for name in ("ray_mask", "closest_shared", "closest", "shadow"):
-        args = cap.calls[name]
-        ms = time_call(fns[name][0], args, 10)
-        plain_ms = time_once(fns[name][1], args)
+    for name in KERNELS:
+        big = name in ("ray_mask_hier", "any")
+        args = (bcap if big else cap).calls[name]
+        n_launch = (big_launches if big else launches)[name]
+        ms = time_call(pairs[name][0], args, 10)
+        plain_ms = time_once(pairs[name][1], args)
         ops, byt = work(name, args)
         t_ops, t_bytes = ops / PEAK_FP32 * 1e3, byt / PEAK_BYTES * 1e3
         bound_ms = max(t_ops, t_bytes)
         rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": max_err.get(name, 0.0), "ms": ms,
+            "replaces": REPLACES[name], "launches": n_launch,
+            "max_abs_err": max_err[name], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None,
         })
-        log(f"  {name}: {ms:.4f} ms/launch, {launches[name]} launches/frame, "
-            f"bound {bound_ms:.4f} ms ({rows[-1]['bound_by']}: {ops:.3e} ops, "
-            f"{byt:.3e} bytes), plain {plain_ms:.2f} ms, "
-            f"{bound_ms / ms:.3f} of the bound")
+        log(f"  {name}{' (big terrain)' if big else ''}: {ms:.4f} ms/launch, "
+            f"{n_launch} launches/frame, bound {bound_ms:.4f} ms "
+            f"({rows[-1]['bound_by']}: {ops:.3e} ops, {byt:.3e} bytes), "
+            f"plain {plain_ms:.2f} ms, {bound_ms / ms:.3f} of the bound")
     # the single-light call shape (TPU row 5) is not on the 2-light main
-    # path: timed on the sphere field's shadow wave, reported in the log
-    ms = time_call(K.shadow, one_light, 10)
-    ops, byt = work("shadow", one_light)
-    bound_ms = max(ops / PEAK_FP32, byt / PEAK_BYTES) * 1e3
-    log(f"  shadow, 1 light (sphere_field(20000) at 512x512, walk + early "
-        f"exit): {ms:.4f} ms/launch, bound {bound_ms:.4f} ms (list-counted "
-        f"visits, an upper bound under the early exit), plain "
-        f"{time_once(K.shadow_plain, one_light):.2f} ms")
+    # path: timed on the mid terrain's and the sphere field's shadow waves
+    for label, args in (("mid terrain at 1024x1024 rays", mcap.calls["shadow"]),
+                        ("sphere_field(20000) at 512x512, walk + early exit",
+                         one_light)):
+        ms = time_call(K.shadow, args, 10)
+        ops, byt = work("shadow", args)
+        bound_ms = max(ops / PEAK_FP32, byt / PEAK_BYTES) * 1e3
+        plain_ms = time_once(K.shadow_plain, args)
+        log(f"  shadow, 1 light ({label}): {ms:.4f} ms/launch, "
+            f"bound {bound_ms:.4f} ms ({ops:.3e} ops, {byt:.3e} bytes), "
+            f"plain {plain_ms:.2f} ms")
+        results.setdefault("shadow_1_light", []).append(
+            {"where": label, "ms": ms, "bound_ms": bound_ms, "plain_ms": plain_ms})
     log("  library_ms: null for every kernel; no single PyTorch call computes "
-        "a slab mask over cluster shortlists, a shortlist closest hit or a "
-        "plane-table shadow test")
+        "a slab mask over cluster shortlists (flat or gated by superclusters), "
+        "a shortlist closest hit, a plane-table shadow test or a shortlist "
+        "segment any-hit")
     results["kernels"] = rows
     results["card"] = smi
     with open(os.path.join(OUT, "results.json"), "w") as f:

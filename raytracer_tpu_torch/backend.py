@@ -42,12 +42,17 @@ _vp, _i = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     # act, box, bundle, hit, ent, nt, c, r, stream
     "rt_ray_mask": [_vp] * 5 + [_i] * 3 + [_vp],
+    # act, sup, box, bundle, hit, ent, nt, c, r, stream
+    "rt_ray_mask_hier": [_vp] * 6 + [_i] * 3 + [_vp],
     # tw, tl, tc, sw, sl, sc, origin, dirs, tri_dat, sph_dat, t, slot,
     # nt, ct, cs, pt, ps, wt, ws, shared_origin, bfc, stream
     "rt_closest": [_vp] * 12 + [_i] * 9 + [_vp],
     # tw, tl, tc, sw, sl, sc, lps, origin, planes, sph_dat, found,
     # nt, nl, ct, cs, pt, ps, wt, ws, relaxed, stream
     "rt_shadow": [_vp] * 11 + [_i] * 9 + [_vp],
+    # tw, tl, tc, sw, sl, sc, origin, dirs, t_max, tri_dat, sph_dat, found,
+    # nt, ct, cs, pt, ps, wt, ws, bfc, relaxed, stream
+    "rt_any": [_vp] * 12 + [_i] * 9 + [_vp],
 }
 
 _lock = threading.Lock()

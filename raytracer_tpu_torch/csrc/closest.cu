@@ -69,30 +69,19 @@ __global__ void __launch_bounds__(RT_TILE) closest_kernel(
     __syncthreads();  // the previous visit's readers are done
     for (int r = 0; r < 12; ++r) rows[r][j] = tri_dat[r * pt + k * RT_CLUSTER + j];
     if (SHARED) {
-      orow[0][j] = ox * rows[0][j] + oy * rows[1][j] + oz * rows[2][j];
-      orow[1][j] = ox * rows[3][j] + oy * rows[4][j] + oz * rows[5][j];
-      orow[2][j] = ox * rows[6][j] + oy * rows[7][j] + oz * rows[8][j];
+      for (int r = 0; r < 3; ++r) orow[r][j] = dot_rows(ox, oy, oz, rows, 3 * r, j);
     }
     __syncthreads();
     for (int l = 0; l < RT_CLUSTER; ++l) {
-      const float nx = rows[0][l], ny = rows[1][l], nz = rows[2][l];
-      const float w1x = rows[3][l], w1y = rows[4][l], w1z = rows[5][l];
-      const float w2x = rows[6][l], w2y = rows[7][l], w2z = rows[8][l];
-      const float naa = rows[9][l], w1aa = rows[10][l], w2aa = rows[11][l];
-      const float nd = dx * nx + dy * ny + dz * nz;
-      const float no = SHARED ? orow[0][l] : ox * nx + oy * ny + oz * nz;
-      const float w1o = SHARED ? orow[1][l] : ox * w1x + oy * w1y + oz * w1z;
-      const float w2o = SHARED ? orow[2][l] : ox * w2x + oy * w2y + oz * w2z;
-      const float t = (naa - no) / nd;
-      const float beta = w1o + t * (dx * w1x + dy * w1y + dz * w1z) - w1aa;
-      const float gamma = w2o + t * (dx * w2x + dy * w2y + dz * w2z) - w2aa;
-      const float alpha = 1.0f - beta - gamma;
-      // all-zero padding rows give t = 0/0 = NaN: every comparison fails
-      bool ok = (alpha >= 0.0f) && (beta >= 0.0f) && (gamma >= 0.0f) &&
-                (t >= 0.0f);
-      if (BFC) ok = ok && (nd < 0.0f);
+      float t;
+      const bool ok = tri_hit<BFC>(
+          rows, l, SHARED ? orow[0][l] : dot_rows(ox, oy, oz, rows, 0, l),
+          SHARED ? orow[1][l] : dot_rows(ox, oy, oz, rows, 3, l),
+          SHARED ? orow[2][l] : dot_rows(ox, oy, oz, rows, 6, l), dx, dy, dz,
+          &t);
       consider(t, ok, l, k);
     }
+    return true;
   };
 
   const float a_q = dx * dx + dy * dy + dz * dz;
@@ -108,6 +97,7 @@ __global__ void __launch_bounds__(RT_TILE) closest_kernel(
       const bool ok = sph_root(s, a_q, rad, &t1);
       consider(t1, ok, l, ct + k);
     }
+    return true;
   };
 
   visit_clusters(i, tw, tl, tc, ct, RT_MAX_TRI_LIST, wt, tri_body);

@@ -27,20 +27,24 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   return (a != a || b != b) ? CUDART_NAN_F : fmaxf(a, b);
 }
 
-// Visit every candidate cluster of tile i in the engine's order: the
+// Visit the candidate clusters of tile i in the engine's order: the
 // front-to-back id list when its count fits max_list, else every cluster
 // whose bit is set, ascending.  The lists are per tile, so the walk is
-// uniform across the block and `body` may synchronise.
+// uniform across the block and `body` may synchronise.  `body` returns
+// false to stop the walk (the any-hit kernels' early exit; the decision
+// must be uniform over the block), true to go on.
 template <class Body>
 __device__ __forceinline__ void visit_clusters(
     int i, const int* words, const int* ids, const int* counts,
     int n_clusters, int max_list, int wpt, Body body) {
   const int n = counts[i];
   if (n <= max_list) {
-    for (int k = 0; k < n; ++k) body(ids[i * max_list + k]);
+    for (int k = 0; k < n; ++k) {
+      if (!body(ids[i * max_list + k])) return;
+    }
   } else {
     for (int k = 0; k < n_clusters; ++k) {
-      if ((words[i * wpt + (k >> 5)] >> (k & 31)) & 1) body(k);
+      if (((words[i * wpt + (k >> 5)] >> (k & 31)) & 1) && !body(k)) return;
     }
   }
 }
@@ -70,4 +74,53 @@ __device__ __forceinline__ bool sph_root(const SphTerms& s, float a_q,
   *t1 = (-s.b_q - sq) / (2.0f * a_q);
   return (s.disc >= 0.0f) && !((*t1 < 0.0f) && ((sq - s.b_q) < 0.0f)) &&
          (rad > 0.0f);
+}
+
+// Sphere hit with t < tmax on the ray o + t d (tmax 1: the segment
+// o -> o + d).  RELAXED: the sqrt/div-free sign tests of --relaxed-parity,
+// t2 >= 0 <=> b <= 0 or c <= 0 and t1 < tmax <=> u > 0 or disc > u^2 with
+// u = 2a tmax + b (cluster_trace.py:621-644).
+template <bool RELAXED>
+__device__ __forceinline__ bool sph_occluded(float ox, float oy, float oz,
+                                             float dx, float dy, float dz,
+                                             float a_q, float cx, float cy,
+                                             float cz, float rad, float tmax) {
+  const SphTerms s = sph_terms(ox, oy, oz, dx, dy, dz, a_q, cx, cy, cz, rad);
+  if (RELAXED) {
+    const float u = 2.0f * a_q * tmax + s.b_q;
+    return (rad > 0.0f) && (s.disc >= 0.0f) &&
+           ((s.b_q <= 0.0f) || (s.c_q <= 0.0f)) &&
+           ((u > 0.0f) || (s.disc > u * u));
+  }
+  float t1;
+  return sph_root(s, a_q, rad, &t1) && (t1 < tmax);
+}
+
+// o . (rows[r], rows[r+1], rows[r+2]) of triangle lane l.
+__device__ __forceinline__ float dot_rows(float ox, float oy, float oz,
+                                          float (*rows)[RT_CLUSTER], int r,
+                                          int l) {
+  return ox * rows[r][l] + oy * rows[r + 1][l] + oz * rows[r + 2][l];
+}
+
+// Wald test of the ray against staged triangle lane l, in the operation
+// order of _tri_cluster_test (cluster_trace.py:520-543); the origin dots
+// n.o, w1.o, w2.o come from the caller (per ray, or per lane for a shared
+// origin).  All-zero padding rows give t = 0/0 = NaN: every comparison
+// fails.  BFC culls triangles facing away from the ray.
+template <bool BFC>
+__device__ __forceinline__ bool tri_hit(float (*rows)[RT_CLUSTER], int l,
+                                        float no, float w1o, float w2o,
+                                        float dx, float dy, float dz,
+                                        float* t_out) {
+  const float nd = dx * rows[0][l] + dy * rows[1][l] + dz * rows[2][l];
+  const float t = (rows[9][l] - no) / nd;
+  const float beta = w1o + t * (dx * rows[3][l] + dy * rows[4][l] + dz * rows[5][l]) - rows[10][l];
+  const float gamma = w2o + t * (dx * rows[6][l] + dy * rows[7][l] + dz * rows[8][l]) - rows[11][l];
+  const float alpha = 1.0f - beta - gamma;
+  bool ok = (alpha >= 0.0f) && (beta >= 0.0f) && (gamma >= 0.0f) &&
+            (t >= 0.0f);
+  if (BFC) ok = ok && (nd < 0.0f);
+  *t_out = t;
+  return ok;
 }

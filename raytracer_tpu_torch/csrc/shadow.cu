@@ -29,23 +29,6 @@
 namespace {
 
 template <bool RELAXED>
-__device__ __forceinline__ bool sph_occluded(float ox, float oy, float oz,
-                                             float dx, float dy, float dz,
-                                             float a_q, float cx, float cy,
-                                             float cz, float rad) {
-  const SphTerms s = sph_terms(ox, oy, oz, dx, dy, dz, a_q, cx, cy, cz, rad);
-  if (RELAXED) {
-    // sqrt/div-free sign tests (--relaxed-parity), t_max = 1
-    const float u = 2.0f * a_q + s.b_q;
-    return (rad > 0.0f) && (s.disc >= 0.0f) &&
-           ((s.b_q <= 0.0f) || (s.c_q <= 0.0f)) &&
-           ((u > 0.0f) || (s.disc > u * u));
-  }
-  float t1;
-  return sph_root(s, a_q, rad, &t1) && (t1 < 1.0f);
-}
-
-template <bool RELAXED>
 __global__ void __launch_bounds__(RT_TILE) shadow_kernel(
     const int* __restrict__ tw, const int* __restrict__ tl,
     const int* __restrict__ tc, const int* __restrict__ sw,
@@ -95,6 +78,7 @@ __global__ void __launch_bounds__(RT_TILE) shadow_kernel(
         nonneg[w] |= nn;
         poison[w] |= pp;
       }
+      return true;
     };
     visit_clusters(i, tw + l * nt * wt, tl + l * nt * RT_MAX_TRI_LIST,
                    tc + l * nt, ct, RT_MAX_TRI_LIST, wt, tri_body);
@@ -117,23 +101,13 @@ __global__ void __launch_bounds__(RT_TILE) shadow_kernel(
         for (int q = 0; q < RT_CLUSTER; ++q) {
           any = any || sph_occluded<RELAXED>(ox, oy, oz, dx, dy, dz, a_q,
                                              rows[0][q], rows[1][q],
-                                             rows[2][q], rows[3][q]);
+                                             rows[2][q], rows[3][q], 1.0f);
         }
         if (any) fnd |= bit;
         return true;
       };
-      const int* swl = sw + l * nt * ws;
-      const int* sll = sl + l * nt * RT_MAX_SPH_LIST;
-      const int n = sc[l * nt + i];
-      if (n <= RT_MAX_SPH_LIST) {
-        for (int k = 0; k < n; ++k) {
-          if (!sph_body(sll[i * RT_MAX_SPH_LIST + k])) break;
-        }
-      } else {
-        for (int k = 0; k < cs; ++k) {
-          if (((swl[i * ws + (k >> 5)] >> (k & 31)) & 1) && !sph_body(k)) break;
-        }
-      }
+      visit_clusters(i, sw + l * nt * ws, sl + l * nt * RT_MAX_SPH_LIST,
+                     sc + l * nt, cs, RT_MAX_SPH_LIST, ws, sph_body);
       __syncthreads();  // rows are reused by the next light's triangles
     }
   }
@@ -155,7 +129,7 @@ __global__ void __launch_bounds__(RT_TILE) shadow_kernel(
           for (int q = 0; q < RT_CLUSTER; ++q) {
             any = any || sph_occluded<RELAXED>(ox, oy, oz, dx, dy, dz, a_q,
                                                rows[0][q], rows[1][q],
-                                               rows[2][q], rows[3][q]);
+                                               rows[2][q], rows[3][q], 1.0f);
           }
           if (any) fnd |= 1u << l;
         }

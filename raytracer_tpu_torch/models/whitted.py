@@ -12,6 +12,11 @@ Background only for a depth-0 miss, black for deeper misses; ambient
 re-added at every bounce; the loop ends after depth max_depth or when no
 lane is active.  Bounce 0 of an eye wavefront is peeled out so the
 closest-hit kernel can use the shared origin.
+
+Shadows: per-light plane tables and the shadow kernel while a table fits
+``SHADOW_PLANES_BYTES_MAX``, else the generic any-hit kernel
+(``cluster_any``).  Frames above the ray chunk render chunk by chunk; big
+scenes cap the chunk (``_cap_chunk_for_big_scenes``).
 """
 
 from __future__ import annotations
@@ -62,13 +67,13 @@ def render_rays(data: SceneData, meta: SceneMeta, origin, dirs,
     eye_shared = origin.dim() == 1
     nl = meta.n_lights
     shadow_fn = shadow_multi_fn = None
-    if nl > 0:
-        pt = cset.tri_verts.shape[1]
-        if pt * 64 > ctr.SHADOW_PLANES_BYTES_MAX:
-            raise NotImplementedError(
-                f"{pt} triangle slots: shadow plane tables above "
-                f"{ctr.SHADOW_PLANES_BYTES_MAX} bytes need the generic "
-                "any-hit kernel (_any_kernel), ROADMAP queue 2 item 7")
+
+    def occluded_fn(org, seg, t_max, mask):
+        return ctr.cluster_any(cset, org, seg, t_max, active=mask, bfc=bfc,
+                               relaxed=relaxed)
+
+    pt = cset.tri_verts.shape[1]
+    if nl > 0 and pt * 64 <= ctr.SHADOW_PLANES_BYTES_MAX:
         planes = [ctr.build_shadow_planes(cset, data.light_pos[l], bfc=bfc)
                   for l in range(nl)]
 
@@ -103,7 +108,8 @@ def render_rays(data: SceneData, meta: SceneMeta, origin, dirs,
             color = color + torch.where((~h.hit & active)[:, None],
                                         data.background[None, :], 0.0)
         local = shade_local(data, meta, cur_dir, h, shadow_fn=shadow_fn,
-                            shadow_multi_fn=shadow_multi_fn)
+                            shadow_multi_fn=shadow_multi_fn,
+                            occluded_fn=occluded_fn)
         color = color + throughput * torch.where(h.hit[:, None], local, 0.0)
         refl_org, refl_dir, tint, is_mirror = reflection_rays(data, cur_dir, h)
         active = active & is_mirror
@@ -138,24 +144,40 @@ def _tile_block_shape():
     return bh, TILE // bh
 
 
+# scenes with more triangle or sphere slots than this render in chunks
+# of at most _BIG_SCENE_CHUNK rays (the JAX package's segmentation
+# threshold; the port does not segment)
+SEG_SLOTS = 128 * 1024
+_BIG_SCENE_CHUNK = 1 << 17
+
+
+def _cap_chunk_for_big_scenes(chunk: int, cset: ClusterSet) -> int:
+    """Cap the ray chunk of scenes beyond SEG_SLOTS slots at 131,072 rays
+    (1,024 tiles), as the JAX package does.  Its reason was its compile
+    service; here it bounds the glue's dense (tiles, clusters) and (tiles,
+    clusters, 3) temporaries, which grow with both."""
+    if (cset.tri_dat.shape[1] > SEG_SLOTS
+            or cset.sph_dat.shape[1] > SEG_SLOTS):
+        return min(chunk, _BIG_SCENE_CHUNK)
+    return chunk
+
+
 def render_camera(data: SceneData, meta: SceneMeta, cam: Camera,
                   cset: ClusterSet, chunk: int = 1 << 22, bfc: bool = False,
                   relaxed: bool = False, device="cuda"):
     """Render one camera to an (H, W, 3) f32 radiance image on ``device``
     (CUDA by default; raises without a GPU).  Rays are reordered into 8x16
-    pixel blocks so every kernel tile is a coherent frustum, and the whole
-    frame is one wavefront; frames above ``chunk`` rays need the streamed
-    band renderer, which is not ported yet."""
+    pixel blocks so every kernel tile is a coherent frustum.  A frame of
+    at most ``chunk`` rays (capped for big scenes) is one wavefront;
+    larger frames render chunk by chunk: whole tiles in tile order, the
+    last chunk padded with copies of the last ray."""
     dev = resolve_device(device)
     if data.device != dev or cset.tri_dat.device != dev:
         raise ValueError(f"scene on {data.device} and clusters on "
                          f"{cset.tri_dat.device}, render on {dev}")
     h, w = cam.height, cam.width
-    chunk = max(TILE, (chunk // TILE) * TILE)
-    if h * w > chunk:
-        raise NotImplementedError(
-            f"{h * w} rays exceed chunk={chunk}: frames beyond one chunk "
-            "need the streamed band renderer, ROADMAP queue 1 row 11")
+    r = h * w
+    chunk = _cap_chunk_for_big_scenes(max(TILE, (chunk // TILE) * TILE), cset)
     bh, bw = _tile_block_shape()
     blocks = perm = inv = None
     if divides(h, w, bh, bw):
@@ -167,7 +189,15 @@ def render_camera(data: SceneData, meta: SceneMeta, cam: Camera,
     vec = torch.from_numpy(camera_vectors(cam)).to(dev)
     origin, dirs = eye_rays_from(vec, w, h)
     dirs = apply_tile_order(dirs, h, w, blocks, perm).contiguous()
-    color = render_rays(data, meta, origin, dirs, cset, bfc=bfc,
+    if r <= chunk:
+        color = render_rays(data, meta, origin, dirs, cset, bfc=bfc,
+                            relaxed=relaxed)
+    else:
+        pad = (-r) % chunk
+        dirs = torch.cat([dirs, dirs[-1:].expand(pad, 3)])
+        color = torch.cat([
+            render_rays(data, meta, origin, dirs[s:s + chunk], cset, bfc=bfc,
                         relaxed=relaxed)
+            for s in range(0, r + pad, chunk)])[:r]
     color = undo_tile_order(color, h, w, blocks, inv)
     return color.reshape(h, w, 3)

@@ -4,14 +4,17 @@
 Per trace call:
 
 1. A per-tile cluster mask: the exact per-ray slab test OR-reduced over
-   each 128-ray tile (``ray_cluster_mask``, the ``ray_mask`` kernel), or
-   for shared-origin eye tiles the interval-arithmetic tile test
-   (``tile_cluster_mask``, plain PyTorch).
+   each 128-ray tile (``ray_cluster_mask``, the ``ray_mask`` kernel; above
+   SUPER_MIN_CPAD columns first against supercluster boxes, then
+   ``ray_mask_hier`` on the chunks the tile crosses), or for shared-origin
+   eye tiles the interval-arithmetic tile test (``tile_cluster_mask``,
+   plain PyTorch).
 2. ``_compact``: the mask becomes a front-to-back id list per tile (stable
    descending sort of -entry: ties keep the lower cluster id, like
    ``lax.top_k``), an unclamped count and a bitmask for tiles whose list
    overflows.
-3. The ``closest`` or ``shadow`` kernel visits each tile's candidates.
+3. The ``closest``, ``shadow`` or ``any_hit`` kernel visits each tile's
+   candidates.
 
 The TPU scaffolding is not ported: the ``MAX_NT`` splits (SMEM budget),
 ``TPB`` tiles per program and the ``SEG_SLOTS`` segmentation (VMEM
@@ -38,8 +41,17 @@ _INF = float("inf")
 SMALL_SPH = 8
 
 # per-light shadow plane tables above this size take the generic any-hit
-# kernel in the JAX package (_any_kernel), which is not ported yet
+# kernel (cluster_any), as in the JAX package
 SHADOW_PLANES_BYTES_MAX = 8 << 20
+
+# Hierarchical mask: above SUPER_MIN_CPAD cluster columns (padded to a
+# multiple of 128) each tile is first slab-tested against the unions of
+# _SUPER consecutive clusters (superclusters), and only the 128-cluster
+# chunks it crosses get the per-cluster test, so per-tile mask work
+# follows the geometry the tile crosses instead of the cluster count.
+# The JAX package's threshold, without its environment override.
+_SUPER = 128
+SUPER_MIN_CPAD = 512
 
 
 def _interval_mul(alo, ahi, blo, bhi):
@@ -97,16 +109,45 @@ def tile_cluster_mask(origin, dirs, active, cmin, cmax, t_hi, tile: int):
     return hit, entry_lo
 
 
-def ray_cluster_mask(origin, dirs, active, cmin, cmax, t_hi, tile: int):
-    """(hit (nt, C) bool, entry (nt, C) f32): does ANY ray of the tile
-    cross the cluster box within its t window (the reference's slab test
-    per ray), and the least slab entry over those rays (+inf when none).
+def _super_boxes(cmin, cmax, cpad: int):
+    """(S, 3) NaN-aware unions of each 128-cluster chunk's boxes (S =
+    cpad / 128; NaN boxes, empty or padding clusters, are left out and an
+    all-NaN chunk stays NaN, as ``jnp.nanmin`` gives: it never hits),
+    dilated by 1e-5 |x| + 1e-30 so that a coarse miss implies a fine miss
+    whatever the rounding (the JAX package's reason: its coarse and fine
+    passes ran under two compilers)."""
+    c = cmin.shape[0]
+    s = cpad // _SUPER
+    nan = torch.full((cpad - c, 3), float("nan"), dtype=cmin.dtype,
+                     device=cmin.device)
+    lo = torch.cat([cmin, nan]).reshape(s, _SUPER, 3)
+    hi = torch.cat([cmax, nan]).reshape(s, _SUPER, 3)
+    empty = torch.isnan(lo).all(1)
+    smin = torch.where(torch.isnan(lo), _INF, lo).amin(1)
+    smax = torch.where(torch.isnan(hi), -_INF, hi).amax(1)
+    smin = torch.where(empty, float("nan"), smin)
+    smax = torch.where(torch.isnan(hi).all(1), float("nan"), smax)
+    eps = torch.tensor(1e-5, dtype=torch.float32, device=cmin.device)
+    tiny = torch.tensor(1e-30, dtype=torch.float32, device=cmin.device)
+    smin = smin - (eps * torch.abs(smin) + tiny)
+    smax = smax + (eps * torch.abs(smax) + tiny)
+    return smin, smax
 
-    Zero direction components use the FINITE reciprocal sentinel _BIG, so
-    both slab planes land on the same huge-t side exactly when the origin
-    is outside the slab, without NaN.  The per-ray terms (o*inv, inv, the
-    t window folded with the active mask) are precomputed here into the
-    kernel's (8, R) bundle."""
+
+def _box_table(cmin, cmax):
+    """(8, C) kernel box rows [cmin xyz, _BIG, cmax xyz, _BIG]."""
+    box = torch.full((8, cmin.shape[0]), _BIG, dtype=torch.float32,
+                     device=cmin.device)
+    box[0:3] = cmin.T
+    box[4:7] = cmax.T
+    return box
+
+
+def _mask_bundle(origin, dirs, active, t_hi, tile: int):
+    """(act (nt,) i32, bundle (8, R) f32) of the mask kernels: per tile,
+    whether any ray is active; per ray [o*inv (3), t_hi, inv (3), 0] with
+    inv the reciprocal direction clamped to +-_BIG (_BIG for a zero
+    component) and t_hi folded with the active mask (-inf: inactive)."""
     r = dirs.shape[0]
     nt = r // tile
     dev = dirs.device
@@ -120,13 +161,33 @@ def ray_cluster_mask(origin, dirs, active, cmin, cmax, t_hi, tile: int):
         act = active.reshape(nt, tile).any(1).to(torch.int32)
     else:
         act = torch.ones((nt,), dtype=torch.int32, device=dev)
-    c = cmin.shape[0]
-    box = torch.full((8, c), _BIG, dtype=torch.float32, device=dev)
-    box[0:3] = cmin.T
-    box[4:7] = cmax.T
     bundle = torch.cat([oi.T, thi[None], inv.T,
                         torch.zeros((1, r), dtype=torch.float32, device=dev)])
-    hit, ent = kernels.ray_mask(act, box, bundle.contiguous())
+    return act, bundle.contiguous()
+
+
+def ray_cluster_mask(origin, dirs, active, cmin, cmax, t_hi, tile: int):
+    """(hit (nt, C) bool, entry (nt, C) f32): does ANY ray of the tile
+    cross the cluster box within its t window (the reference's slab test
+    per ray), and the least slab entry over those rays (+inf when none).
+
+    Zero direction components use the FINITE reciprocal sentinel _BIG, so
+    both slab planes land on the same huge-t side exactly when the origin
+    is outside the slab, without NaN.  The per-ray terms (o*inv, inv, the
+    t window folded with the active mask) are precomputed here into the
+    kernel's (8, R) bundle.  Above SUPER_MIN_CPAD columns the hierarchical
+    route gives the same result: the ``ray_mask`` kernel against the
+    supercluster boxes (``_super_boxes``), then ``ray_mask_hier``."""
+    act, bundle = _mask_bundle(origin, dirs, active, t_hi, tile)
+    c = cmin.shape[0]
+    cpad = -(-c // _SUPER) * _SUPER
+    if cpad > SUPER_MIN_CPAD:
+        sup, _ = kernels.ray_mask(act, _box_table(*_super_boxes(cmin, cmax, cpad)),
+                                  bundle)
+        hit, ent = kernels.ray_mask_hier(act, sup.reshape(-1), _box_table(cmin, cmax),
+                                         bundle)
+    else:
+        hit, ent = kernels.ray_mask(act, _box_table(cmin, cmax), bundle)
     return hit != 0, ent
 
 
@@ -259,12 +320,14 @@ def _small_sphere_test(cset: ClusterSet, origin, dirs):
     return kernels._sph_test(_sph_rows(cset), ox, oy, oz, dx, dy, dz)
 
 
-def _small_sphere_occluded(cset: ClusterSet, origin, dirs, relaxed: bool):
-    """(R,) any sphere hit with t < 1 on the segment origin -> origin+dirs."""
+def _small_sphere_occluded(cset: ClusterSet, origin, dirs, relaxed: bool,
+                           t_max=1.0):
+    """(R,) any sphere hit with t < t_max ((R, 1) or 1: the segment
+    origin -> origin+dirs) on the ray origin + t dirs."""
     ox, oy, oz = origin[:, 0:1], origin[:, 1:2], origin[:, 2:3]
     dx, dy, dz = dirs[:, 0:1], dirs[:, 1:2], dirs[:, 2:3]
     return kernels._sph_occluded(_sph_rows(cset), ox, oy, oz, dx, dy, dz,
-                                 relaxed).any(1)
+                                 relaxed, t_max).any(1)
 
 
 def _small_sphere_test_multi(cset: ClusterSet, origin, lps, relaxed: bool):
@@ -381,4 +444,24 @@ def cluster_shadow_multi(cset: ClusterSet, planes_list, origin, light_pos,
     occ = torch.stack([(found >> l) & 1 for l in range(nl)], dim=1) != 0
     if 0 < cset.n_sph <= SMALL_SPH:
         occ = occ | _small_sphere_test_multi(cset, origin, lp, relaxed)
+    return occ[:r]
+
+
+def cluster_any(cset: ClusterSet, origin, dirs, t_max, active=None,
+                bfc: bool = False, relaxed: bool = False):
+    """(R,) bool: some accepted hit with t < t_max on origin + t dirs (the
+    ``any_hit`` kernel; shadow segments pass t_max 1).  ``origin``: (3,)
+    or (R, 3); ``t_max``: (R,); ``active`` (R,) bool marks the lanes whose
+    result is read (it shapes the shortlists)."""
+    origin = origin.expand(dirs.shape).contiguous()
+    r, origin, dirs, active, t_max = _pad_rays(origin, dirs.contiguous(),
+                                               active, t_max)
+    t_max = t_max.to(torch.float32).contiguous()
+    thit, shit = _cluster_masks(cset, origin, dirs, active, t_max)
+    found = kernels.any_hit(*_lists(thit, shit), origin, dirs, t_max,
+                            cset.tri_dat, cset.sph_dat, bfc, relaxed)
+    occ = found != 0
+    if 0 < cset.n_sph <= SMALL_SPH:
+        occ = occ | _small_sphere_occluded(cset, origin, dirs, relaxed,
+                                           t_max[:, None])
     return occ[:r]

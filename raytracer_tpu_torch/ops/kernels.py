@@ -1,16 +1,18 @@
-"""The cluster engine's three hand-written CUDA kernels: wrappers, plain
+"""The cluster engine's hand-written CUDA kernels: wrappers, plain
 PyTorch versions and launch counts.
 
-=========  ===============================  ==============================
-wrapper    CUDA source                      replaces (raytracer_tpu/ops/
+=============  ===========================  ==============================
+wrapper        CUDA source                  replaces (raytracer_tpu/ops/
                                             cluster_trace.py)
-=========  ===============================  ==============================
-ray_mask   csrc/ray_mask.cu                 _ray_mask_kernel (:305)
-closest    csrc/closest.cu                  _closest_kernel (:720), shared
+=============  ===========================  ==============================
+ray_mask       csrc/ray_mask.cu             _ray_mask_kernel (:305)
+ray_mask_hier  csrc/ray_mask.cu             _ray_mask_kernel_hier (:242)
+closest        csrc/closest.cu              _closest_kernel (:720), shared
                                             origin and per-ray origin
-shadow     csrc/shadow.cu                   _shadow_kernel (:982) and
+shadow         csrc/shadow.cu               _shadow_kernel (:982) and
                                             _shadow_kernel_ml (:1135)
-=========  ===============================  ==============================
+any_hit        csrc/any.cu                  _any_kernel (:837)
+=============  ===========================  ==============================
 
 Each wrapper dispatches on the device of its inputs: CPU tensors go to
 the plain version beside it (``*_plain``), CUDA tensors to the kernel,
@@ -45,7 +47,8 @@ MAX_TRI_LIST = 48    # list capacity before the bitmask fallback
 MAX_SPH_LIST = 8
 DENSE_SPH_ROWS = 8   # scenes with <= this many sphere clusters visit all
 
-launches = {"ray_mask": 0, "closest_shared": 0, "closest": 0, "shadow": 0}
+launches = {"ray_mask": 0, "ray_mask_hier": 0, "closest_shared": 0,
+            "closest": 0, "shadow": 0, "any": 0}
 
 # tiles per step of the plain versions: bounds their (tiles, 128, 128)
 # and (tiles, 128, C) temporaries
@@ -174,14 +177,16 @@ def _sph_test(r, ox, oy, oz, dx, dy, dz):
     return t1, ok
 
 
-def _sph_occluded(r, ox, oy, oz, dx, dy, dz, relaxed: bool):
-    """Any hit with t < 1 on the segment o -> o + d."""
+def _sph_occluded(r, ox, oy, oz, dx, dy, dz, relaxed: bool, t_max=1.0):
+    """Any hit with t < t_max on the ray o + t d (t_max 1: the segment
+    o -> o + d)."""
     if not relaxed:
         t1, ok = _sph_test(r, ox, oy, oz, dx, dy, dz)
-        return ok & (t1 < 1.0)
-    # sqrt/div-free sign tests (--relaxed-parity)
+        return ok & (t1 < t_max)
+    # sqrt/div-free sign tests (--relaxed-parity); with t_max = 1 the
+    # product 2a * t_max is exact, the plane kernel's 2a + b
     rad, a_q, b_q, c_q, disc = _sph_terms(r, ox, oy, oz, dx, dy, dz)
-    u = 2.0 * a_q + b_q
+    u = 2.0 * a_q * t_max + b_q
     return ((rad > 0.0) & (disc >= 0.0) & ((b_q <= 0.0) | (c_q <= 0.0))
             & ((u > 0.0) | (disc > u * u)))
 
@@ -246,6 +251,41 @@ def ray_mask_plain(act: torch.Tensor, box: torch.Tensor, bundle: torch.Tensor):
         ent[a:e] = torch.where(
             live, torch.where(pair, entry, _INF).amin(1), _INF)
     return hit, ent
+
+
+def ray_mask_hier(act: torch.Tensor, sup: torch.Tensor, box: torch.Tensor,
+                  bundle: torch.Tensor):
+    """:func:`ray_mask` with each 128-cluster chunk j of tile i gated by
+    the coarse bit ``sup[i * S + j]`` (S = ceil(C / 128) superclusters):
+    a chunk whose bit is 0 is written 0 / +inf untested.  With ``sup`` from
+    the slab test against dilated unions of each chunk's boxes (coarse
+    miss implies fine miss) the result equals :func:`ray_mask`."""
+    if bundle.device.type == "cpu":
+        return ray_mask_hier_plain(act, sup, box, bundle)
+    nt, c, dev = act.shape[0], box.shape[1], bundle.device
+    s = -(-c // CLUSTER)
+    _check("act", act, torch.int32, (nt,), dev)
+    _check("sup", sup, torch.int32, (nt * s,), dev)
+    _check("box", box, torch.float32, (8, c), dev)
+    _check("bundle", bundle, torch.float32, (8, nt * TILE), dev)
+    hit = torch.empty((nt, c), dtype=torch.int32, device=dev)
+    ent = torch.empty((nt, c), dtype=torch.float32, device=dev)
+    _launch("ray_mask_hier", "ray_mask_hier", dev, act, sup, box, bundle, hit,
+            ent, nt, c, nt * TILE)
+    return hit, ent
+
+
+def ray_mask_hier_plain(act: torch.Tensor, sup: torch.Tensor,
+                        box: torch.Tensor, bundle: torch.Tensor):
+    """Plain PyTorch version of :func:`ray_mask_hier`: the flat plain mask
+    chunk by chunk, with tiles whose coarse bit is 0 taken as inactive."""
+    nt, c = act.shape[0], box.shape[1]
+    s = -(-c // CLUSTER)
+    gate = sup.view(nt, s)
+    parts = [ray_mask_plain(act * gate[:, j], box[:, j * CLUSTER:(j + 1) * CLUSTER],
+                            bundle) for j in range(s)]
+    return (torch.cat([p[0] for p in parts], 1),
+            torch.cat([p[1] for p in parts], 1))
 
 
 # ---------------------------------------------------------------------------
@@ -407,4 +447,72 @@ def shadow_plain(tw, tl, tc, sw, sl, sc, lps, origin, planes, sph_dat,
                     hit = _sph_occluded(rows, ox, oy, oz, *seg[l], relaxed)
                     fnd |= (hit.any(-1) & gate).to(torch.int32) << l
         found[a:e] = fnd
+    return found.reshape(r)
+
+
+# ---------------------------------------------------------------------------
+# any_hit: generic segment any-hit over each tile's shortlists
+# ---------------------------------------------------------------------------
+
+def any_hit(tw, tl, tc, sw, sl, sc, origin, dirs, t_max, tri_dat, sph_dat,
+            bfc: bool = False, relaxed: bool = False):
+    """(R,) i32, 1 where some triangle (the closest kernel's test) or
+    sphere of the tile's shortlists is hit with t < t_max on the ray
+    origin + t dirs.
+
+    Shortlists as in :func:`closest`; origin, dirs: (R, 3) f32; t_max:
+    (R,) f32.  Every lane of a listed tile is tested, inactive ones too
+    (their t_max makes them whatever it makes them)."""
+    if dirs.device.type == "cpu":
+        return any_hit_plain(tw, tl, tc, sw, sl, sc, origin, dirs, t_max,
+                             tri_dat, sph_dat, bfc, relaxed)
+    dev, r = dirs.device, dirs.shape[0]
+    nt, pt, ps = r // TILE, tri_dat.shape[1], sph_dat.shape[1]
+    ct, cs = pt // CLUSTER, ps // CLUSTER
+    wt, ws = tw.shape[0] // max(nt, 1), sw.shape[0] // max(nt, 1)
+    for name, x, shape in (("tw", tw, (nt * wt,)), ("tl", tl, (nt * MAX_TRI_LIST,)),
+                           ("tc", tc, (nt,)), ("sw", sw, (nt * ws,)),
+                           ("sl", sl, (nt * MAX_SPH_LIST,)), ("sc", sc, (nt,))):
+        _check(name, x, torch.int32, shape, dev)
+    _check("origin", origin, torch.float32, (nt * TILE, 3), dev)
+    _check("dirs", dirs, torch.float32, (nt * TILE, 3), dev)
+    _check("t_max", t_max, torch.float32, (nt * TILE,), dev)
+    _check("tri_dat", tri_dat, torch.float32, (12, ct * CLUSTER), dev)
+    _check("sph_dat", sph_dat, torch.float32, (4, cs * CLUSTER), dev)
+    found = torch.empty((r,), dtype=torch.int32, device=dev)
+    _launch("any", "any", dev, tw, tl, tc, sw, sl, sc, origin, dirs, t_max,
+            tri_dat, sph_dat, found, nt, ct, cs, pt, ps, wt, ws, int(bfc),
+            int(relaxed))
+    return found
+
+
+def any_hit_plain(tw, tl, tc, sw, sl, sc, origin, dirs, t_max, tri_dat,
+                  sph_dat, bfc: bool = False, relaxed: bool = False):
+    """Plain PyTorch version of :func:`any_hit`: the closest kernel's visit
+    tables, an OR per visit; the all-lanes early exit is left out (it skips
+    only visits that cannot change a bit)."""
+    dev, r = dirs.device, dirs.shape[0]
+    nt, pt = r // TILE, tri_dat.shape[1]
+    ct, cs = pt // CLUSTER, sph_dat.shape[1] // CLUSTER
+    found = torch.zeros((nt, TILE), dtype=torch.int32, device=dev)
+    o, d = origin.view(nt, TILE, 3), dirs.view(nt, TILE, 3)
+    tm = t_max.view(nt, TILE, 1)
+    for a, e in _chunks(nt, TILE * CLUSTER):
+        ox, oy, oz = o[a:e, :, None, 0], o[a:e, :, None, 1], o[a:e, :, None, 2]
+        dx, dy, dz = d[a:e, :, None, 0], d[a:e, :, None, 1], d[a:e, :, None, 2]
+        tmax = tm[a:e]
+        fnd = torch.zeros((e - a, TILE), dtype=torch.bool, device=dev)
+        tri_vis = _visit_table(tw, tl, tc, ct, MAX_TRI_LIST, a, e)
+        sph_vis = (_dense_table(sc, cs, a, e) if cs <= DENSE_SPH_ROWS else
+                   _visit_table(sw, sl, sc, cs, MAX_SPH_LIST, a, e))
+        for v in range(tri_vis.shape[1]):
+            k = tri_vis[:, v]
+            t, ok = _tri_test(_gather(tri_dat, k), ox, oy, oz, dx, dy, dz, bfc)
+            fnd |= (ok & (t < tmax)).any(-1) & (k >= 0)[:, None]
+        for v in range(sph_vis.shape[1]):
+            k = sph_vis[:, v]
+            hit = _sph_occluded(_gather(sph_dat, k), ox, oy, oz, dx, dy, dz,
+                                relaxed, tmax)
+            fnd |= hit.any(-1) & (k >= 0)[:, None]
+        found[a:e] = fnd.to(torch.int32)
     return found.reshape(r)

@@ -70,13 +70,16 @@ def shade_local(
     h: Hit,
     shadow_fn: Optional[Callable] = None,
     shadow_multi_fn: Optional[Callable] = None,
+    occluded_fn: Optional[Callable] = None,
 ) -> torch.Tensor:
     """Ambient + per-light diffuse/specular; (R, 3), zero on miss lanes.
 
-    shadow_fn(org, seg, mask, l) -> (R,) bool tests occlusion toward light
-    l; shadow_multi_fn(org, masks (R, L)) -> (R, L) bool, when given,
-    tests every light in one kernel launch.  ``mask`` marks the lanes
-    whose result is read.
+    Occlusion, the first that is given: shadow_multi_fn(org, masks (R, L))
+    -> (R, L) bool tests every light in one kernel launch;
+    shadow_fn(org, seg, mask, l) -> (R,) bool tests light l;
+    occluded_fn(org, seg, t_max, mask) -> (N,) bool is the generic any-hit,
+    run as one light-major wavefront of L*R segments with t_max 1.
+    ``mask`` marks the lanes whose result is read.
     """
     nl = meta.n_lights
     amb = data.mat_ambient[h.mat] * data.ambient_light[None, :]
@@ -105,11 +108,20 @@ def shade_local(
     # t < 1, the reference's t < dist test in other units
     if shadow_multi_fn is not None:
         occ = shadow_multi_fn(h.offset, h.hit[:, None] & relevant)
-    else:
+    elif shadow_fn is not None:
         occ = torch.stack([
             shadow_fn(h.offset, to_off[:, l], h.hit & relevant[:, l], l)
             for l in range(nl)
         ], dim=1)
+    else:
+        # light-major, so each light's segments keep the rays' tile order
+        r = dirs.shape[0]
+        occ = occluded_fn(
+            h.offset[None].expand(nl, r, 3).reshape(nl * r, 3),
+            to_off.transpose(0, 1).reshape(nl * r, 3),
+            torch.ones((nl * r,), dtype=torch.float32, device=dirs.device),
+            (h.hit[:, None] & relevant).T.reshape(nl * r),
+        ).reshape(nl, r).T
     lit = h.hit[:, None] & relevant & ~occ
     irr = lint[None] / (light_dist * light_dist)[..., None]  # (R, L, 3)
 

@@ -7,6 +7,7 @@ import os
 
 import numpy as np
 
+from raytracer_tpu_torch.backend import resolve_device
 from raytracer_tpu_torch.models.whitted import render_camera
 from raytracer_tpu_torch.ops.image import (
     downsample_mean, downsample_parity, quantize,
@@ -24,11 +25,19 @@ def render_one_camera(data, meta, cam, accel, *, ssaa: int = 1,
     ``ssaa_mode``: ``parity`` averages the QUANTIZED samples with
     truncating integer division (the reference binary); ``mean`` averages
     radiance, then quantizes.  Other modes of the JAX package (jitter,
-    adaptive) are not ported and raise ValueError."""
+    adaptive) are not ported and raise ValueError.  A frame of more than
+    ``chunk`` rays (after SSAA) takes the JAX package's streamed band
+    renderer, which is not ported: NotImplementedError."""
     if ssaa_mode not in SSAA_MODES:
         raise ValueError(f"unknown or unported ssaa_mode {ssaa_mode!r}; "
                          f"one of {SSAA_MODES}")
+    device = resolve_device(device)
     rcam = cam.scaled(ssaa) if ssaa > 1 else cam
+    if rcam.width * rcam.height > chunk:
+        raise NotImplementedError(
+            f"{rcam.width * rcam.height} rays exceed chunk={chunk}: frames "
+            "beyond one chunk take the streamed band renderer, ROADMAP "
+            "queue 1 row 11")
     color = render_camera(data, meta, rcam, accel, chunk=chunk, bfc=bfc,
                           relaxed=relaxed, device=device)
     if ssaa <= 1:

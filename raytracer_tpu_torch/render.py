@@ -41,8 +41,9 @@ def main(argv=None) -> None:
     ap.add_argument("--bfc", action="store_true",
                     help="cull backfacing triangles (the TA golden semantics)")
     ap.add_argument("--chunk", type=int, default=1 << 22,
-                    help="most rays per frame (larger frames need the "
-                         "streamed renderer, not ported yet)")
+                    help="most rays per frame; larger frames take the "
+                         "streamed band renderer, not ported yet (ROADMAP "
+                         "queue 1 row 11), and raise")
     ap.add_argument("--out-dir", default=".", help="output directory")
     ap.add_argument("--repeat", type=int, default=1,
                     help="render repetitions for benchmarking")

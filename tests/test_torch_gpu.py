@@ -17,12 +17,35 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("scene,kw", [
+SCENES = [
     ("terrain_scene", dict(cells=40, mirror_stripes=True)),
     ("sphere_field", dict(n_spheres=1200)),
     ("sphere_field", dict(n_spheres=600)),
-])
+]
+
+
+@pytest.mark.parametrize("scene,kw", SCENES)
 def test_kernels_equal_plain_on_card(cuda, scene, kw):
+    _render_and_compare(cuda, scene, kw, ("ray_mask", "closest", "shadow"))
+
+
+@pytest.mark.parametrize("scene,kw", SCENES)
+@pytest.mark.parametrize("bfc,relaxed", [(False, False), (True, True)])
+def test_big_scene_kernels_equal_plain_on_card(cuda, scene, kw, bfc, relaxed,
+                                               monkeypatch):
+    """The big-scene route forced on small scenes: no plane tables (every
+    shadow wave takes any_hit) and the hierarchical mask at any size."""
+    from raytracer_tpu_torch.ops import cluster_trace
+
+    monkeypatch.setattr(cluster_trace, "SHADOW_PLANES_BYTES_MAX", 0)
+    monkeypatch.setattr(cluster_trace, "SUPER_MIN_CPAD", 0)
+    _render_and_compare(cuda, scene, kw, ("ray_mask_hier", "any_hit"),
+                        bfc=bfc, relaxed=relaxed)
+
+
+def _render_and_compare(cuda, scene, kw, names, **render_kw):
+    """Render at 64x64 on the card, keeping the inputs of every call of the
+    wrappers ``names``; then each call's kernel equals its plain version."""
     from raytracer_tpu_torch.models.bvh import build_bvh
     from raytracer_tpu_torch.models.clusters import build_clusters
     from raytracer_tpu_torch.models.whitted import render_camera
@@ -32,7 +55,7 @@ def test_kernels_equal_plain_on_card(cuda, scene, kw):
     data, meta = getattr(synth, scene)(res=64, device=cuda, **kw)
     cset = build_clusters(data, meta, build_bvh(data, meta))
     calls = []
-    wrapped = {n: getattr(K, n) for n in ("ray_mask", "closest", "shadow")}
+    wrapped = {n: getattr(K, n) for n in names}
 
     def spy(name):
         def f(*a):
@@ -44,11 +67,11 @@ def test_kernels_equal_plain_on_card(cuda, scene, kw):
         setattr(K, n, spy(n))
     try:
         render_camera(data, meta, dataclasses.replace(meta.cameras[0]), cset,
-                      device=cuda)
+                      device=cuda, **render_kw)
     finally:
         for n, f in wrapped.items():
             setattr(K, n, f)
-    assert {n for n, _ in calls} >= {"ray_mask", "closest", "shadow"}
+    assert {n for n, _ in calls} == set(names)
     for name, args in calls:
         out_k = wrapped[name](*args)
         out_p = getattr(K, name + "_plain")(*args)

@@ -78,11 +78,24 @@ def test_wrappers_dispatch_on_tensor_device(monkeypatch):
     from raytracer_tpu_torch.ops import kernels as K
 
     act = torch.ones(1, dtype=torch.int32)
+    sup = torch.ones(1, dtype=torch.int32)
     box = torch.zeros((8, 3))
     bundle = torch.zeros((8, 128))
+    z = torch.zeros(1, dtype=torch.int32)
+    lists = (z, torch.zeros(48, dtype=torch.int32), z, z,
+             torch.zeros(8, dtype=torch.int32), z)
+    rays = torch.zeros((128, 3))
+    any_args = (*lists, rays, rays, torch.ones(128), torch.zeros((12, 128)),
+                torch.zeros((4, 128)))
     K.reset_launches()
+    assert set(K.launches) == {"ray_mask", "ray_mask_hier", "closest_shared",
+                               "closest", "shadow", "any"}
     hit, ent = K.ray_mask(act, box, bundle)
     assert hit.shape == (1, 3) and ent.dtype == torch.float32
+    hit, ent = K.ray_mask_hier(act, sup, box, bundle)
+    assert hit.shape == (1, 3) and ent.dtype == torch.float32
+    found = K.any_hit(*any_args)
+    assert found.shape == (128,) and found.dtype == torch.int32
     assert sum(K.launches.values()) == 0
 
     def no_nvcc():
@@ -94,4 +107,8 @@ def test_wrappers_dispatch_on_tensor_device(monkeypatch):
     meta = [x.to("meta") for x in (act, box, bundle)]
     with pytest.raises(RuntimeError, match="nvcc"):
         K.ray_mask(*meta)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        K.ray_mask_hier(meta[0], sup.to("meta"), *meta[1:])
+    with pytest.raises(RuntimeError, match="nvcc"):
+        K.any_hit(*[x.to("meta") for x in any_args])
     assert sum(K.launches.values()) == 0

@@ -99,26 +99,28 @@ def test_sphere_field_radiance_matches_jax(scene):
 
 
 def test_frame_beyond_chunk_raises():
-    from raytracer_tpu_torch.models.whitted import render_camera
-
-    _, _, pdata, pmeta, pcs = shared_inputs("entry")
-    with pytest.raises(NotImplementedError, match="row 11"):
-        render_camera(pdata, pmeta, pmeta.cameras[0], pcs, chunk=1024,
-                      device="cpu")
-
-
-def test_unported_modes_raise(monkeypatch):
-    from raytracer_tpu_torch.ops import cluster_trace
+    """render_one_camera sends a frame above ``chunk`` rays (after SSAA) to
+    the JAX package's streamed band renderer, which is not ported: it
+    raises naming the roadmap row.  render_camera itself renders such a
+    frame in chunks (test_torch_bigscene)."""
     from raytracer_tpu_torch.pipeline import render_one_camera
 
     _, _, pdata, pmeta, pcs = shared_inputs("entry")
-    with pytest.raises(ValueError, match="jitter"):
-        render_one_camera(pdata, pmeta, pmeta.cameras[0], pcs, ssaa=2,
-                          ssaa_mode="jitter", device="cpu")
-    # plane tables beyond the budget need the generic any-hit kernel
-    monkeypatch.setattr(cluster_trace, "SHADOW_PLANES_BYTES_MAX", 1024)
-    with pytest.raises(NotImplementedError, match="_any_kernel"):
-        render_one_camera(pdata, pmeta, pmeta.cameras[0], pcs, device="cpu")
+    cam = pmeta.cameras[0]
+    for ssaa, chunk in ((1, 1024), (2, cam.width * cam.height)):
+        with pytest.raises(NotImplementedError, match="queue 1 row 11"):
+            render_one_camera(pdata, pmeta, cam, pcs, ssaa=ssaa, chunk=chunk,
+                              device="cpu")
+
+
+def test_unported_modes_raise():
+    from raytracer_tpu_torch.pipeline import render_one_camera
+
+    _, _, pdata, pmeta, pcs = shared_inputs("entry")
+    for mode in ("jitter", "adaptive"):
+        with pytest.raises(ValueError, match=mode):
+            render_one_camera(pdata, pmeta, pmeta.cameras[0], pcs, ssaa=2,
+                              ssaa_mode=mode, device="cpu")
 
 
 def test_pipeline_small_frame_matches_render_camera():
