@@ -8,7 +8,10 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 It builds the CUDA kernels from raytracer_tpu_torch/csrc (nvcc, sm_90a),
 then:
 
-1. set-up: build time, the card's name and power limit;
+1. set-up: build time, the card's name and power limit, and from the
+   build log (``ptxas -v``) the registers, spills and static shared memory
+   of each closest and any-hit instance with the blocks per SM its
+   registers allow;
 2. entry scene: tests/data/entry_scene.xml through the CLI's ``main`` on
    CUDA at --ssaa 1 and 2, against the same runs with --device cpu (the
    plain PyTorch versions of the kernels);
@@ -37,14 +40,19 @@ then:
    and compared, and rendered once more with the plane budget at 0 so its
    shadow waves reach the any-hit kernel through ``cluster_any``; the
    64x64 terrain camera gives tiles whose shortlists overflow into the
-   bitmask scan), on a sample of >= 256 tiles, with the other template
-   instances too (bfc for closest, relaxed for shadow, both for any):
-   results must be EQUAL (the kernels round op for op like eager
-   PyTorch, -fmad=false); the hierarchical mask also equals the flat one;
-5. timings of each kernel at the phase-3 shapes (the hierarchical mask
-   and any-hit at the phase-3b shapes, the single-light shadow call at the
-   80,000-triangle terrain's) with its bound from the work the call's data
-   needs (the any-hit kernels' pairs counted up to each ray's first hit);
+   bitmask scan; and the exact-tie case of ``tests/torch_tie_case.py``),
+   on a sample of >= 256 tiles, with the other template instances too (bfc
+   for closest, relaxed for shadow, both for any): results must be EQUAL
+   (the kernels round op for op like eager PyTorch, -fmad=false); the
+   hierarchical mask also equals the flat one;
+5. timings of each kernel at the busiest call of each frame that runs it
+   (the full-width frame and the big terrain's busiest chunk; the
+   single-light shadow call at the 80,000-triangle terrain's) with its
+   bound from the work the call's data needs (the any-hit kernels' pairs
+   counted up to each ray's first hit) and the spread of visits per tile;
+   each kernel's device ms and launches in each profiled frame, and each
+   frame's ranking of the kernels by the device time they lose against
+   their bounds;
 
 and prints the kernels' JSON line, then ``{"ok": true, "device": ...}``
 as its last line.  Any failure exits non-zero without that line.  Images
@@ -86,9 +94,6 @@ OPS = {"ray_mask": 28, "tri": 43, "tri_shared": 34, "sph": 33,
 
 KERNELS = ("ray_mask", "ray_mask_hier", "closest_shared", "closest",
            "shadow", "any")
-# the CUDA kernel functions, as the profiler names them
-KERNEL_FUNCS = ("ray_mask_kernel", "ray_mask_hier_kernel", "closest_kernel",
-                "shadow_kernel", "any_kernel")
 REPLACES = {
     "ray_mask": "raytracer_tpu/ops/cluster_trace.py:305",
     "ray_mask_hier": "raytracer_tpu/ops/cluster_trace.py:242",
@@ -292,6 +297,28 @@ def equal_nan(a, b):
     return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
 
 
+def tie_calls(dev):
+    """The closest (both call shapes) and any-hit calls of the exact-tie
+    case in tests/torch_tie_case.py, on ``dev``."""
+    import numpy as np
+    import torch
+
+    from raytracer_tpu_torch.ops import cluster_trace as ctr
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_tie_case import tie_case
+
+    c = tie_case()
+    on = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa: E731
+    lists = ctr._lists(tuple(map(on, c["thit"])), tuple(map(on, c["shit"])))
+    tri, sph = on(c["tri_dat"]), on(c["sph_dat"])
+    return {"closest": (*lists, on(c["origin"]), on(c["dirs"]), tri, sph, False),
+            "closest_shared": (*lists, on(c["eye"]), on(c["eye_dirs"]), tri, sph,
+                               False),
+            "any": (*lists, on(c["origin"]), on(c["dirs"]), on(c["t_max"]), tri,
+                    sph, False, False)}
+
+
 def kernel_vs_plain(name, args, what):
     """Run kernel and plain version on the same CUDA inputs; require
     equality.  Returns the max abs difference (0 when equal)."""
@@ -322,6 +349,60 @@ def kernel_vs_plain(name, args, what):
     return err
 
 
+def narrow_tiles():
+    """The least launch size (tiles) for which the closest and any-hit
+    kernels take 4-warp blocks (smaller launches take 16-warp blocks),
+    found by bisection on the library's own rule."""
+    from raytracer_tpu_torch import backend
+
+    lo, hi = 1, 1 << 20
+    check(backend.launch_threads(lo) == 512 and backend.launch_threads(hi) == 128,
+          "closest/any: no 16-warp launch of 1 tile or 4-warp launch of 2^20")
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if backend.launch_threads(mid) == 512:
+            lo = mid
+        else:
+            hi = mid
+    return hi
+
+
+def ptxas_report(path):
+    """{kernel instance: registers, spill and static shared bytes, threads,
+    resident blocks per SM} of the closest and any-hit kernels, from the
+    build log's ``ptxas -v`` lines.  Blocks per SM are those the H100's
+    register file allows (65,536 a SM, given out per warp in units of 256;
+    at most 64 warps): the kernels' dynamic shared memory, 12-56 KB a
+    block, leaves room for more."""
+    import re
+
+    inst = re.compile(r"(closest|any)_kernelILb([01])ELb([01])ELi(\d+)EE")
+    out, name = {}, None
+    with open(path) as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                k = inst.search(m.group(1))
+                name = None if k is None else (
+                    f"{k.group(1)}<{k.group(2)},{k.group(3)},{k.group(4)}>")
+                if name:
+                    out[name] = {"threads": 32 * int(k.group(4))}
+            elif name and "spill stores" in line:
+                out[name]["spill_bytes"] = int(re.search(
+                    r"(\d+) bytes spill stores", line).group(1))
+            elif name and "registers" in line:
+                regs = int(re.search(r"Used (\d+) registers", line).group(1))
+                smem = re.search(r"(\d+) bytes smem", line)
+                warps = out[name]["threads"] // 32
+                per_warp = -(-regs * 32 // 256) * 256
+                out[name].update(
+                    registers=regs, static_smem=int(smem.group(1)) if smem else 0,
+                    blocks_per_sm=min(65536 // per_warp, 64) // warps)
+    check(out and all("registers" in r for r in out.values()),
+          f"build log: no registers for some closest/any instance: {out}")
+    return out
+
+
 def check_scene_kernels(label, calls, gen, n_tiles=256):
     """Kernel == plain on a tile sample of every captured call."""
     import torch
@@ -343,6 +424,15 @@ def check_scene_kernels(label, calls, gen, n_tiles=256):
         sl = slice_args(kname, args, tiles)
         err = kernel_vs_plain(kname, sl, f"{label} ({tiles.numel()} tiles)")
         extra = ""
+        if kname in ("closest", "closest_shared", "any"):
+            # the sample launches 16-warp blocks; repeated past the launch
+            # size that takes 4-warp blocks, it checks those too
+            n = narrow_tiles()
+            check(tiles.numel() < n, f"{label} {name}: the sample is not 16-warp")
+            rep = tiles.repeat(n // tiles.numel() + 1)
+            err = max(err, kernel_vs_plain(kname, slice_args(kname, args, rep),
+                                           f"{label} ({rep.numel()} tiles)"))
+            extra = f" (also as {rep.numel()} tiles: 4-warp blocks)"
         if name == "ray_mask_hier":
             # the hierarchical mask equals the flat one on the same inputs
             q = named(kname, sl)
@@ -359,7 +449,7 @@ def check_scene_kernels(label, calls, gen, n_tiles=256):
                 err = max(err, kernel_vs_plain(
                     kname, slice_args(kname, args, tiles, bfc=bfc, relaxed=relaxed),
                     f"{label} bfc={bfc} relaxed={relaxed}"))
-            extra = " (also with bfc, relaxed and both)"
+            extra += " (also with bfc, relaxed and both)"
         elif not name.startswith("ray_mask"):
             # the other template instance: bfc for closest, relaxed for shadow
             flag = "bfc" if name.startswith("closest") else "relaxed"
@@ -367,7 +457,7 @@ def check_scene_kernels(label, calls, gen, n_tiles=256):
             err = max(err, kernel_vs_plain(
                 kname, slice_args(kname, args, tiles, **{flag: other}),
                 f"{label} {flag}={other}"))
-            extra = f" (also {flag}={other})"
+            extra += f" (also {flag}={other})"
         errs[kname] = max(errs.get(kname, 0.0), err)
         if name.startswith("closest") or name == "any":
             n_over = int((p["tc"][tiles] > 48).sum())
@@ -594,8 +684,7 @@ def profile_frame(frame, results, key_name="profile"):
     rows = [(ms, count, name) for name, (ms, count) in by_name.items()]
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    mine = sum(r[0] for r in rows
-               if any(k + "<" in r[2] or k + "(" in r[2] for k in KERNEL_FUNCS))
+    mine = sum(r[0] for r in rows if kernel_of(r[2]) is not None)
     log(f"  profiled frame: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms "
         f"(idle share {1 - busy / wall_ms:.3f}), the CUDA kernels "
         f"{mine:.3f} ms, other device work {busy - mine:.3f} ms")
@@ -611,9 +700,46 @@ def profile_frame(frame, results, key_name="profile"):
     log("    top host rows by self CPU time:")
     for key, count, ms in host["top"][:12]:
         log(f"      {ms:9.3f} ms  {count:6d}x  {key[:80]}")
+    by_kernel = {}
+    for ms, count, key in rows:
+        name = kernel_of(key)
+        if name is not None:
+            acc = by_kernel.setdefault(name, [0.0, 0])
+            acc[0] += ms
+            acc[1] += count
     results[key_name] = {"wall_ms": wall_ms, "device_busy_ms": busy,
-                         "kernels_ms": mine, "host": host,
+                         "kernels_ms": mine, "host": host, "by_kernel": by_kernel,
                          "top": [[ms, c, k[:100]] for ms, c, k in rows[:40]]}
+
+
+# a profiler event name's kernel row: the closest kernel's two call shapes
+# are its SHARED template instances
+EVENT_ROWS = (("ray_mask_hier_kernel", "ray_mask_hier"),
+              ("ray_mask_kernel", "ray_mask"),
+              ("closest_kernel<true", "closest_shared"),
+              ("closest_kernel<false", "closest"),
+              ("shadow_kernel", "shadow"), ("any_kernel", "any"))
+
+
+def kernel_of(event_name):
+    for key, name in EVENT_ROWS:
+        if key in event_name:
+            return name
+    return None
+
+
+def visit_spread(p):
+    """Visits per tile with work (tc + sc, summed over lights) of a call
+    ``p`` (by name): {tiles, mean, p99, max}."""
+    import torch
+
+    nt = p["tc"].shape[-1]
+    v = (p["tc"] + p["sc"]).view(-1, nt).sum(0)
+    v = v[v > 0].double()
+    if v.numel() == 0:
+        return {"tiles": 0}
+    return {"tiles": int(v.numel()), "mean": float(v.mean()),
+            "p99": float(torch.quantile(v, 0.99)), "max": int(v.max())}
 
 
 # PyTorch ops that copy a device value to the host and wait for it
@@ -828,11 +954,10 @@ def run():
     backend.kernels()
     log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s "
         f"({backend.library_path()})")
-    with open(os.path.join(backend.BUILD_DIR, "build.log")) as f:
-        for line in f:
-            if "registers" in line or line.startswith("=="):
-                log("  " + line.rstrip())
     results["build_s"] = backend.build_seconds()
+    results["ptxas"] = ptxas_report(os.path.join(backend.BUILD_DIR, "build.log"))
+    for name, row in results["ptxas"].items():
+        log(f"  {name}: {row}")
 
     # -- phase 2: entry scene through the CLI, CUDA vs CPU
     log("== phase 2: entry scene through the CLI")
@@ -966,31 +1091,69 @@ def run():
         compare_images(aimg, simg, f"{label} through cluster_any vs the shadow kernel")
         checked(label + " through cluster_any", {"any": acap.calls["any"]})
 
+    # the exact-tie case of the CPU tests (tests/torch_tie_case.py):
+    # duplicated and edge-sharing triangles across clusters, sphere-triangle
+    # ties, list overflows
+    checked("tie case", tie_calls(dev))
+
     # -- phase 5: timings at the phase-3 and phase-3b shapes
-    log("== phase 5: kernel timings at the full-width shapes")
+    log("== phase 5: kernel timings at the shapes of the two frames")
     pairs = kernel_pairs()
+    frames = {"full_width": (cap, launches, results.get("frame_profile")),
+              "big": (bcap, big_launches, results.get("big_frame_profile"))}
     rows = []
     for name in KERNELS:
-        big = name in ("ray_mask_hier", "any")
-        args = (bcap if big else cap).calls[name]
-        n_launch = (big_launches if big else launches)[name]
-        ms = time_call(pairs[name][0], args, 10)
-        plain_ms = time_once(pairs[name][1], args)
-        ops, byt = work(name, args)
-        t_ops, t_bytes = ops / PEAK_FP32 * 1e3, byt / PEAK_BYTES * 1e3
-        bound_ms = max(t_ops, t_bytes)
+        # the row's call: the full-width frame's, the big terrain's for the
+        # kernels that only it runs
+        primary = "big" if name in ("ray_mask_hier", "any") else "full_width"
+        calls = []
+        for frame, (fcap, _, _) in frames.items():
+            args = fcap.calls.get(name)
+            if args is None:
+                continue
+            ms = time_call(pairs[name][0], args, 10)
+            ops, byt = work(name, args)
+            t_ops, t_bytes = ops / PEAK_FP32 * 1e3, byt / PEAK_BYTES * 1e3
+            call = {"frame": frame, "ms": ms, "bound_ms": max(t_ops, t_bytes),
+                    "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                    "visits": (None if name.startswith("ray_mask") else
+                               visit_spread(named(name, args)))}
+            if frame == primary:
+                call["plain_ms"] = time_once(pairs[name][1], args)
+            calls.append(call)
+            log(f"  {name} ({frame} frame's busiest call): {ms:.4f} ms/launch, "
+                f"bound {call['bound_ms']:.4f} ms ({call['bound_by']}: "
+                f"{ops:.3e} ops, {byt:.3e} bytes), {call['bound_ms'] / ms:.3f} "
+                f"of the bound" + (f", plain {call['plain_ms']:.2f} ms"
+                                   if "plain_ms" in call else "")
+                + (f"; visits per tile {call['visits']}" if call["visits"] else ""))
+        main = next(c for c in calls if c["frame"] == primary)
+        per_frame = {}
+        for frame, (_, fl, prof) in frames.items():
+            dev_ms = prof["by_kernel"].get(name, [0.0, 0])[0] if prof else None
+            per_frame[frame] = {"device_ms": dev_ms, "launches": fl[name]}
         rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": n_launch,
-            "max_abs_err": max_err[name], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None,
+            "replaces": REPLACES[name], "launches": frames[primary][1][name],
+            "max_abs_err": max_err[name], "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None,
+            "frames": per_frame, "calls": calls,
         })
-        log(f"  {name}{' (big terrain)' if big else ''}: {ms:.4f} ms/launch, "
-            f"{n_launch} launches/frame, bound {bound_ms:.4f} ms "
-            f"({rows[-1]['bound_by']}: {ops:.3e} ops, {byt:.3e} bytes), "
-            f"plain {plain_ms:.2f} ms, {bound_ms / ms:.3f} of the bound")
+    # each frame's ranking: the device time a kernel loses against its
+    # bound, device ms x (1 - bound / ms) with that frame's busiest call
+    for frame in frames:
+        loss = []
+        for row in rows:
+            call = next((c for c in row["calls"] if c["frame"] == frame), None)
+            dev_ms = row["frames"][frame]["device_ms"]
+            if call is not None and dev_ms:
+                loss.append((dev_ms * (1 - call["bound_ms"] / call["ms"]),
+                             row["name"], dev_ms, row["frames"][frame]["launches"]))
+        loss.sort(reverse=True)
+        log(f"  {frame} frame, kernels by device ms lost against the bound: "
+            + ", ".join(f"{n} {l:.3f} of {d:.3f} ms ({c} launches)"
+                        for l, n, d, c in loss))
     # the single-light call shape (TPU row 5) is not on the 2-light main
     # path: timed on the mid terrain's and the sphere field's shadow waves
     for label, args in (("mid terrain at 1024x1024 rays", mcap.calls["shadow"]),

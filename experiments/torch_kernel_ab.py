@@ -1,0 +1,217 @@
+#!/usr/bin/env python3
+"""A/B of the PyTorch port's closest-hit and any-hit CUDA kernels on one card.
+
+Run from the root of a checkout on a machine with one NVIDIA H100:
+
+    python3 experiments/torch_kernel_ab.py --base DIR [--variants auto,4x4,16x4]
+
+DIR holds another version of ``raytracer_tpu_torch/csrc`` (for example the
+parent commit's, unpacked with ``git archive``).  The script builds one
+kernel library from DIR ("base") and one for each variant of this
+checkout's csrc, with ``backend.compile_library``: ``auto`` is csrc as the
+package builds it (the warps per block chosen per launch); ``GxS`` is a
+copy of csrc, under the build directory, whose ``common.cuh`` gives every
+launch G warps per block and splits each visit's lanes S ways.  Then it:
+
+1. captures the closest-hit and any-hit calls with the most work of the
+   full-width terrain frame and of the big terrain frame (the scenes of
+   ``chip_smoke.py`` phases 3 and 3b, rendered through this checkout's
+   library);
+2. on each captured call: every library's result equals the plain
+   PyTorch version's, bit for bit; its ms per launch (CUDA events over 10
+   launches, the libraries timed in the order A B C C B A and averaged);
+   the call's bound (``chip_smoke.work``) and the tiles' visit counts;
+3. the full-width frame's median wall ms over 3 frames and the big
+   frame's device busy ms (one profiled frame) with each library, in the
+   same A B C C B A order.
+
+Prints a line per measurement and writes ``smoke_out/kernel_ab.json``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import sys
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+import chip_smoke as cs  # noqa: E402
+
+
+def variant_csrc(label, out_dir):
+    """This checkout's csrc for variant ``label`` (see the module note)."""
+    import shutil
+
+    csrc = os.path.join(REPO, "raytracer_tpu_torch", "csrc")
+    if label == "auto":
+        return csrc
+    g, sp = label.split("x")
+    dst = os.path.join(out_dir, f"src_{label}")
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(csrc, dst)
+    path = os.path.join(dst, "common.cuh")
+    with open(path) as f:
+        text = f.read()
+    # every launch narrow (no launch has <= 0 tiles per SM), G warps wide
+    for old, new in (("#define RT_LANE_SPLIT 4\n", f"#define RT_LANE_SPLIT {sp}\n"),
+                     ("#define RT_NARROW_WARPS 4\n", f"#define RT_NARROW_WARPS {g}\n"),
+                     ("#define RT_WIDE_TILES_PER_SM 16\n",
+                      "#define RT_WIDE_TILES_PER_SM 0\n")):
+        cs.check(text.count(old) == 1, f"{label}: {old.strip()!r} not in common.cuh")
+        text = text.replace(old, new)
+    with open(path, "w") as f:
+        f.write(text)
+    return dst
+
+
+def build_libs(variants, out_dir):
+    """{label: library path} for each (label, csrc dir), the libraries
+    built side by side; logs each build's registers and spills."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from raytracer_tpu_torch import backend
+
+    os.makedirs(out_dir, exist_ok=True)
+    paths = {label: os.path.join(out_dir, f"lib_{label}.so") for label, _ in variants}
+    logs = {label: os.path.join(out_dir, f"{label}.log") for label, _ in variants}
+    with ThreadPoolExecutor(len(variants)) as pool:
+        for fut in [pool.submit(backend.compile_library, csrc, paths[label],
+                                logs[label]) for label, csrc in variants]:
+            fut.result()
+    for label in paths:
+        with open(logs[label]) as f:
+            for line in f:
+                if "registers" in line or "stack frame" in line:
+                    cs.log(f"  {label}: {line.strip()}")
+    return paths, logs
+
+
+def device_busy_ms(frame):
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    frame()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        frame()
+        torch.cuda.synchronize()
+    busy, kern = 0.0, {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            ms = ev.time_range.elapsed_us() / 1e3
+            busy += ms
+            for k in ("closest_kernel<true", "closest_kernel<false", "any_kernel<"):
+                if k in ev.name:
+                    kern[k] = kern.get(k, 0.0) + ms
+    return busy, kern
+
+
+def main() -> int:
+    import torch
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--base", required=True, help="another csrc directory")
+    ap.add_argument("--variants", default="auto",
+                    help="auto, or GxS: G warps a block, each visit's lanes "
+                         "split S ways")
+    a = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("FAIL: no CUDA device", file=sys.stderr)
+        return 1
+    from raytracer_tpu_torch import backend
+    from raytracer_tpu_torch.ops import kernels as K
+    from raytracer_tpu_torch.utils.synth import terrain_scene
+
+    card = cs.smi_line()
+    cs.log(f"card: {card}")
+    out_dir = os.path.join(backend.BUILD_DIR, "ab")
+    variants = [("base", a.base)] + [(v, variant_csrc(v, out_dir))
+                                     for v in a.variants.split(",")]
+    t0 = time.perf_counter()
+    libs, logs = build_libs(variants, out_dir)
+    cs.log(f"built {len(libs)} libraries in {time.perf_counter() - t0:.1f} s")
+    out = {"card": card, "ptxas": {label: cs.ptxas_report(logs[label])
+                                   for label in libs if label != "base"},
+           "calls": [], "frames": {}}
+    order = list(libs) + list(libs)[::-1]
+    dev = torch.device("cuda")
+    pairs = cs.kernel_pairs()
+
+    for scene, kw in (("full", dict(cells=126, res=1024, mirror_stripes=True)),
+                      ("big", dict(cells=512, res=1024, mirror_stripes=True))):
+        backend.load_library(libs[list(libs)[-1]])
+        data, meta, cset = cs.build(terrain_scene, dev, **kw)
+        cs.render_scene(data, meta, cset, 2, dev)
+        with cs.Capture(K) as cap:
+            cs.render_scene(data, meta, cset, 2, dev)
+        torch.cuda.synchronize()
+        for name in ("closest_shared", "closest", "any"):
+            args = cap.calls.get(name)
+            if args is None:
+                continue
+            wrapper, plain = pairs[name]
+            ref = plain(*args)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            for label in libs:
+                backend.load_library(libs[label])
+                got = wrapper(*args)
+                got = got if isinstance(got, tuple) else (got,)
+                torch.cuda.synchronize()
+                for x, y in zip(got, ref):
+                    cs.check(cs.equal_nan(x, y) if x.dtype.is_floating_point
+                             else bool((x == y).all()),
+                             f"{scene} {name}: {label} != plain")
+            ms = {label: [] for label in libs}
+            for label in order:
+                backend.load_library(libs[label])
+                ms[label].append(cs.time_call(wrapper, args, 10))
+            ops, byt = cs.work(name, args)
+            bound = max(ops / cs.PEAK_FP32, byt / cs.PEAK_BYTES) * 1e3
+            row = {"scene": scene, "name": name, "bound_ms": bound,
+                   "visits": cs.visit_spread(cs.named(name, args)),
+                   "ms": {k: statistics.mean(v) for k, v in ms.items()},
+                   "runs_ms": ms}
+            out["calls"].append(row)
+            cs.log(f"  {scene} {name}: all equal to plain; bound {bound:.4f} ms; "
+                   f"visits {row['visits']}")
+            for k, v in ms.items():
+                cs.log(f"    {k:6s} {statistics.mean(v):.4f} ms/launch "
+                       f"(runs {[round(x, 4) for x in v]}), "
+                       f"{bound / statistics.mean(v):.3f} of the bound")
+        del cap
+        frame = lambda: cs.render_scene(data, meta, cset, 2, dev)  # noqa: E731
+        res = {label: [] for label in libs}
+        for label in order:
+            backend.load_library(libs[label])
+            if scene == "full":
+                frame()
+                runs = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    frame()
+                    torch.cuda.synchronize()
+                    runs.append((time.perf_counter() - t0) * 1e3)
+                res[label].append({"wall_ms": statistics.median(runs), "runs": runs})
+            else:
+                busy, kern = device_busy_ms(frame)
+                res[label].append({"device_busy_ms": busy, "kernels_ms": kern})
+            cs.log(f"  {scene} frame with {label}: {res[label][-1]}")
+        out["frames"][scene] = res
+        del data, cset
+        torch.cuda.empty_cache()
+    os.makedirs(cs.OUT, exist_ok=True)
+    with open(os.path.join(cs.OUT, "kernel_ab.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    cs.log(f"card: {cs.smi_line()}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

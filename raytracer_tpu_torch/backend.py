@@ -38,7 +38,8 @@ NVCC_FLAGS = [
 ]
 
 _vp, _i = ctypes.c_void_p, ctypes.c_int
-# C entry points (csrc/*.cu); every one returns cudaGetLastError()
+# C entry points (csrc/*.cu); each but rt_launch_threads returns
+# cudaGetLastError()
 SIGNATURES = {
     # act, box, bundle, hit, ent, nt, c, r, stream
     "rt_ray_mask": [_vp] * 5 + [_i] * 3 + [_vp],
@@ -53,6 +54,9 @@ SIGNATURES = {
     # tw, tl, tc, sw, sl, sc, origin, dirs, t_max, tri_dat, sph_dat, found,
     # nt, ct, cs, pt, ps, wt, ws, bfc, relaxed, stream
     "rt_any": [_vp] * 12 + [_i] * 9 + [_vp],
+    # nt; returns the threads per block of a closest or any-hit launch over
+    # nt tiles (a number, not an error)
+    "rt_launch_threads": [_i],
 }
 
 _lock = threading.Lock()
@@ -106,12 +110,20 @@ def build() -> str:
     """Compile csrc/*.cu (in parallel) and link the kernel library;
     returns its path.  A no-op when the library for these sources exists."""
     out = library_path()
-    if os.path.exists(out):
-        return out
+    if not os.path.exists(out):
+        compile_library(CSRC_DIR, out, os.path.join(BUILD_DIR, "build.log"))
+    return out
+
+
+def compile_library(csrc: str, out: str, log_path: str) -> None:
+    """Compile every ``*.cu`` in ``csrc`` (one nvcc each, all started
+    together) and link them into the shared library ``out``; the
+    compilers' output, with ptxas' registers per kernel, goes to
+    ``log_path``."""
     nvcc = _nvcc()
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    cu = [s for s in _sources() if s.endswith(".cu")]
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    cu = sorted(glob.glob(os.path.join(csrc, "*.cu")))
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(out)) as tmp:
         objs, procs = [], []
         for src in cu:
             obj = os.path.join(tmp, os.path.basename(src)[:-3] + ".o")
@@ -125,7 +137,7 @@ def build() -> str:
             logs.append(f"== {os.path.basename(src)}\n{log}")
             if p.returncode != 0:
                 failed.append(src)
-        with open(os.path.join(BUILD_DIR, "build.log"), "w") as f:
+        with open(log_path, "w") as f:
             f.write("\n".join(logs))
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(logs))
@@ -136,7 +148,23 @@ def build() -> str:
         if link.returncode != 0:
             raise RuntimeError("nvcc link failed:\n" + link.stdout)
         os.replace(tmp_lib, out)
-    return out
+
+
+def load_library(path: str) -> ctypes.CDLL:
+    """Load the kernel library at ``path`` and route the wrappers of
+    ``ops.kernels`` to it; returns it.  A library built from an older
+    ``csrc`` (an A/B base) may lack the newer entry points."""
+    lib = ctypes.CDLL(path)
+    for name, argtypes in SIGNATURES.items():
+        if not hasattr(lib, name):
+            continue
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.rt_error_string.argtypes = [ctypes.c_int]
+    lib.rt_error_string.restype = ctypes.c_char_p
+    _state["lib"] = lib
+    return lib
 
 
 def kernels() -> ctypes.CDLL:
@@ -144,21 +172,21 @@ def kernels() -> ctypes.CDLL:
     with _lock:
         if "lib" not in _state:
             t0 = time.perf_counter()
-            lib = ctypes.CDLL(build())
-            for name, argtypes in SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            lib.rt_error_string.argtypes = [ctypes.c_int]
-            lib.rt_error_string.restype = ctypes.c_char_p
+            load_library(build())
             _state["build_s"] = time.perf_counter() - t0
-            _state["lib"] = lib
         return _state["lib"]
 
 
 def build_seconds() -> float:
     """Seconds the first ``kernels()`` call took (build and load)."""
     return _state.get("build_s", 0.0)
+
+
+def launch_threads(nt: int) -> int:
+    """Threads per block of a closest-hit or any-hit launch over ``nt``
+    tiles: wide blocks for launches of few tiles per SM (``wide_launch``
+    in csrc/common.cuh)."""
+    return kernels().rt_launch_threads(nt)
 
 
 def check(rc: int, name: str) -> None:

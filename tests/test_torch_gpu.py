@@ -79,3 +79,43 @@ def _render_and_compare(cuda, scene, kw, names, **render_kw):
         out_p = out_p if isinstance(out_p, tuple) else (out_p,)
         for a, b in zip(out_k, out_p):
             assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("width", ["16-warp", "4-warp"])
+def test_tie_case_kernels_equal_plain_on_card(cuda, width):
+    """The exact-tie case (tests/torch_tie_case.py: duplicated and
+    edge-sharing triangles across clusters, sphere-triangle ties, list
+    overflows, a sphere-only and an empty tile): closest in both call
+    shapes and any_hit, each with every template instance, equal their
+    plain versions on the card, in both block widths (a launch of a few
+    tiles per SM takes 16-warp blocks; the case repeated to a whole
+    frame's 32,768 tiles takes 4-warp blocks).  Either way several warps
+    split each tile's work and merge their winners."""
+    import numpy as np
+
+    from raytracer_tpu_torch import backend
+    from raytracer_tpu_torch.ops import cluster_trace as pct
+    from raytracer_tpu_torch.ops import kernels as K
+    from torch_tie_case import N_TILES, tie_case
+
+    reps = 1 if width == "16-warp" else 32768 // N_TILES
+    threads = backend.launch_threads(reps * N_TILES)
+    assert threads == (512 if width == "16-warp" else 128)
+    c = tie_case()
+    on = lambda x: torch.from_numpy(np.ascontiguousarray(  # noqa: E731
+        np.tile(x, (reps,) + (1,) * (np.ndim(x) - 1)))).to(cuda)
+    lists = pct._lists(tuple(map(on, c["thit"])), tuple(map(on, c["shit"])))
+    tri = torch.from_numpy(c["tri_dat"]).to(cuda)
+    sph = torch.from_numpy(c["sph_dat"]).to(cuda)
+    eye = torch.from_numpy(c["eye"]).to(cuda)
+    for o, d in ((on(c["origin"]), on(c["dirs"])), (eye, on(c["eye_dirs"]))):
+        for bfc in (False, True):
+            args = (*lists, o, d, tri, sph, bfc)
+            for a, b in zip(K.closest(*args), K.closest_plain(*args)):
+                assert torch.equal(a, b), f"closest origin {tuple(o.shape)} bfc={bfc}"
+    for bfc in (False, True):
+        for relaxed in (False, True):
+            args = (*lists, on(c["origin"]), on(c["dirs"]), on(c["t_max"]), tri,
+                    sph, bfc, relaxed)
+            assert torch.equal(K.any_hit(*args), K.any_hit_plain(*args)), \
+                f"any bfc={bfc} relaxed={relaxed}"

@@ -225,3 +225,120 @@ def test_slot_to_prim_equals_jax(scene):
         jp = np.asarray(jct._slot_to_prim(jcs, jnp.asarray(slot)))
     pp = pct._slot_to_prim(pcs, torch.from_numpy(slot)).numpy()
     assert_same(pp, jp, "prim")
+
+
+# ---------------------------------------------------------------------------
+# exact ties (tests/torch_tie_case.py): the (t, lane, visit) winner rule
+# ---------------------------------------------------------------------------
+
+def _tie_inputs(shared):
+    from torch_tie_case import tie_case
+
+    c = tie_case()
+    o, d = (c["eye"], c["eye_dirs"]) if shared else (c["origin"], c["dirs"])
+    to_t = lambda x: torch.from_numpy(np.ascontiguousarray(x))  # noqa: E731
+    lists = pct._lists(tuple(map(to_t, c["thit"])), tuple(map(to_t, c["shit"])))
+    return c, o, d, lists, to_t
+
+
+def _tie_stats(c, o, d, lists, slot, bfc):
+    """Over the rays that hit: how many have more than one candidate at
+    their least t (an exact tie), how many of those were won at a later
+    visit than a tied candidate (by a lower lane), and how many ties mix a
+    sphere with a triangle.  Replayed in float64, exact on this case."""
+    tri, sph = c["tri_dat"].astype(np.float64), c["sph_dat"].astype(np.float64)
+    ct, pt = tri.shape[1] // 128, tri.shape[1]
+    tw, tl, tc, sw, sl, sc = lists
+    vis = K._visit_table(tw, tl, tc, ct, K.MAX_TRI_LIST, 0, tc.shape[0]).numpy()
+    o = np.broadcast_to(o, d.shape).astype(np.float64)
+    d = d.astype(np.float64)
+    tied = later = mixed = 0
+    for i in range(tc.shape[0]):
+        rays = slice(i * 128, (i + 1) * 128)
+        oo, dd = o[rays, :, None], d[rays, :, None]
+        cand = []   # (t (128 rays, 128 lanes), pos, cluster id incl. sphere offset)
+        seq = [k for k in vis[i] if k >= 0]
+        for pos, k in enumerate(seq):
+            r = tri[:, k * 128:(k + 1) * 128]
+            nd = (dd * r[0:3][None]).sum(1)
+            with np.errstate(divide="ignore", invalid="ignore"):
+                t = (r[9] - (oo * r[0:3][None]).sum(1)) / nd
+            p = oo + t[:, None] * dd
+            beta = (p * r[3:6][None]).sum(1) - r[10]
+            gamma = (p * r[6:9][None]).sum(1) - r[11]
+            ok = (beta >= 0) & (gamma >= 0) & (1 - beta - gamma >= 0) & (t >= 0)
+            if bfc:
+                ok &= nd < 0
+            cand.append((np.where(ok, t, np.inf), pos, k))
+        if int(sc[i]) != 0:
+            oc = oo - sph[0:3][None]
+            a = (dd * dd).sum(1)
+            b = 2 * (dd * oc).sum(1)
+            disc = b * b - 4 * a * ((oc * oc).sum(1) - sph[3] ** 2)
+            sq = np.sqrt(np.maximum(disc, 0))
+            t1 = (-b - sq) / (2 * a)
+            ok = (disc >= 0) & ~((t1 < 0) & (sq - b < 0)) & (sph[3] > 0)
+            cand.append((np.where(ok, t1, np.inf), len(seq), ct))
+        if not cand:
+            continue
+        ts = np.stack([x[0] for x in cand])                  # (V, rays, lanes)
+        best = ts.min((0, 2))
+        at_best = (ts == best[None, :, None]) & np.isfinite(best)[None, :, None]
+        n_best = at_best.sum((0, 2))
+        for j in np.nonzero(n_best > 1)[0]:
+            tied += 1
+            s = int(slot[i * 128 + j])
+            k = s // 128 if s < pt else ct + (s - pt) // 128
+            pos = [x[1] for x in cand if x[2] == k][0]
+            earliest = min(x[1] for v, x in enumerate(cand) if at_best[v, j].any())
+            later += pos > earliest
+            kinds = {x[2] >= ct for v, x in enumerate(cand) if at_best[v, j].any()}
+            mixed += len(kinds) == 2
+    return tied, later, mixed
+
+
+@pytest.mark.parametrize("shared,bfc", [(False, False), (False, True),
+                                        (True, False), (True, True)])
+def test_closest_exact_ties_match_jax(shared, bfc):
+    """The closest kernel (plain version) against the JAX package's
+    _closest_kernel (interpret mode, the call shape of ``shared``) on the
+    tie case: t and slot EQUAL on every ray, no tolerance (every float
+    operation of the case is exact, so XLA's FMA contraction cannot move
+    a result).  The case holds exact ties won by the lower lane at a
+    later visit, list overflows, a sphere-only and an empty tile, and
+    (per-ray origin) sphere-triangle ties."""
+    c, o, d, lists, to_t = _tie_inputs(shared)
+    thit = tuple(map(jnp.asarray, c["thit"]))
+    shit = tuple(map(jnp.asarray, c["shit"]))
+    call = jct._cluster_closest_call_shared if shared else jct._cluster_closest_call
+    jt, js = call(thit, shit, jnp.asarray(o), jnp.asarray(d), jnp.asarray(c["tri_dat"]),
+                  jnp.asarray(c["sph_dat"]), 200, 4, bfc)
+    pt_, ps = K.closest(*lists, to_t(o), to_t(d), to_t(c["tri_dat"]),
+                        to_t(c["sph_dat"]), bfc)
+    assert int(lists[2].max()) > K.MAX_TRI_LIST
+    assert_same(ps.numpy(), np.asarray(js), "slot")
+    assert_same(pt_.numpy(), np.asarray(jt), "t")
+    assert (ps[6 * 128:7 * 128] == -1).all()          # the empty tile
+    tied, later, mixed = _tie_stats(c, o, d, lists, ps.numpy(), bfc)
+    print(f"shared={shared} bfc={bfc}: {int((ps >= 0).sum())} hits, {tied} tied, "
+          f"{later} won at a later visit by a lower lane, {mixed} sphere-triangle")
+    assert tied > 100 and later > 10
+    assert mixed > 0 or shared
+
+
+@pytest.mark.parametrize("bfc,relaxed", [(False, False), (False, True),
+                                         (True, False), (True, True)])
+def test_any_hit_exact_ties_match_jax(bfc, relaxed):
+    """The any-hit kernel (plain version) against the JAX package's
+    _any_kernel (interpret mode) on the tie case with t_max at exactly a
+    layer's t and at the sphere tops (t < t_max is strict): found bits
+    EQUAL on every ray."""
+    c, o, d, lists, to_t = _tie_inputs(False)
+    jf = np.asarray(jct._cluster_any_call(
+        tuple(map(jnp.asarray, c["thit"])), tuple(map(jnp.asarray, c["shit"])),
+        jnp.asarray(o), jnp.asarray(d), jnp.asarray(c["t_max"])[:, None],
+        jnp.asarray(c["tri_dat"]), jnp.asarray(c["sph_dat"]), 200, 4, bfc, relaxed))
+    pf = K.any_hit(*lists, to_t(o), to_t(d), to_t(c["t_max"]), to_t(c["tri_dat"]),
+                   to_t(c["sph_dat"]), bfc, relaxed).numpy() != 0
+    assert 100 < pf.sum() < pf.size - 100
+    assert_same(pf, jf, "found")
