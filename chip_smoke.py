@@ -8,10 +8,11 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 It builds the CUDA kernels from raytracer_tpu_torch/csrc (nvcc, sm_90a),
 then:
 
-1. set-up: build time, the card's name and power limit, and from the
-   build log (``ptxas -v``) the registers, spills and static shared memory
-   of each closest and any-hit instance with the blocks per SM its
-   registers allow;
+1. set-up: build time, the card's name and power limit, from the build
+   log (``ptxas -v``) the registers, spills and static shared memory of
+   each kernel instance with the blocks per SM its registers allow, and
+   from ``cuobjdump -sass`` each instance's NaN-propagating FMNMX count
+   (the masks and the shadow kernel must have some);
 2. entry scene: tests/data/entry_scene.xml through the CLI's ``main`` on
    CUDA at --ssaa 1 and 2, against the same runs with --device cpu (the
    plain PyTorch versions of the kernels);
@@ -40,14 +41,19 @@ then:
    and compared, and rendered once more with the plane budget at 0 so its
    shadow waves reach the any-hit kernel through ``cluster_any``; the
    64x64 terrain camera gives tiles whose shortlists overflow into the
-   bitmask scan; and the exact-tie case of ``tests/torch_tie_case.py``),
+   bitmask scan; the exact-tie case of ``tests/torch_tie_case.py``; the
+   NaN-poison case of ``tests/torch_poison_case.py`` with 1 and 2 lights),
    on a sample of >= 256 tiles, with the other template instances too (bfc
-   for closest, relaxed for shadow, both for any): results must be EQUAL
-   (the kernels round op for op like eager PyTorch, -fmad=false); the
-   hierarchical mask also equals the flat one;
+   for closest, relaxed for shadow, both for any) and, for the closest,
+   any-hit and shadow kernels, the sample repeated past the launch size
+   that takes 4-warp blocks; the flat mask also at column counts that take
+   each of its instances: results must be EQUAL (the kernels round op for
+   op like eager PyTorch, -fmad=false); the hierarchical mask also equals
+   the flat one;
 5. timings of each kernel at the busiest call of each frame that runs it
-   (the full-width frame and the big terrain's busiest chunk; the
-   single-light shadow call at the 80,000-triangle terrain's) with its
+   (the full-width frame and the big terrain's busiest chunk, whose flat
+   mask is the supercluster pass; the single-light shadow call at the
+   80,000-triangle terrain's) with its
    bound from the work the call's data needs (the any-hit kernels' pairs
    counted up to each ray's first hit) and the spread of visits per tile;
    each kernel's device ms and launches in each profiled frame, and each
@@ -79,8 +85,9 @@ PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 
 # float operations per (ray, primitive-or-box) pair, counted from the
-# kernel sources: csrc/ray_mask.cu (6 mul, 6 sub, 12 min/max, 3 compare,
-# 1 min; the hierarchical kernel the same on the chunks it tests),
+# kernel sources: csrc/ray_mask.cu (6 mul, 6 sub, 4 min/max with the near
+# and far planes named by the ray's octant, 3 compares, 1 min; the
+# hierarchical kernel the same on the chunks it tests),
 # csrc/closest.cu (triangle: 15 mul/add for nd and the two
 # edge-direction dots, 9 for the origin dots (3 per lane with a shared
 # origin, counted per pair as 0), 1 sub, 1 div, 4 for beta/gamma, 2 for
@@ -89,7 +96,7 @@ PEAK_BYTES = 3.35e12
 # the winner), csrc/shadow.cu (4 planes x 6, 3 min, 2 compares; sphere as
 # in closest without the winner), csrc/any.cu (triangle as in closest
 # with t < t_max and the OR in place of the winner; sphere as in shadow)
-OPS = {"ray_mask": 28, "tri": 43, "tri_shared": 34, "sph": 33,
+OPS = {"ray_mask": 20, "tri": 43, "tri_shared": 34, "sph": 33,
        "plane": 29, "sph_shadow": 31, "tri_any": 43}
 
 KERNELS = ("ray_mask", "ray_mask_hier", "closest_shared", "closest",
@@ -319,6 +326,48 @@ def tie_calls(dev):
                     sph, False, False)}
 
 
+def poison_calls(dev):
+    """{label: shadow call} of the NaN-poison case in
+    tests/torch_poison_case.py, with 1 and 2 lights, on ``dev``."""
+    import numpy as np
+    import torch
+
+    from raytracer_tpu_torch.ops import cluster_trace as ctr
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_poison_case import poison_case
+
+    on = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa: E731
+    calls = {}
+    for nl in (1, 2):
+        c = poison_case(nl)
+        shit = tuple(map(on, c["shit"]))
+        lists = [torch.stack(x) for x in zip(*(
+            ctr._lists(tuple(map(on, th)), shit) for th in c["thit"]))]
+        calls[f"poison case, {nl} light(s)"] = (
+            *lists, on(c["lps"]), on(c["origin"]), on(c["planes"]),
+            on(c["sph_dat"]), False)
+    return calls
+
+
+def check_mask_columns(label, args, gen, n_tiles=256):
+    """The flat mask on a tile sample of the call ``args`` cut to column
+    counts that take each instance (rays split 4 and 2 ways up to 32 and 64
+    columns, one column a thread up to 128, two above): kernel == plain."""
+    p = named("ray_mask", args)
+    tiles = sample_tiles(p["act"], n_tiles, gen)
+    sl = named("ray_mask", slice_args("ray_mask", args, tiles))
+    c_all = sl["box"].shape[1]
+    err, widths = 0.0, [c for c in (1, 32, 33, 64, 65, 128, 129) if c < c_all]
+    for c in widths + [c_all]:
+        err = max(err, kernel_vs_plain(
+            "ray_mask", (sl["act"], sl["box"][:, :c].contiguous(), sl["bundle"]),
+            f"{label} at C={c}"))
+    log(f"  {label} ray_mask: {tiles.numel()} tiles at C in {widths + [c_all]}, "
+        f"kernel == plain")
+    return err
+
+
 def kernel_vs_plain(name, args, what):
     """Run kernel and plain version on the same CUDA inputs; require
     equality.  Returns the max abs difference (0 when equal)."""
@@ -350,14 +399,14 @@ def kernel_vs_plain(name, args, what):
 
 
 def narrow_tiles():
-    """The least launch size (tiles) for which the closest and any-hit
-    kernels take 4-warp blocks (smaller launches take 16-warp blocks),
-    found by bisection on the library's own rule."""
+    """The least launch size (tiles) for which the closest, any-hit and
+    shadow kernels take 4-warp blocks (smaller launches take 16-warp
+    blocks), found by bisection on the library's own rule."""
     from raytracer_tpu_torch import backend
 
     lo, hi = 1, 1 << 20
     check(backend.launch_threads(lo) == 512 and backend.launch_threads(hi) == 128,
-          "closest/any: no 16-warp launch of 1 tile or 4-warp launch of 2^20")
+          "warp walks: no 16-warp launch of 1 tile or 4-warp launch of 2^20")
     while hi - lo > 1:
         mid = (lo + hi) // 2
         if backend.launch_threads(mid) == 512:
@@ -367,26 +416,41 @@ def narrow_tiles():
     return hi
 
 
-def ptxas_report(path):
-    """{kernel instance: registers, spill and static shared bytes, threads,
-    resident blocks per SM} of the closest and any-hit kernels, from the
-    build log's ``ptxas -v`` lines.  Blocks per SM are those the H100's
-    register file allows (65,536 a SM, given out per warp in units of 256;
-    at most 64 warps): the kernels' dynamic shared memory, 12-56 KB a
-    block, leaves room for more."""
+def kernel_instance(mangled):
+    """(name, template arguments) of one of the library's kernels from its
+    mangled symbol (``closest<1,0,4>`` for
+    ``..14closest_kernelILb1ELb0ELi4EE..``), or None."""
     import re
 
-    inst = re.compile(r"(closest|any)_kernelILb([01])ELb([01])ELi(\d+)EE")
+    k = re.search(r"\d(closest|any|shadow|ray_mask_hier|ray_mask)_kernel"
+                  r"((?:I(?:L[a-z]\d+E)+E)?)", mangled)
+    if k is None:
+        return None
+    args = re.findall(r"L[a-z](\d+)E", k.group(2))
+    return k.group(1) + (f"<{','.join(args)}>" if args else ""), args
+
+
+def ptxas_report(path):
+    """{kernel instance: registers, spill and static shared bytes, threads,
+    resident blocks per SM} of every kernel, from the build log's ``ptxas
+    -v`` lines.  Blocks per SM are those the H100's register file allows
+    (65,536 a SM, given out per warp in units of 256; at most 64 warps):
+    the closest, any-hit and shadow kernels' dynamic shared memory, 16-64
+    KB a block, leaves room for more."""
+    import re
+
     out, name = {}, None
     with open(path) as f:
         for line in f:
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
-                k = inst.search(m.group(1))
-                name = None if k is None else (
-                    f"{k.group(1)}<{k.group(2)},{k.group(3)},{k.group(4)}>")
+                k = kernel_instance(m.group(1))
+                name = None if k is None else k[0]
                 if name:
-                    out[name] = {"threads": 32 * int(k.group(4))}
+                    # the warp-walk kernels' last template argument is
+                    # their warps per block; the masks take 128 threads
+                    walk = not name.startswith("ray_mask")
+                    out[name] = {"threads": 32 * int(k[1][-1]) if walk else 128}
             elif name and "spill stores" in line:
                 out[name]["spill_bytes"] = int(re.search(
                     r"(\d+) bytes spill stores", line).group(1))
@@ -399,7 +463,38 @@ def ptxas_report(path):
                     registers=regs, static_smem=int(smem.group(1)) if smem else 0,
                     blocks_per_sm=min(65536 // per_warp, 64) // warps)
     check(out and all("registers" in r for r in out.values()),
-          f"build log: no registers for some closest/any instance: {out}")
+          f"build log: no registers for some kernel instance: {out}")
+    for kname in ("closest", "any", "shadow", "ray_mask_hier", "ray_mask"):
+        check(any(n.split("<")[0] == kname for n in out),
+              f"build log: no instance of {kname}_kernel: {sorted(out)}")
+    return out
+
+
+def nan_minmax_report(lib_path):
+    """{kernel instance: NaN-propagating FMNMX instructions, other FMNMX
+    instructions} from ``cuobjdump -sass`` of the library: nan_min /
+    nan_max (csrc/common.cuh) must lower to one FMNMX with .NAN each."""
+    import re
+
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME") or "/usr/local/cuda",
+                             "bin", "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=300)
+    check(sass.returncode == 0, f"cuobjdump -sass failed: {sass.stderr[-2000:]}")
+    out, name = {}, None
+    for line in sass.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            k = kernel_instance(m.group(1))
+            name = None if k is None else k[0]
+            if name:
+                out[name] = [0, 0]
+        elif name and "FMNMX" in line:
+            out[name][0 if re.search(r"FMNMX\S*\.NAN", line) else 1] += 1
+    for kname in ("ray_mask", "ray_mask_hier", "shadow"):
+        rows = [v for n, v in out.items() if n.split("<")[0] == kname]
+        check(rows and all(v[0] > 0 for v in rows),
+              f"SASS: {kname} has no NaN-propagating FMNMX: {out}")
     return out
 
 
@@ -424,7 +519,7 @@ def check_scene_kernels(label, calls, gen, n_tiles=256):
         sl = slice_args(kname, args, tiles)
         err = kernel_vs_plain(kname, sl, f"{label} ({tiles.numel()} tiles)")
         extra = ""
-        if kname in ("closest", "closest_shared", "any"):
+        if kname in ("closest", "closest_shared", "any", "shadow"):
             # the sample launches 16-warp blocks; repeated past the launch
             # size that takes 4-warp blocks, it checks those too
             n = narrow_tiles()
@@ -728,6 +823,16 @@ def kernel_of(event_name):
     return None
 
 
+def frame_call(cap, name):
+    """The busiest captured call of kernel ``name`` in a frame; for the flat
+    mask of the big terrain, whose only flat masks are the supercluster
+    passes (C = 32), the busiest of those."""
+    args = cap.calls.get(name)
+    if args is None and name == "ray_mask":
+        args = cap.calls.get("ray_mask_first")
+    return args
+
+
 def visit_spread(p):
     """Visits per tile with work (tc + sc, summed over lights) of a call
     ``p`` (by name): {tiles, mean, p99, max}."""
@@ -958,6 +1063,9 @@ def run():
     results["ptxas"] = ptxas_report(os.path.join(backend.BUILD_DIR, "build.log"))
     for name, row in results["ptxas"].items():
         log(f"  {name}: {row}")
+    results["fmnmx"] = nan_minmax_report(backend.library_path())
+    log("  SASS FMNMX .NAN / other per instance: "
+        + ", ".join(f"{n} {v[0]}/{v[1]}" for n, v in results["fmnmx"].items()))
 
     # -- phase 2: entry scene through the CLI, CUDA vs CPU
     log("== phase 2: entry scene through the CLI")
@@ -1059,6 +1167,8 @@ def run():
         return e
 
     checked("terrain", cap.calls)
+    max_err["ray_mask"] = max(max_err["ray_mask"], check_mask_columns(
+        "terrain", cap.calls["ray_mask"], gen))
     e = checked("terrain 64x64", small_cap.calls)
     check(e.get("overflowed", 0) > 0, "no overflowed shortlist was checked")
     checked("big terrain", bcap.calls)
@@ -1095,6 +1205,11 @@ def run():
     # duplicated and edge-sharing triangles across clusters, sphere-triangle
     # ties, list overflows
     checked("tie case", tie_calls(dev))
+    # the NaN-poison case of the CPU tests (tests/torch_poison_case.py): a
+    # lane >= 0 in one visit and NaN in another, in the same and in
+    # different warp groups, does not occlude
+    for label, args in poison_calls(dev).items():
+        checked(label, {"shadow": args})
 
     # -- phase 5: timings at the phase-3 and phase-3b shapes
     log("== phase 5: kernel timings at the shapes of the two frames")
@@ -1108,7 +1223,7 @@ def run():
         primary = "big" if name in ("ray_mask_hier", "any") else "full_width"
         calls = []
         for frame, (fcap, _, _) in frames.items():
-            args = fcap.calls.get(name)
+            args = frame_call(fcap, name)
             if args is None:
                 continue
             ms = time_call(pairs[name][0], args, 10)

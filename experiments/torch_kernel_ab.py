@@ -1,29 +1,32 @@
 #!/usr/bin/env python3
-"""A/B of the PyTorch port's closest-hit and any-hit CUDA kernels on one card.
+"""A/B of the PyTorch port's CUDA kernels on one card.
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
-    python3 experiments/torch_kernel_ab.py --base DIR [--variants auto,4x4,16x4]
+    python3 experiments/torch_kernel_ab.py --base DIR[,DIR...] [--variants auto,4x4,16x4]
 
-DIR holds another version of ``raytracer_tpu_torch/csrc`` (for example the
-parent commit's, unpacked with ``git archive``).  The script builds one
-kernel library from DIR ("base") and one for each variant of this
+Each DIR holds another version of ``raytracer_tpu_torch/csrc`` (for example
+the parent commit's, unpacked with ``git archive``).  The script builds one
+kernel library from each DIR ("base" for the first, the directory's name
+for the others) and one for each variant of this
 checkout's csrc, with ``backend.compile_library``: ``auto`` is csrc as the
 package builds it (the warps per block chosen per launch); ``GxS`` is a
 copy of csrc, under the build directory, whose ``common.cuh`` gives every
 launch G warps per block and splits each visit's lanes S ways.  Then it:
 
-1. captures the closest-hit and any-hit calls with the most work of the
-   full-width terrain frame and of the big terrain frame (the scenes of
-   ``chip_smoke.py`` phases 3 and 3b, rendered through this checkout's
-   library);
+1. captures the calls with the most work of each kernel (closest hit in
+   both call shapes, any-hit, the flat and the hierarchical mask, shadow)
+   in the full-width terrain frame, the big terrain frame (whose flat
+   masks are the supercluster passes) and the mid terrain frame (the
+   single-light shadow call): the scenes of ``chip_smoke.py`` phases 3
+   and 3b, rendered through this checkout's library;
 2. on each captured call: every library's result equals the plain
    PyTorch version's, bit for bit; its ms per launch (CUDA events over 10
    launches, the libraries timed in the order A B C C B A and averaged);
    the call's bound (``chip_smoke.work``) and the tiles' visit counts;
 3. the full-width frame's median wall ms over 3 frames and the big
-   frame's device busy ms (one profiled frame) with each library, in the
-   same A B C C B A order.
+   frame's device busy ms and each kernel's device ms (one profiled
+   frame) with each library, in the same A B C C B A order.
 
 Prints a line per measurement and writes ``smoke_out/kernel_ab.json``.
 """
@@ -106,9 +109,9 @@ def device_busy_ms(frame):
         if ev.device_type == DeviceType.CUDA:
             ms = ev.time_range.elapsed_us() / 1e3
             busy += ms
-            for k in ("closest_kernel<true", "closest_kernel<false", "any_kernel<"):
-                if k in ev.name:
-                    kern[k] = kern.get(k, 0.0) + ms
+            name = cs.kernel_of(ev.name)
+            if name is not None:
+                kern[name] = kern.get(name, 0.0) + ms
     return busy, kern
 
 
@@ -116,7 +119,8 @@ def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--base", required=True, help="another csrc directory")
+    ap.add_argument("--base", required=True,
+                    help="other csrc directories, comma-separated")
     ap.add_argument("--variants", default="auto",
                     help="auto, or GxS: G warps a block, each visit's lanes "
                          "split S ways")
@@ -131,8 +135,10 @@ def main() -> int:
     card = cs.smi_line()
     cs.log(f"card: {card}")
     out_dir = os.path.join(backend.BUILD_DIR, "ab")
-    variants = [("base", a.base)] + [(v, variant_csrc(v, out_dir))
-                                     for v in a.variants.split(",")]
+    bases = a.base.split(",")
+    variants = ([("base", bases[0])]
+                + [(os.path.basename(os.path.normpath(d)), d) for d in bases[1:]]
+                + [(v, variant_csrc(v, out_dir)) for v in a.variants.split(",")])
     t0 = time.perf_counter()
     libs, logs = build_libs(variants, out_dir)
     cs.log(f"built {len(libs)} libraries in {time.perf_counter() - t0:.1f} s")
@@ -144,15 +150,17 @@ def main() -> int:
     pairs = cs.kernel_pairs()
 
     for scene, kw in (("full", dict(cells=126, res=1024, mirror_stripes=True)),
-                      ("big", dict(cells=512, res=1024, mirror_stripes=True))):
+                      ("big", dict(cells=512, res=1024, mirror_stripes=True)),
+                      ("mid", dict(cells=200, res=512, mirror_stripes=True))):
         backend.load_library(libs[list(libs)[-1]])
         data, meta, cset = cs.build(terrain_scene, dev, **kw)
         cs.render_scene(data, meta, cset, 2, dev)
         with cs.Capture(K) as cap:
             cs.render_scene(data, meta, cset, 2, dev)
         torch.cuda.synchronize()
-        for name in ("closest_shared", "closest", "any"):
-            args = cap.calls.get(name)
+        for name in ("closest_shared", "closest", "any", "ray_mask",
+                     "ray_mask_hier", "shadow"):
+            args = cs.frame_call(cap, name)
             if args is None:
                 continue
             wrapper, plain = pairs[name]
@@ -174,7 +182,8 @@ def main() -> int:
             ops, byt = cs.work(name, args)
             bound = max(ops / cs.PEAK_FP32, byt / cs.PEAK_BYTES) * 1e3
             row = {"scene": scene, "name": name, "bound_ms": bound,
-                   "visits": cs.visit_spread(cs.named(name, args)),
+                   "visits": (None if name.startswith("ray_mask") else
+                              cs.visit_spread(cs.named(name, args))),
                    "ms": {k: statistics.mean(v) for k, v in ms.items()},
                    "runs_ms": ms}
             out["calls"].append(row)
@@ -185,6 +194,9 @@ def main() -> int:
                        f"(runs {[round(x, 4) for x in v]}), "
                        f"{bound / statistics.mean(v):.3f} of the bound")
         del cap
+        if scene == "mid":      # its kernel calls only
+            del data, cset
+            continue
         frame = lambda: cs.render_scene(data, meta, cset, 2, dev)  # noqa: E731
         res = {label: [] for label in libs}
         for label in order:

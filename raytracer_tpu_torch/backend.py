@@ -54,8 +54,8 @@ SIGNATURES = {
     # tw, tl, tc, sw, sl, sc, origin, dirs, t_max, tri_dat, sph_dat, found,
     # nt, ct, cs, pt, ps, wt, ws, bfc, relaxed, stream
     "rt_any": [_vp] * 12 + [_i] * 9 + [_vp],
-    # nt; returns the threads per block of a closest or any-hit launch over
-    # nt tiles (a number, not an error)
+    # nt; returns the threads per block of a closest, any-hit or shadow
+    # launch over nt tiles (a number, not an error)
     "rt_launch_threads": [_i],
 }
 
@@ -183,9 +183,9 @@ def build_seconds() -> float:
 
 
 def launch_threads(nt: int) -> int:
-    """Threads per block of a closest-hit or any-hit launch over ``nt``
-    tiles: wide blocks for launches of few tiles per SM (``wide_launch``
-    in csrc/common.cuh)."""
+    """Threads per block of a closest-hit, any-hit or shadow launch over
+    ``nt`` tiles: wide blocks for launches of few tiles per SM
+    (``wide_launch`` in csrc/common.cuh)."""
     return kernels().rt_launch_threads(nt)
 
 

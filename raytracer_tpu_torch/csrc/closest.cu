@@ -236,8 +236,8 @@ extern "C" int rt_closest(const int* tw, const int* tl, const int* tc,
   return static_cast<int>(e);
 }
 
-// Threads per block of a closest-hit or any-hit launch over nt tiles (the
-// block width wide_launch picks); a number, not an error code.
+// Threads per block of a closest-hit, any-hit or shadow launch over nt
+// tiles (the block width wide_launch picks); a number, not an error code.
 extern "C" int rt_launch_threads(int nt) {
   return 32 * (wide_launch(nt) ? RT_WIDE_WARPS : RT_NARROW_WARPS);
 }

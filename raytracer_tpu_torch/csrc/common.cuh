@@ -21,35 +21,21 @@
 // min/max that propagate NaN like torch.minimum / jnp.minimum (CUDA's
 // fminf/fmaxf return the other operand): empty clusters have NaN boxes
 // and padding triangles give NaN t, and every test relies on NaN failing
-// every comparison.
+// every comparison.  One instruction each (PTX min.NaN / max.NaN, sm_80
+// and later: FMNMX with .NAN).  On zeros of opposite sign the result may
+// carry the other sign than torch.minimum's; -0 == +0, so every
+// comparison, and the kernels' equality with their plain versions (held
+// with ==), and the shortlist sort (_compact orders -0 and +0 as equal)
+// are unaffected.
 __device__ __forceinline__ float nan_min(float a, float b) {
-  return (a != a || b != b) ? CUDART_NAN_F : fminf(a, b);
+  float d;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
 }
 __device__ __forceinline__ float nan_max(float a, float b) {
-  return (a != a || b != b) ? CUDART_NAN_F : fmaxf(a, b);
-}
-
-// Visit the candidate clusters of tile i in the engine's order: the
-// front-to-back id list when its count fits max_list, else every cluster
-// whose bit is set, ascending.  The lists are per tile, so the walk is
-// uniform across the block and `body` may synchronise.  `body` returns
-// false to stop the walk (the shadow kernel's early exit; the decision
-// must be uniform over the block), true to go on.  The closest and any-hit
-// kernels walk per warp instead (WarpVisits below).
-template <class Body>
-__device__ __forceinline__ void visit_clusters(
-    int i, const int* words, const int* ids, const int* counts,
-    int n_clusters, int max_list, int wpt, Body body) {
-  const int n = counts[i];
-  if (n <= max_list) {
-    for (int k = 0; k < n; ++k) {
-      if (!body(ids[i * max_list + k])) return;
-    }
-  } else {
-    for (int k = 0; k < n_clusters; ++k) {
-      if (((words[i * wpt + (k >> 5)] >> (k & 31)) & 1) && !body(k)) return;
-    }
-  }
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
 }
 
 // Sphere quadratic terms of one (ray, sphere) pair, in the operation
@@ -100,7 +86,10 @@ __device__ __forceinline__ bool sph_occluded(float ox, float oy, float oz,
 }
 
 // ---------------------------------------------------------------------------
-// Warp-level cluster walks of the closest and any-hit kernels.  A block of
+// Warp-level cluster walks of the closest, any-hit and shadow kernels.  The
+// visit sequence of a tile: the front-to-back id list of each side when
+// its count fits the list, else every cluster whose bit is set,
+// ascending.  A block of
 // G warps owns one 128-ray tile; every warp covers all 128 rays
 // (RT_RAYS_PER_THREAD per thread).  The tile's work is cut into items
 // (visit position p, lane chunk h): RT_LANE_SPLIT chunks of RT_CHUNK lanes
@@ -231,6 +220,27 @@ __device__ __forceinline__ void stage_tri(float* dst, const float* tri,
   }
 }
 
+// Lanes [l0, l0 + RT_CHUNK) of cluster k of one light's (16, pt) shadow
+// plane table, lane-major, RT_PLANE_STRIDE floats a lane: the lane's rows
+// 4v .. 4v + 3 as the float4 at slot v ^ plane_swizzle(l).  The XOR puts
+// the eight lanes a copy instruction writes on distinct banks; each copy
+// instruction of a warp reads 8 consecutive floats of 4 rows (4 whole
+// sectors).  Each cp.async moves one float.
+#define RT_PLANE_STRIDE 16
+__host__ __device__ constexpr int plane_swizzle(int l) { return (l >> 1) & 3; }
+
+__device__ __forceinline__ void stage_planes(float* dst, const float* pln,
+                                             int pt, int k, int l0, int lane) {
+  const float* src = pln + k * RT_CLUSTER + l0;
+  const int s = lane & 3, g = lane >> 2;
+#pragma unroll
+  for (int it = 0; it < 16; ++it) {
+    const int l = g + 8 * (it & 3), v = it >> 2;
+    cp_async4(dst + l * RT_PLANE_STRIDE + 4 * (v ^ plane_swizzle(l)) + s,
+              src + (4 * v + s) * pt + l);
+  }
+}
+
 // The same lanes of sphere cluster k of the (4, ps) table as one float4
 // (center, radius) per lane.
 __device__ __forceinline__ void stage_sph(float* dst, const float* sph,
@@ -243,9 +253,9 @@ __device__ __forceinline__ void stage_sph(float* dst, const float* sph,
   }
 }
 
-// One side (triangles or spheres) of a tile's visit sequence, in
-// visit_clusters' order: the id list when its count fits max_list, else
-// every cluster whose bit is set, ascending; or (dense) every cluster.
+// One side (triangles or spheres) of a tile's visit sequence: the id list
+// when its count fits the list, else every cluster whose bit is set,
+// ascending; or (dense) every cluster.
 struct VisitSide {
   const int* ids;    // the tile's list; nullptr: dense (cluster r at rank r)
   const int* words;  // the tile's bitmask words
@@ -339,7 +349,8 @@ __device__ __forceinline__ WarpVisits tile_visits(
 // floats): the copies of the next item are in flight while the warp tests
 // the current one.  stage(dst, k) issues an item's copies of cluster k;
 // body(staged, k, pos) tests it; stop() (uniform over the warp) ends the
-// walk before an item.  No block-wide barrier.
+// walk before an item.  No block-wide barrier; the buffers may be reused by
+// the next walk.
 template <class Stage, class Body, class Stop>
 __device__ __forceinline__ void warp_walk(WarpVisits& seq, float* buf,
                                           int stride, Stage stage, Body body,
@@ -364,4 +375,5 @@ __device__ __forceinline__ void warp_walk(WarpVisits& seq, float* buf,
     have = have2;
   }
   cp_async_wait<0>();
+  __syncwarp();  // every lane's copies have landed: the buffers are free
 }

@@ -119,3 +119,73 @@ def test_tie_case_kernels_equal_plain_on_card(cuda, width):
                     sph, bfc, relaxed)
             assert torch.equal(K.any_hit(*args), K.any_hit_plain(*args)), \
                 f"any bfc={bfc} relaxed={relaxed}"
+
+
+@pytest.mark.parametrize("width", ["16-warp", "4-warp"])
+@pytest.mark.parametrize("n_lights", [1, 2])
+def test_poison_case_shadow_equals_plain_on_card(cuda, width, n_lights):
+    """The NaN-poison case (tests/torch_poison_case.py: a lane >= 0 in one
+    visit and NaN in another, in the same and in different warp groups,
+    does not occlude) through the shadow kernel, relaxed off and on, equal
+    to its plain version and to the running-max rule, in both block widths
+    (the case repeated to a whole frame's 32,768 tiles takes 4-warp
+    blocks)."""
+    import numpy as np
+
+    from raytracer_tpu_torch import backend
+    from raytracer_tpu_torch.ops import cluster_trace as pct
+    from raytracer_tpu_torch.ops import kernels as K
+    from torch_poison_case import N_TILES, poison_case
+
+    reps = 1 if width == "16-warp" else 32768 // N_TILES
+    assert backend.launch_threads(reps * N_TILES) == (512 if width == "16-warp" else 128)
+    c = poison_case(n_lights)
+    rep = lambda x: torch.from_numpy(np.ascontiguousarray(  # noqa: E731
+        np.tile(x, (reps,) + (1,) * (np.ndim(x) - 1)))).to(cuda)
+    shit = tuple(map(rep, c["shit"]))
+    lists = [torch.stack(x) for x in zip(*(pct._lists(tuple(map(rep, th)), shit)
+                                           for th in c["thit"]))]
+    for relaxed in (False, True):
+        args = (*lists, torch.from_numpy(c["lps"]).to(cuda), rep(c["origin"]),
+                torch.from_numpy(c["planes"]).to(cuda),
+                torch.from_numpy(c["sph_dat"]).to(cuda), relaxed)
+        got = K.shadow(*args)
+        assert torch.equal(got, K.shadow_plain(*args)), f"relaxed={relaxed}"
+        assert torch.equal(got.cpu(), torch.from_numpy(np.tile(c["truth"], reps)))
+
+
+@pytest.mark.parametrize("c", [1, 32, 64, 65, 249, 512])
+def test_ray_mask_equals_plain_on_card(cuda, c):
+    """The flat mask at every column count that picks another instance (the
+    rays split over 4 or 2 thread groups up to 32 and 64 columns, one
+    column a thread up to 128, two above), on random rays and boxes with
+    zero direction components, inactive rays and tiles without an active
+    ray; and the hierarchical mask on random coarse bits."""
+    import numpy as np
+
+    from raytracer_tpu_torch.ops import cluster_trace as pct
+    from raytracer_tpu_torch.ops import kernels as K
+
+    rng = np.random.default_rng(c)
+    nt = 64
+    r = nt * K.TILE
+    o = rng.uniform(-2, 2, (r, 3)).astype(np.float32)
+    d = rng.normal(size=(r, 3)).astype(np.float32)
+    d[::7, 1] = 0.0
+    act = rng.random(r) < 0.8
+    act[3 * K.TILE:4 * K.TILE] = act[10 * K.TILE:11 * K.TILE] = False
+    thi = rng.uniform(0.5, 4.0, r).astype(np.float32)
+    cmin = rng.uniform(-3, 2, (c, 3)).astype(np.float32)
+    cmax = (cmin + rng.uniform(0.05, 1.5, (c, 3))).astype(np.float32)
+    cmin[1::5] = cmax[1::5] = np.nan
+    on = lambda x: torch.from_numpy(x).to(cuda)  # noqa: E731
+    act_t, bundle = pct._mask_bundle(on(o), on(d), on(act), on(thi), K.TILE)
+    box = pct._box_table(on(cmin), on(cmax))
+    flat = K.ray_mask(act_t, box, bundle)
+    for a, b in zip(flat, K.ray_mask_plain(act_t, box, bundle)):
+        assert torch.equal(a, b)
+    assert bool(flat[0].any()) and not bool(flat[0][3].any())
+    sup = on((rng.random(nt * -(-c // 128)) < 0.7).astype(np.int32))
+    for a, b in zip(K.ray_mask_hier(act_t, sup, box, bundle),
+                    K.ray_mask_hier_plain(act_t, sup, box, bundle)):
+        assert torch.equal(a, b)

@@ -65,6 +65,34 @@ def test_ray_mask_matches_pallas_interpret(scene):
     np.testing.assert_allclose(pe.numpy()[jh], je[jh], rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("c", [1, 32, 33, 249])
+def test_ray_mask_plain_ray_order_invariant(c):
+    """What a mask kernel that splits a tile's rays over threads relies on:
+    hit and entry do not depend on the order of the rays in a tile.  Random
+    rays and boxes (some NaN: empty clusters), zero direction components
+    (the _BIG sentinel), inactive rays and a tile without an active ray;
+    the rays of each tile permuted."""
+    rng = np.random.default_rng(c)
+    nt = 6
+    r = nt * K.TILE
+    o = rng.uniform(-2, 2, (r, 3)).astype(np.float32)
+    d = rng.normal(size=(r, 3)).astype(np.float32)
+    d[::7, 1] = 0.0
+    act = rng.random(r) < 0.8
+    act[K.TILE:2 * K.TILE] = False
+    thi = rng.uniform(0.5, 4.0, r).astype(np.float32)
+    cmin = rng.uniform(-3, 2, (c, 3)).astype(np.float32)
+    cmax = (cmin + rng.uniform(0.05, 1.5, (c, 3))).astype(np.float32)
+    cmin[1::5] = cmax[1::5] = np.nan
+    act_t, bundle = pct._mask_bundle(*map(torch.from_numpy, (o, d, act, thi)), K.TILE)
+    box = pct._box_table(torch.from_numpy(cmin), torch.from_numpy(cmax))
+    hit, ent = K.ray_mask_plain(act_t, box, bundle)
+    perm = np.concatenate([t * K.TILE + rng.permutation(K.TILE) for t in range(nt)])
+    hit2, ent2 = K.ray_mask_plain(act_t, box, bundle[:, perm].contiguous())
+    assert hit.any() and not hit[1].any()
+    assert torch.equal(hit, hit2) and torch.equal(ent, ent2)
+
+
 def test_tile_mask_equals_jax():
     """The interval tile mask of eye wavefronts: no a*b+c in it, so it is
     compared exactly against the jitted JAX function."""
