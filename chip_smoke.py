@@ -49,13 +49,17 @@ then:
    that takes 4-warp blocks; the flat mask also at column counts that take
    each of its instances: results must be EQUAL (the kernels round op for
    op like eager PyTorch, -fmad=false); the hierarchical mask also equals
-   the flat one;
+   the flat one, on the whole big and mid terrain calls too, at the launch
+   sizes on each side of every change of its chunks per block, and on the
+   case of ``tests/torch_hier_case.py``;
 5. timings of each kernel at the busiest call of each frame that runs it
    (the full-width frame and the big terrain's busiest chunk, whose flat
    mask is the supercluster pass; the single-light shadow call at the
-   80,000-triangle terrain's) with its
+   80,000-triangle terrain's, and its hierarchical mask call) with its
    bound from the work the call's data needs (the any-hit kernels' pairs
-   counted up to each ray's first hit) and the spread of visits per tile;
+   counted up to each ray's first hit), the spread of visits per tile (of
+   live chunks per active tile for the hierarchical mask), launches timed
+   on the device behind a spin;
    each kernel's device ms and launches in each profiled frame, and each
    frame's ranking of the kernels by the device time they lose against
    their bounds;
@@ -366,6 +370,80 @@ def check_mask_columns(label, args, gen, n_tiles=256):
     log(f"  {label} ray_mask: {tiles.numel()} tiles at C in {widths + [c_all]}, "
         f"kernel == plain")
     return err
+
+
+def check_hier_whole(label, args, flat=True):
+    """The hierarchical mask on a whole call (its split over blocks
+    depends on the launch size): kernel == plain and, when ``flat`` (coarse
+    bits from _super_boxes), == the flat kernel."""
+    from raytracer_tpu_torch.ops import kernels as K
+
+    p = named("ray_mask_hier", args)
+    nt, c = p["act"].shape[0], p["box"].shape[1]
+    err = kernel_vs_plain("ray_mask_hier", args, f"{label} (whole call)")
+    if flat:
+        ref = K.ray_mask(p["act"], p["box"], p["bundle"])
+        check(all(equal_nan(x, y) for x, y in zip(ref, K.ray_mask_hier(*args))),
+              f"{label}: ray_mask_hier != ray_mask on the whole call")
+    log(f"  {label} ray_mask_hier: the whole call ({nt} tiles, C={c}), "
+        f"kernel == plain{' == the flat kernel' if flat else ''}; live chunks "
+        f"per active tile {chunk_spread(p)}")
+    return err
+
+
+def check_hier_launch_sizes(label, args):
+    """The hierarchical mask on the call ``args`` cut or repeated to the
+    tile counts on each side of every change of the chunks a block that the
+    kernel picks per launch (``backend.mask_hier_group``), up to 4x the
+    call's tiles, busiest tiles first: kernel == plain.  Returns the max
+    error."""
+    import torch
+
+    from raytracer_tpu_torch import backend
+
+    p = named("ray_mask_hier", args)
+    nt, c = p["act"].shape[0], p["box"].shape[1]
+    live = ((p["sup"].view(nt, -1) != 0) & (p["act"] != 0)[:, None]).sum(1)
+    order = torch.argsort(live.cpu(), descending=True, stable=True).to(live.device)
+    sizes, g0 = set(), backend.mask_hier_group(1, c)
+    for n in range(2, 4 * nt + 1):
+        g = backend.mask_hier_group(n, c)
+        if g != g0:
+            sizes |= {n - 1, n}
+            g0 = g
+    err = 0.0
+    for n in sorted(sizes):
+        tiles = order.repeat(n // nt + 1)[:n]
+        err = max(err, kernel_vs_plain(
+            "ray_mask_hier", slice_args("ray_mask_hier", args, tiles),
+            f"{label} at {n} tiles ({backend.mask_hier_group(n, c)} chunks a block)"))
+    log(f"  {label} ray_mask_hier: C={c}, {nt} tiles a launch take "
+        f"{backend.mask_hier_group(nt, c)} chunks a block; kernel == plain at "
+        f"the tile counts on each side of every change up to {4 * nt}: "
+        f"{sorted(sizes) or 'no change'}")
+    return err
+
+
+def hier_calls(dev):
+    """{label: ray_mask_hier call} of the case in tests/torch_hier_case.py
+    on ``dev``: with its coarse bits (the inactive tile's set) and with
+    the bits of the port's route."""
+    import numpy as np
+    import torch
+
+    from raytracer_tpu_torch.ops import cluster_trace as ctr
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_hier_case import hier_case
+
+    c = hier_case()
+    on = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa: E731
+    act, bundle = ctr._mask_bundle(on(c["origin"]), on(c["dirs"]), on(c["active"]),
+                                   on(c["t_hi"]), 128)
+    box = ctr._box_table(on(c["cmin"]), on(c["cmax"]))
+    route = on(c["live"].astype(np.int32).reshape(-1))
+    return {"hier case": (act, on(c["sup"]), box, bundle),
+            "hier case, the route's bits": (act, route, box, bundle)}
 
 
 def kernel_vs_plain(name, args, what):
@@ -833,18 +911,42 @@ def frame_call(cap, name):
     return args
 
 
-def visit_spread(p):
-    """Visits per tile with work (tc + sc, summed over lights) of a call
-    ``p`` (by name): {tiles, mean, p99, max}."""
+def _spread(v):
     import torch
 
-    nt = p["tc"].shape[-1]
-    v = (p["tc"] + p["sc"]).view(-1, nt).sum(0)
-    v = v[v > 0].double()
+    v = v.double()
     if v.numel() == 0:
         return {"tiles": 0}
     return {"tiles": int(v.numel()), "mean": float(v.mean()),
             "p99": float(torch.quantile(v, 0.99)), "max": int(v.max())}
+
+
+def visit_spread(p):
+    """Visits per tile with work (tc + sc, summed over lights) of a call
+    ``p`` (by name): {tiles, mean, p99, max}."""
+    nt = p["tc"].shape[-1]
+    v = (p["tc"] + p["sc"]).view(-1, nt).sum(0)
+    return _spread(v[v > 0])
+
+
+def chunk_spread(p):
+    """Live chunks (coarse bit set) per active tile of a ray_mask_hier call
+    ``p`` (by name): {tiles, mean, p99, max}, with the live (tile, chunk)
+    items and all of them."""
+    nt = p["act"].shape[0]
+    act = p["act"] != 0
+    live = ((p["sup"].view(nt, -1) != 0) & act[:, None]).sum(1)[act]
+    return {**_spread(live), "items": int(live.sum()), "of": p["sup"].numel()}
+
+
+def call_spread(name, args):
+    """The work spread of a captured call: live chunks per active tile for
+    the hierarchical mask, visits per tile for the cluster walks, None for
+    the flat mask."""
+    if name == "ray_mask":
+        return None
+    p = named(name, args)
+    return chunk_spread(p) if name == "ray_mask_hier" else visit_spread(p)
 
 
 # PyTorch ops that copy a device value to the host and wait for it
@@ -881,18 +983,28 @@ def host_side(prof):
     }
 
 
-def time_call(fn, args, n):
+def time_call(fn, args, n, spin=1 << 24):
+    """ms per launch of fn(*args) on the device, over n launches queued
+    behind a device spin of ``spin`` cycles: the host enqueues them all
+    while the card spins, so a launch shorter than the host's own cost per
+    call is timed on the device, not at the host's enqueue rate.  When the
+    spin ends before the last launch is queued, again with twice the
+    spin."""
     import torch
 
     fn(*args)
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(spin)
     e0.record()
     for _ in range(n):
         fn(*args)
     e1.record()
+    late = e0.query()   # the spin was over before the host was done
     torch.cuda.synchronize()
+    if late and spin < 1 << 30:
+        return time_call(fn, args, n, 2 * spin)
     return e0.elapsed_time(e1) / n
 
 
@@ -1174,6 +1286,18 @@ def run():
     checked("big terrain", bcap.calls)
     checked("big terrain 64x64", bsmall_cap.calls)
     checked("mid terrain", mcap.calls)
+    # the hierarchical mask on whole calls, at the launch sizes around each
+    # per-launch choice, and on the case of tests/torch_hier_case.py (a
+    # tile live in every chunk, tiles live in one or none, an inactive tile
+    # with its coarse bits set, a partial last chunk); C = 4,096 takes
+    # 16-byte stores of the dead chunks, C = 625 and 677 do not
+    hier_args = {"big terrain": bcap.calls["ray_mask_hier"],
+                 "mid terrain": mcap.calls["ray_mask_hier"], **hier_calls(dev)}
+    for label, args in hier_args.items():
+        # the case's own bits set the inactive tile's: not the route's
+        err = check_hier_whole(label, args, flat=label != "hier case")
+        err = max(err, check_hier_launch_sizes(label, args))
+        max_err["ray_mask_hier"] = max(max_err["ray_mask_hier"], err)
     for label, n_sph in (("sphere_field(20000)", 20000), ("sphere_field(600)", 600)):
         sd, sm, scs = build(sphere_field, dev, n_spheres=n_sph, res=512)
         log(f"  {label}: {sm.n_spheres} spheres, "
@@ -1219,10 +1343,14 @@ def run():
     rows = []
     for name in KERNELS:
         # the row's call: the full-width frame's, the big terrain's for the
-        # kernels that only it runs
+        # kernels that only it runs; the hierarchical mask also at the mid
+        # terrain's (S = 5 chunks, 8,192 tiles a launch)
         primary = "big" if name in ("ray_mask_hier", "any") else "full_width"
+        sources = [(frame, fcap) for frame, (fcap, _, _) in frames.items()]
+        if name == "ray_mask_hier":
+            sources.append(("mid", mcap))
         calls = []
-        for frame, (fcap, _, _) in frames.items():
+        for frame, fcap in sources:
             args = frame_call(fcap, name)
             if args is None:
                 continue
@@ -1231,17 +1359,18 @@ def run():
             t_ops, t_bytes = ops / PEAK_FP32 * 1e3, byt / PEAK_BYTES * 1e3
             call = {"frame": frame, "ms": ms, "bound_ms": max(t_ops, t_bytes),
                     "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                    "visits": (None if name.startswith("ray_mask") else
-                               visit_spread(named(name, args)))}
-            if frame == primary:
+                    "visits": call_spread(name, args)}
+            if frame in (primary, "mid"):
                 call["plain_ms"] = time_once(pairs[name][1], args)
             calls.append(call)
+            what = ("live chunks per active tile" if name == "ray_mask_hier"
+                    else "visits per tile")
             log(f"  {name} ({frame} frame's busiest call): {ms:.4f} ms/launch, "
                 f"bound {call['bound_ms']:.4f} ms ({call['bound_by']}: "
                 f"{ops:.3e} ops, {byt:.3e} bytes), {call['bound_ms'] / ms:.3f} "
                 f"of the bound" + (f", plain {call['plain_ms']:.2f} ms"
                                    if "plain_ms" in call else "")
-                + (f"; visits per tile {call['visits']}" if call["visits"] else ""))
+                + (f"; {what} {call['visits']}" if call["visits"] else ""))
         main = next(c for c in calls if c["frame"] == primary)
         per_frame = {}
         for frame, (_, fl, prof) in frames.items():

@@ -38,8 +38,8 @@ NVCC_FLAGS = [
 ]
 
 _vp, _i = ctypes.c_void_p, ctypes.c_int
-# C entry points (csrc/*.cu); each but rt_launch_threads returns
-# cudaGetLastError()
+# C entry points (csrc/*.cu); each but rt_launch_threads and
+# rt_ray_mask_hier_group returns cudaGetLastError()
 SIGNATURES = {
     # act, box, bundle, hit, ent, nt, c, r, stream
     "rt_ray_mask": [_vp] * 5 + [_i] * 3 + [_vp],
@@ -57,6 +57,9 @@ SIGNATURES = {
     # nt; returns the threads per block of a closest, any-hit or shadow
     # launch over nt tiles (a number, not an error)
     "rt_launch_threads": [_i],
+    # nt, c; returns the chunks per block of a hierarchical mask launch
+    # over nt tiles of c columns (a number, not an error)
+    "rt_ray_mask_hier_group": [_i, _i],
 }
 
 _lock = threading.Lock()
@@ -187,6 +190,12 @@ def launch_threads(nt: int) -> int:
     ``nt`` tiles: wide blocks for launches of few tiles per SM
     (``wide_launch`` in csrc/common.cuh)."""
     return kernels().rt_launch_threads(nt)
+
+
+def mask_hier_group(nt: int, c: int) -> int:
+    """Chunks per block of a hierarchical mask launch over ``nt`` tiles of
+    ``c`` columns (``hier_group`` in csrc/ray_mask.cu)."""
+    return kernels().rt_ray_mask_hier_group(nt, c)
 
 
 def check(rc: int, name: str) -> None:

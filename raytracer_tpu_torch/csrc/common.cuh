@@ -115,11 +115,11 @@ __device__ __forceinline__ bool sph_occluded(float ox, float oy, float oz,
 #define RT_TRI_STRIDE 12    // floats per staged triangle lane: 3 float4
 #define RT_FULL_MASK 0xffffffffu
 
-// True when a launch over nt tiles takes RT_WIDE_WARPS-warp blocks.  The
-// SM count is read once per process (the port drives one card a process;
-// either width gives the same result).  A failed read leaves it 0, so the
-// launch is narrow, and the error is the one cudaGetLastError returns.
-inline bool wide_launch(int nt) {
+// The card's SM count, read once per process (the port drives one card a
+// process; every per-launch choice made from it gives the same result).
+// A failed read leaves it 0, and the error is the one cudaGetLastError
+// returns after the launch.
+inline int sm_count() {
   static const int sms = [] {
     int dev = 0, n = 0;
     if (cudaGetDevice(&dev) == cudaSuccess) {
@@ -127,8 +127,12 @@ inline bool wide_launch(int nt) {
     }
     return n;
   }();
-  return nt <= RT_WIDE_TILES_PER_SM * sms;
+  return sms;
 }
+
+// True when a launch over nt tiles takes RT_WIDE_WARPS-warp blocks (with
+// no SM count, narrow).
+inline bool wide_launch(int nt) { return nt <= RT_WIDE_TILES_PER_SM * sm_count(); }
 
 // f(G, A, B) for the kernel instance of a launch, each argument a
 // std::integral_constant: G warps per block, template flags a and b.

@@ -53,17 +53,46 @@
 // gained nothing).
 //
 // Hierarchical form (scenes above 512 cluster columns): the columns are
-// cut into 128-cluster chunks, chunk j of tile i gated by the coarse bit
+// cut into S 128-cluster chunks, chunk j of tile i gated by the coarse bit
 // sup[i*S + j] (the same slab test against the dilated union of the
-// chunk's boxes, run before by the flat kernel).  The bit is uniform over
-// the block, so the branch does not diverge; a chunk whose bit is 0 is
-// written 0 / +inf.  Thread t tests column 128*j + t of chunk j with the
-// flat kernel's routine, and only the C real columns of the last chunk
-// are written (the TPU pads them with _BIG boxes).  Coarse miss implies
-// fine miss (the slab chain is monotone in the box coordinates and the
-// union is dilated), so the result equals the flat kernel's bit for bit.
+// chunk's boxes, run before by the flat kernel): a chunk whose bit is 0,
+// or any chunk of a tile without an active ray, is written 0 / +inf; the
+// others take the flat kernel's routine.  Coarse miss implies fine miss
+// (the slab chain is monotone in the box coordinates and the union is
+// dilated), so the result equals the flat kernel's bit for bit.
+//
+// What bounds it: the spread of the live chunks, then instruction issue.
+// A few tiles (shadow segments across the terrain) cross many
+// superclusters, the rest a few: at the big terrain's busiest call 4.7
+// live chunks per active tile on average and 16 at most.  One block per
+// tile walking its chunks in turn left the launch as long as its busiest
+// tile while the other SMs idled.  So a block takes one group of at most
+// g chunks of one tile (a 2-D grid: tile, group), g chosen per launch
+// (hier_group): the most, up to RT_HIER_GROUP_MAX, that still gives every
+// SM RT_HIER_BLOCKS_PER_SM blocks, so a tile's live chunks run on many
+// SMs at once and the hardware hands the blocks out as SMs free up.  The
+// block writes its dead chunks first, a warp a chunk, as int4 / float4
+// stores when the rows are 16-byte aligned (c % 4 == 0); a block without a
+// live chunk stages nothing and is done.  Otherwise it stages the tile's
+// rays once (octant-sorted) and takes its live chunks in turn, thread t
+// testing column 128 * j + t with the flat kernel's routine.  The hit bit
+// rides on the entry (NaN until a ray hits): 23 instructions a pair, the
+// ray loads included.  Only the C real columns of the last chunk are
+// written (the TPU pads them with _BIG boxes), each (tile, column) by one
+// thread.  On an H100 (PERF.md): 2 or 4 box columns a thread, with the
+// rays split over the warps and merged, or more chunks a block, were no
+// faster; 4 chunks a block wrote the dead chunks near the memory rate.
+
+#include <algorithm>
+#include <cstdint>
 
 #include "common.cuh"
+
+// hier_group aims at this many blocks a SM, with at most RT_HIER_GROUP_MAX
+// chunks a block
+#define RT_HIER_BLOCKS_PER_SM 32
+#define RT_HIER_GROUP_MAX 4
+static_assert(RT_HIER_GROUP_MAX <= 32, "a block's chunks are bits of one ballot");
 
 namespace {
 
@@ -120,20 +149,25 @@ __device__ __forceinline__ void stage_bundle(Staged& s, const float* bundle,
   __syncthreads();
 }
 
+// ANY: a hit sets *any.  Without ANY, *emin starts NaN and stays NaN
+// until a ray hits (fminf drops a NaN operand; a hit's entry is never
+// NaN), so the hit bit is !isnan(*emin): an instruction a pair fewer.
+template <bool ANY>
 __device__ __forceinline__ void slab_hit(float entry, float exit_, float thi,
                                          bool* any, float* emin) {
   if ((entry <= exit_) && (exit_ >= 0.0f) && (entry <= thi)) {
-    *any = true;
+    if (ANY) *any = true;
     *emin = fminf(*emin, entry);  // entry is not NaN here
   }
 }
 
 // Slab test of the staged rays at places [j0, j1) against the boxes of
 // columns cc[0..NB) (a column >= c takes a NaN box: no hit): ORs the hits
-// into any[n] and takes the least entry over the hitting rays into
-// emin[n].  j0, j1 are uniform over the warp.  SORTED: the rays are
-// staged by octant, and regular columns take the near and far planes.
-template <int NB, bool SORTED>
+// into any[n] (see slab_hit for !ANY) and takes the least entry over the
+// hitting rays into emin[n].  j0, j1 are uniform over the warp.  SORTED:
+// the rays are staged by octant, and regular columns take the near and
+// far planes.
+template <int NB, bool SORTED, bool ANY = true>
 __device__ __forceinline__ void slab_columns(const Staged& s, int j0, int j1,
                                              const float* __restrict__ box,
                                              int c, const int* cc, bool* any,
@@ -164,8 +198,8 @@ __device__ __forceinline__ void slab_columns(const Staged& s, int j0, int j1,
         t1 = v.z * lo[2][n] - o.z;
         t2 = v.z * hi[2][n] - o.z;
         const float nz = nan_min(t1, t2), fz = nan_max(t1, t2);
-        slab_hit(nan_max(nx, nan_max(ny, nz)), nan_min(fx, nan_min(fy, fz)), o.w,
-                 &any[n], &emin[n]);
+        slab_hit<ANY>(nan_max(nx, nan_max(ny, nz)), nan_min(fx, nan_min(fy, fz)),
+                      o.w, &any[n], &emin[n]);
       }
     }
     return;
@@ -191,8 +225,8 @@ __device__ __forceinline__ void slab_columns(const Staged& s, int j0, int j1,
         const float nx = v.x * nc[0][n] - o.x, fx = v.x * fc[0][n] - o.x;
         const float ny = v.y * nc[1][n] - o.y, fy = v.y * fc[1][n] - o.y;
         const float nz = v.z * nc[2][n] - o.z, fz = v.z * fc[2][n] - o.z;
-        slab_hit(nan_max(nx, nan_max(ny, nz)), nan_min(fx, nan_min(fy, fz)), o.w,
-                 &any[n], &emin[n]);
+        slab_hit<ANY>(nan_max(nx, nan_max(ny, nz)), nan_min(fx, nan_min(fy, fz)),
+                      o.w, &any[n], &emin[n]);
       }
     }
   }
@@ -266,31 +300,79 @@ __global__ void __launch_bounds__(RT_TILE) ray_mask_kernel(
   }
 }
 
-__global__ void __launch_bounds__(RT_TILE) ray_mask_hier_kernel(
-    const int* __restrict__ act, const int* __restrict__ sup,
-    const float* __restrict__ box, const float* __restrict__ bundle,
-    int* __restrict__ hit, float* __restrict__ ent, int c, int r) {
-  __shared__ Staged st;
-  const int i = blockIdx.x;
-  if (act[i] == 0) {
-    miss_columns(c, 0, c, i, hit, ent);
-    return;
-  }
-  stage_bundle<true>(st, bundle, i, r);
-  const int n_chunks = (c + RT_CLUSTER - 1) / RT_CLUSTER;
-  for (int j = 0; j < n_chunks; ++j) {
-    const int c0 = j * RT_CLUSTER;
-    const int c1 = min(c, c0 + RT_CLUSTER);
-    if (sup[static_cast<size_t>(i) * n_chunks + j] == 0) {
-      miss_columns(c, c0, c1, i, hit, ent);
-    } else {
-      const int cc = c0 + threadIdx.x;  // < c1 iff < c
-      bool any = false;
-      float emin = CUDART_INF_F;
-      slab_columns<1, true>(st, 0, RT_TILE, box, c, &cc, &any, &emin);
-      if (cc < c) write_column(c, cc, i, any, emin, hit, ent);
+// Columns [c0, c1) of tile i written 0 / +inf by one warp: one int4 and
+// one float4 a lane when VEC (c % 4 == 0 and 16-byte aligned outputs, so
+// c0 and c1 are multiples of 4), else one column a lane.
+__device__ __forceinline__ void miss_chunk(int c, int c0, int c1, int i,
+                                           bool vec, int* __restrict__ hit,
+                                           float* __restrict__ ent) {
+  const int lane = threadIdx.x & 31;
+  const size_t row = static_cast<size_t>(i) * c;
+  if (vec) {
+    int4* h = reinterpret_cast<int4*>(hit + row);
+    float4* e = reinterpret_cast<float4*>(ent + row);
+    const float inf = CUDART_INF_F;
+    for (int q = c0 / 4 + lane; q < c1 / 4; q += 32) {
+      h[q] = make_int4(0, 0, 0, 0);
+      e[q] = make_float4(inf, inf, inf, inf);
+    }
+  } else {
+    for (int cc = c0 + lane; cc < c1; cc += 32) {
+      write_column(c, cc, i, false, CUDART_INF_F, hit, ent);
     }
   }
+}
+
+// Block (i, y): chunks [y*g, y*g + g) of tile i (see the note above).
+// Each live chunk is one round of the block: thread t tests column
+// 128 * j + t against the tile's 128 rays.  The bound of at least 1 block
+// a SM changes only how ptxas schedules the slab loop: on an H100 it ran
+// 0.0756 ms at the big terrain's busiest call against 0.0818 ms with the
+// bare bound (PERF.md).
+__global__ void __launch_bounds__(RT_TILE, 1) ray_mask_hier_kernel(
+    const int* __restrict__ act, const int* __restrict__ sup,
+    const float* __restrict__ box, const float* __restrict__ bundle,
+    int* __restrict__ hit, float* __restrict__ ent, int c, int r, int g,
+    bool vec) {
+  __shared__ Staged st;
+  const int s = (c + RT_CLUSTER - 1) / RT_CLUSTER;
+  const int i = blockIdx.x, j0 = blockIdx.y * g, n = min(g, s - j0);
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // bit k: chunk j0 + k is live (the same in every warp)
+  const bool on = act[i] != 0;
+  const unsigned live = __ballot_sync(
+      RT_FULL_MASK,
+      on && lane < n && sup[static_cast<size_t>(i) * s + j0 + lane] != 0);
+  for (int k = w; k < n; k += kWarps) {
+    if (!((live >> k) & 1u)) {
+      const int c0 = (j0 + k) * RT_CLUSTER;
+      miss_chunk(c, c0, min(c, c0 + RT_CLUSTER), i, vec, hit, ent);
+    }
+  }
+  if (live == 0u) return;  // uniform over the block
+  stage_bundle<true>(st, bundle, i, r);
+  for (unsigned m = live; m != 0u; m &= m - 1u) {
+    const int c0 = (j0 + __ffs(m) - 1) * RT_CLUSTER + 32 * w;  // this warp's
+    if (c0 >= c) continue;  // past the last chunk's real columns
+    const int cc = c0 + lane;  // < the chunk's end iff < c
+    bool unused;
+    float emin = CUDART_NAN_F;  // NaN until a ray hits (slab_hit<false>)
+    slab_columns<1, true, false>(st, 0, RT_TILE, box, c, &cc, &unused, &emin);
+    if (cc < c) {
+      const bool h = !isnan(emin);
+      write_column(c, cc, i, h, h ? emin : CUDART_INF_F, hit, ent);
+    }
+  }
+}
+
+// Chunks a block of a hierarchical launch over nt tiles of s chunks: the
+// most (up to RT_HIER_GROUP_MAX) that still gives RT_HIER_BLOCKS_PER_SM
+// blocks a SM, or a whole tile's when nt alone gives that many.
+int hier_group(int nt, int s) {
+  const long want = static_cast<long>(RT_HIER_BLOCKS_PER_SM) * sm_count();
+  const long per_tile = std::min<long>(s, std::max<long>(1, (want + nt - 1) / nt));
+  const int g = static_cast<int>((s + per_tile - 1) / per_tile);
+  return std::max(1, std::min(g, RT_HIER_GROUP_MAX));
 }
 
 }  // namespace
@@ -318,10 +400,20 @@ extern "C" int rt_ray_mask_hier(const int* act, const int* sup,
                                 int* hit, float* ent, int nt, int c, int r,
                                 void* stream) {
   if (nt > 0 && c > 0) {
-    ray_mask_hier_kernel<<<nt, RT_TILE, 0, static_cast<cudaStream_t>(stream)>>>(
-        act, sup, box, bundle, hit, ent, c, r);
+    const int s = (c + RT_CLUSTER - 1) / RT_CLUSTER, g = hier_group(nt, s);
+    const bool vec = c % 4 == 0 && reinterpret_cast<uintptr_t>(hit) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(ent) % 16 == 0;
+    const dim3 grid(nt, (s + g - 1) / g);
+    ray_mask_hier_kernel<<<grid, RT_TILE, 0, static_cast<cudaStream_t>(stream)>>>(
+        act, sup, box, bundle, hit, ent, c, r, g, vec);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Chunks a block of a hierarchical launch over nt tiles of c columns (the
+// group hier_group picks); a number, not an error code.
+extern "C" int rt_ray_mask_hier_group(int nt, int c) {
+  return hier_group(nt, (c + RT_CLUSTER - 1) / RT_CLUSTER);
 }
 
 extern "C" const char* rt_error_string(int code) {

@@ -120,6 +120,84 @@ def test_ray_mask_hier_gates_chunks():
     assert_same(e2.numpy(), np.where(gate, ent.numpy(), np.inf), "entry")
 
 
+def _case_mask(c):
+    return _port_mask(c["cmin"], c["cmax"], c["origin"], c["dirs"], c["active"],
+                      c["t_hi"])
+
+
+def test_hier_case_route_equals_flat_and_eager_jnp(monkeypatch):
+    """The hierarchical-mask case (tests/torch_hier_case.py): the port's
+    route computes the case's coarse bits (a tile live in every chunk, in
+    one, in none; the inactive tile in none), and its result equals the
+    flat route and eager _ray_mask_jnp bit for bit, with hits in every
+    chunk of the all-live tile, the partial last chunk too."""
+    from torch_hier_case import N_TILES, hier_case
+
+    c = hier_case()
+    sups = []
+    hier = K.ray_mask_hier
+    monkeypatch.setattr(K, "ray_mask_hier", lambda *a: sups.append(a[1]) or hier(*a))
+    ph, pe = _case_mask(c)
+    assert len(sups) == 1
+    assert_same(sups[0].numpy().reshape(N_TILES, -1) != 0, c["live"], "coarse bits")
+    monkeypatch.setattr(pct, "SUPER_MIN_CPAD", 1 << 30)
+    fh, fe = _case_mask(c)
+    assert len(sups) == 1
+    assert_same(ph.numpy(), fh.numpy(), "hit vs flat")
+    assert_same(pe.numpy(), fe.numpy(), "entry vs flat")
+    with jax.disable_jit():
+        jh, je = jct._ray_mask_jnp(*map(jnp.asarray, (
+            c["origin"], c["dirs"], c["active"], c["cmin"], c["cmax"], c["t_hi"])), 128)
+    assert_same(ph.numpy(), jh, "hit vs jnp")
+    assert_same(pe.numpy(), je, "entry vs jnp")
+    per_chunk = np.add.reduceat(ph.numpy()[0], np.arange(0, ph.shape[1], 128))
+    assert (per_chunk > 0).all()
+
+
+def test_hier_case_matches_pallas_interpret():
+    """The case against the Pallas hierarchical kernel (interpret mode):
+    equal hit bits, entries within rtol 1e-4 (the interpreter contracts the
+    slab chain into FMAs; tests/test_hier_mask.py's bar)."""
+    from torch_hier_case import hier_case
+
+    c = hier_case()
+    assert c["cmin"].shape[0] % 128 and -(-c["cmin"].shape[0] // 128) * 128 > \
+        jct._SUPER_MIN_CPAD
+    jh, je = jct._ray_cluster_mask_tpu(*map(jnp.asarray, (
+        c["origin"], c["dirs"], c["active"], c["cmin"], c["cmax"], c["t_hi"])),
+        jct.TILE, interpret=True)
+    ph, pe = _case_mask(c)
+    assert_same(ph.numpy(), np.asarray(jh), "hit")
+    np.testing.assert_allclose(pe.numpy(), np.asarray(je), rtol=1e-4)
+
+
+@pytest.mark.parametrize("pattern", ["ones", "zeros", "one_tile"])
+def test_hier_case_plain_gates_chunks(pattern):
+    """ray_mask_hier_plain on the case under all-ones, all-zeros and
+    one-tile-live coarse bits: the flat result on exactly the chunks whose
+    bit is set in an active tile, 0 / +inf elsewhere (the inactive tile 4
+    too, whatever its bits), only the C real columns written."""
+    from torch_hier_case import N_TILES, hier_case
+
+    c = hier_case()
+    t = torch.from_numpy
+    act, bundle = pct._mask_bundle(t(c["origin"]), t(c["dirs"]), t(c["active"]),
+                                   t(c["t_hi"]), 128)
+    box = pct._box_table(t(c["cmin"]), t(c["cmax"]))
+    s = c["live"].shape[1]
+    bits = np.full((N_TILES, s), int(pattern == "ones"), np.int32)
+    if pattern == "one_tile":
+        bits[0] = 1
+    fh, fe = K.ray_mask_plain(act, box, bundle)
+    h, e = K.ray_mask_hier_plain(act, t(bits.reshape(-1)), box, bundle)
+    assert h.shape == fh.shape == (N_TILES, c["cmin"].shape[0])
+    gate = np.repeat(bits, 128, axis=1)[:, :h.shape[1]] != 0
+    gate &= act.numpy()[:, None] != 0
+    assert not gate[4].any() and (gate.any() == (pattern != "zeros"))
+    assert_same(h.numpy(), np.where(gate, fh.numpy(), 0), "hit")
+    assert_same(e.numpy(), np.where(gate, fe.numpy(), np.inf), "entry")
+
+
 # ---------------------------------------------------------------------------
 # cluster_any
 # ---------------------------------------------------------------------------

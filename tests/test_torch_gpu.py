@@ -163,11 +163,30 @@ def test_ray_mask_equals_plain_on_card(cuda, c):
     ray; and the hierarchical mask on random coarse bits."""
     import numpy as np
 
-    from raytracer_tpu_torch.ops import cluster_trace as pct
     from raytracer_tpu_torch.ops import kernels as K
 
     rng = np.random.default_rng(c)
     nt = 64
+    act_t, box, bundle = _mask_inputs(rng, nt, c, cuda)
+    flat = K.ray_mask(act_t, box, bundle)
+    for a, b in zip(flat, K.ray_mask_plain(act_t, box, bundle)):
+        assert torch.equal(a, b)
+    assert bool(flat[0].any()) and not bool(flat[0][3].any())
+    sup = torch.from_numpy((rng.random(nt * -(-c // 128)) < 0.7).astype(np.int32)).to(cuda)
+    for a, b in zip(K.ray_mask_hier(act_t, sup, box, bundle),
+                    K.ray_mask_hier_plain(act_t, sup, box, bundle)):
+        assert torch.equal(a, b)
+
+
+def _mask_inputs(rng, nt, c, cuda):
+    """(act, box, bundle) of a mask call on the card: random rays with zero
+    direction components and inactive rays, tiles 3 and 10 (when there)
+    without an active ray, random boxes with every fifth one empty."""
+    import numpy as np
+
+    from raytracer_tpu_torch.ops import cluster_trace as pct
+    from raytracer_tpu_torch.ops import kernels as K
+
     r = nt * K.TILE
     o = rng.uniform(-2, 2, (r, 3)).astype(np.float32)
     d = rng.normal(size=(r, 3)).astype(np.float32)
@@ -180,12 +199,54 @@ def test_ray_mask_equals_plain_on_card(cuda, c):
     cmin[1::5] = cmax[1::5] = np.nan
     on = lambda x: torch.from_numpy(x).to(cuda)  # noqa: E731
     act_t, bundle = pct._mask_bundle(on(o), on(d), on(act), on(thi), K.TILE)
-    box = pct._box_table(on(cmin), on(cmax))
-    flat = K.ray_mask(act_t, box, bundle)
-    for a, b in zip(flat, K.ray_mask_plain(act_t, box, bundle)):
+    return act_t, pct._box_table(on(cmin), on(cmax)), bundle
+
+
+@pytest.mark.parametrize("c", [513, 700, 4096, 4224])
+@pytest.mark.parametrize("nt", [1, 64, 4096])
+def test_ray_mask_hier_equals_plain_on_card(cuda, nt, c):
+    """The hierarchical mask on random coarse bits, at launch sizes from
+    one tile to a frame's chunk and at column counts with a partial last
+    chunk (513, 700: rows not 16-byte aligned) and whole ones (4096,
+    4224): equal to its plain version on the card, with as many chunks a
+    block as ``backend.mask_hier_group`` says the launch takes."""
+    import numpy as np
+
+    from raytracer_tpu_torch import backend
+    from raytracer_tpu_torch.ops import kernels as K
+
+    rng = np.random.default_rng(nt * 10007 + c)
+    act, box, bundle = _mask_inputs(rng, nt, c, cuda)
+    s = -(-c // 128)
+    assert 1 <= backend.mask_hier_group(nt, c) <= s
+    sup = torch.from_numpy((rng.random(nt * s) < 0.3).astype(np.int32)).to(cuda)
+    sup[:s] = 1                                   # one tile with every chunk live
+    for a, b in zip(K.ray_mask_hier(act, sup, box, bundle),
+                    K.ray_mask_hier_plain(act, sup, box, bundle)):
         assert torch.equal(a, b)
-    assert bool(flat[0].any()) and not bool(flat[0][3].any())
-    sup = on((rng.random(nt * -(-c // 128)) < 0.7).astype(np.int32))
-    for a, b in zip(K.ray_mask_hier(act_t, sup, box, bundle),
-                    K.ray_mask_hier_plain(act_t, sup, box, bundle)):
+
+
+def test_hier_case_equals_plain_on_card(cuda):
+    """The hierarchical-mask case (tests/torch_hier_case.py: a tile that
+    crosses every supercluster, tiles that cross one or none, an inactive
+    tile whose coarse bits are set, a partial last chunk, empty clusters,
+    zero direction components): the kernel equals its plain version on
+    the card, and with the coarse bits of the port's route it equals the
+    flat kernel."""
+    import numpy as np
+
+    from raytracer_tpu_torch.ops import cluster_trace as pct
+    from raytracer_tpu_torch.ops import kernels as K
+    from torch_hier_case import hier_case
+
+    c = hier_case()
+    on = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(cuda)  # noqa: E731
+    act, bundle = pct._mask_bundle(on(c["origin"]), on(c["dirs"]), on(c["active"]),
+                                   on(c["t_hi"]), K.TILE)
+    box = pct._box_table(on(c["cmin"]), on(c["cmax"]))
+    for sup in (on(c["sup"]), on(c["live"].astype(np.int32).reshape(-1))):
+        got = K.ray_mask_hier(act, sup, box, bundle)
+        for a, b in zip(got, K.ray_mask_hier_plain(act, sup, box, bundle)):
+            assert torch.equal(a, b)
+    for a, b in zip(got, K.ray_mask(act, box, bundle)):
         assert torch.equal(a, b)
