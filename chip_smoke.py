@@ -15,10 +15,16 @@ then:
    (the masks and the shadow kernel must have some);
 2. entry scene: tests/data/entry_scene.xml through the CLI's ``main`` on
    CUDA at --ssaa 1 and 2, against the same runs with --device cpu (the
-   plain PyTorch versions of the kernels);
+   plain PyTorch versions of the kernels); then at --ssaa 2 with --format
+   png, --format exr, --tone aces, a --chunk that streams 8 bands, and
+   --ssaa-mode jitter and adaptive under one --seed, each CUDA run's
+   launch counts (the single light takes the 1-light shadow call) and its
+   image against the CPU's through the diff CLI
+   (``raytracer_tpu_torch.compare``); --accel-cache twice (the second run
+   must load the cache);
 3. full width: ``terrain_scene(cells=126, res=1024, mirror_stripes=True)``
    (31,752 triangles, 2 lights, mirrors) rendered at --ssaa 2 (4,194,304
-   rays, one whole frame) through ``render_one_camera``: build time, warm
+   rays, one band) through ``render_one_camera``: build time, warm
    ms/frame, Mrays/s, each kernel's launches in one frame (all > 0), NaN
    check and non-background share, the process's CPU time and involuntary
    context switches over each timed frame, one frame under torch.profiler
@@ -29,7 +35,7 @@ then:
    (524,288 triangles, 4,096 clusters: plane tables over the 8 MB budget,
    so every shadow wave takes the any-hit kernel, and the hierarchical
    mask) at --ssaa 2 through ``render_one_camera`` (4,194,304 rays in 32
-   chunks of 131,072): build time, warm ms/frame, launches per frame
+   bands of 131,072): build time, warm ms/frame, launches per frame
    (ray_mask_hier and any > 0, shadow 0), peak device memory, NaN check,
    non-background share, one profiled frame, and a 64x64 camera against
    the CPU render; then ``terrain_scene(cells=200, res=512)`` (80,000
@@ -63,6 +69,22 @@ then:
    each kernel's device ms and launches in each profiled frame, and each
    frame's ranking of the kernels by the device time they lose against
    their bounds;
+6. the render modes beyond one band, on the full-width terrain through
+   ``render_one_camera``: streamed at --ssaa 4 parity (16,777,216 rays in
+   4 bands), --ssaa 2 jitter and adaptive (4 base samples a pixel, 12
+   more for 12.5% of the pixel blocks), each with one frame's launch
+   counts, bands, activity compactions and jitter draws (timed on the
+   card) and its kernel inputs captured and held against the plain
+   versions as in phase 4 (adaptive's refinement waves, and the waves
+   after a compaction, apart from the base wave), then warm ms/frame
+   (median of 3) with their peak device memory, Mrays/s of primary rays
+   (samples, for adaptive), one profiled frame (device busy, idle share);
+   each mode at 64x64 against the CPU (the jitter drawn on CUDA, equal
+   bit for bit to the CPU's draw, and replayed on the CPU); then the big
+   terrain through a 512x512 camera at --ssaa 2 jitter (8 bands at the
+   131,072-ray cap: both masks, the closest shapes and any-hit launched,
+   no shadow kernel) with its kernel inputs captured and checked, once
+   more for its peak memory, and at 64x64 against the CPU;
 
 and prints the kernels' JSON line, then ``{"ok": true, "device": ...}``
 as its last line.  Any failure exits non-zero without that line.  Images
@@ -71,8 +93,10 @@ and a results.json land in smoke_out/ (git-ignored).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import math
 import os
 import resource
 import statistics
@@ -176,7 +200,9 @@ class Capture:
     call of each shape, the one with the most work (a chunked frame's first
     chunks may be all sky): shared-origin closest (bounce 0), per-ray-origin
     closest (bounce >= 1) with the flat mask that precedes it, the flat
-    mask ("ray_mask_first"), shadow, hierarchical mask and any-hit."""
+    mask ("ray_mask_first"), shadow, hierarchical mask and any-hit.  While
+    ``tag`` is set (``tagged_waves``), calls are kept apart under
+    ``name + tag``."""
 
     def __init__(self, kernels):
         self.k = kernels
@@ -185,9 +211,12 @@ class Capture:
         self.calls = {}
         self.score = {}
         self.last_mask = None
+        self.tag = ""
 
     def keep(self, name, a, score):
-        """Keep call ``a`` under ``name`` if score() is the highest yet."""
+        """Keep call ``a`` under ``name`` (and the tag) if score() is the
+        highest yet."""
+        name += self.tag
         sc = score()
         if sc > self.score.get(name, -1):
             self.calls[name], self.score[name] = a, sc
@@ -210,7 +239,7 @@ class Capture:
             shared = a[6].dim() == 1
             if (self.keep("closest_shared" if shared else "closest", a, lists(a))
                     and not shared and self.last_mask is not None):
-                self.calls["ray_mask"] = self.last_mask
+                self.calls["ray_mask" + self.tag] = self.last_mask
             return orig["closest"](*a)
 
         def shadow(*a):
@@ -586,7 +615,8 @@ def check_scene_kernels(label, calls, gen, n_tiles=256):
     for name, args in calls.items():
         if args is None:
             continue
-        kname = "ray_mask" if name == "ray_mask_first" else name
+        base = name.split("@")[0]             # without a Capture tag
+        kname = "ray_mask" if base == "ray_mask_first" else base
         p = named(kname, args)
         if name.startswith("ray_mask"):
             counts = p["act"]
@@ -606,7 +636,7 @@ def check_scene_kernels(label, calls, gen, n_tiles=256):
             err = max(err, kernel_vs_plain(kname, slice_args(kname, args, rep),
                                            f"{label} ({rep.numel()} tiles)"))
             extra = f" (also as {rep.numel()} tiles: 4-warp blocks)"
-        if name == "ray_mask_hier":
+        if base == "ray_mask_hier":
             # the hierarchical mask equals the flat one on the same inputs
             q = named(kname, sl)
             flat = K.ray_mask(q["act"], q["box"], q["bundle"])
@@ -616,7 +646,7 @@ def check_scene_kernels(label, calls, gen, n_tiles=256):
             chunks = q["sup"].view(tiles.numel(), -1)
             extra = (f" and == the flat kernel; {int(chunks.sum())} of "
                      f"{chunks.numel()} chunks tested")
-        elif name == "any":
+        elif base == "any":
             # the other template instances: bfc, relaxed and both
             for bfc, relaxed in ((True, False), (False, True), (True, True)):
                 err = max(err, kernel_vs_plain(
@@ -632,7 +662,7 @@ def check_scene_kernels(label, calls, gen, n_tiles=256):
                 f"{label} {flag}={other}"))
             extra += f" (also {flag}={other})"
         errs[kname] = max(errs.get(kname, 0.0), err)
-        if name.startswith("closest") or name == "any":
+        if name.startswith("closest") or base == "any":
             n_over = int((p["tc"][tiles] > 48).sum())
             errs["overflowed"] = errs.get("overflowed", 0) + n_over
             extra += f", overflowed lists: {n_over}"
@@ -1028,7 +1058,7 @@ def render_scene(data, meta, cset, ssaa, device, res=None):
     cam = meta.cameras[0]
     if res is not None:
         cam = dataclasses.replace(cam, width=res, height=res)
-    return render_one_camera(data, meta, cam, cset, ssaa=ssaa, device=device)
+    return render_one_camera(data, meta, cam, cset, ssaa=ssaa, device=device)[0]
 
 
 def build(scene_fn, device, **kw):
@@ -1138,6 +1168,355 @@ def drive_path(label, data, meta, cset, results, key, must, must_not=()):
     return cap, small_cap, launches
 
 
+# ---------------------------------------------------------------------------
+# the render modes beyond one whole frame (phases 2 and 6)
+# ---------------------------------------------------------------------------
+
+def quiet(fn, *a, **kw):
+    """(fn(*a, **kw), what it printed): its standard output kept out of the
+    log."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        return fn(*a, **kw), buf.getvalue().strip()
+
+
+ENTRY_MUST = ("ray_mask", "closest_shared", "closest", "shadow")
+
+
+def entry_cli_outputs(xml, results):
+    """The entry scene through the CLI at --ssaa 2 in the outputs and modes
+    beyond a PPM of a whole frame (PNG, EXR, the ACES curve, a --chunk
+    that streams 8 bands, jitter and adaptive under one --seed), on CUDA
+    against the CPU through the diff CLI (exit 0) and the image bar, with
+    the launch counts of each CUDA run (its single light takes the 1-light
+    shadow call); then
+    --accel-cache twice on CUDA: the second run loads the cache and builds
+    nothing."""
+    from raytracer_tpu_torch import render as cli
+    from raytracer_tpu_torch.compare import _read as read_image
+    from raytracer_tpu_torch.compare import main as compare_main
+    from raytracer_tpu_torch.ops import kernels as K
+
+    cases = [(["--format", "png"], "entry_scene.png"),
+             (["--format", "exr"], "entry_scene.exr"),
+             (["--tone", "aces", "--format", "png"], "entry_scene.png"),
+             (["--chunk", "2048"], "entry_scene.ppm"),
+             (["--ssaa-mode", "jitter", "--seed", "3"], "entry_scene.ppm"),
+             (["--ssaa-mode", "adaptive", "--seed", "3", "--json-metrics"],
+              "entry_scene.ppm")]
+    out_rows = {}
+    for extra, name in cases:
+        label = " ".join(extra)
+        tag = "_".join(a.strip("-") for a in extra)
+        paths = {}
+        for d in ("cuda", "cpu"):
+            out = os.path.join(OUT, f"entry_{d}_{tag}")
+            K.reset_launches()
+            quiet(cli.main, [xml, "--ssaa", "2", *extra, "--device", d,
+                             "--out-dir", out])
+            if d == "cuda":
+                launches = dict(K.launches)
+            paths[d] = os.path.join(out, name)
+        for k in ENTRY_MUST:
+            check(launches[k] > 0, f"entry {label}: {k} was not launched")
+        rc, diff = quiet(compare_main, [paths["cuda"], paths["cpu"]])
+        log(f"  entry {label}: launches {launches}; diff CLI cuda vs cpu: rc {rc} "
+            f"{diff}")
+        check(rc == 0, f"entry {label}: the diff CLI finds cuda and cpu apart")
+        compare_images(read_image(paths["cuda"]), read_image(paths["cpu"]),
+                       f"entry {label} cuda vs cpu")
+        out_rows[label] = {"launches": launches, "compare": json.loads(diff)}
+    cache = os.path.join(OUT, "entry_accel.npz")
+    if os.path.exists(cache):
+        os.remove(cache)
+    builds = []
+    build_bvh = cli.build_bvh
+    cli.build_bvh = lambda *a: builds.append(1) or build_bvh(*a)
+    try:
+        imgs = []
+        for i in range(2):
+            out = os.path.join(OUT, f"entry_accel_{i}")
+            quiet(cli.main, [xml, "--ssaa", "2", "--accel-cache", cache,
+                             "--device", "cuda", "--out-dir", out])
+            imgs.append(read_image(os.path.join(out, "entry_scene.ppm")))
+    finally:
+        cli.build_bvh = build_bvh
+    check(len(builds) == 1, f"--accel-cache: {len(builds)} builds in two runs")
+    check((imgs[0] == imgs[1]).all(), "--accel-cache: the loaded cache renders "
+          "another image")
+    log(f"  entry --accel-cache: the second run loaded {os.path.getsize(cache)} "
+        "bytes and built nothing; the same image")
+    results["entry_cli"] = out_rows
+
+
+def small_vs_cpu(label, data, meta, cset, mode, ssaa, chunk=1 << 22):
+    """The scene through a 64x64 camera in ``mode`` on CUDA and on the CPU,
+    the jitter drawn on CUDA and replayed on the CPU (where each array must
+    equal the CPU's own draw bit for bit): the image bar."""
+    import torch
+
+    from raytracer_tpu_torch.models.whitted import render_camera_streamed
+    from raytracer_tpu_torch.ops.adaptive import render_camera_adaptive
+    from raytracer_tpu_torch.ops.camera import jitter_offsets, recorded_jitter
+    from raytracer_tpu_torch.ops.image import quantize
+
+    cam = dataclasses.replace(meta.cameras[0], width=64, height=64)
+    record, replay = recorded_jitter(7, cset.tri_dat.device)
+
+    def replay_checked(key, shape):
+        x = replay(key, shape)
+        check(torch.equal(x.cpu(), jitter_offsets(7, key, shape)),
+              f"{label}: the jitter {key} drawn on CUDA is not the CPU's")
+        return x
+
+    imgs = {}
+    for d, jit, (dd, mm, cc) in (("cuda", record, (data, meta, cset)),
+                                 ("cpu", replay_checked, to_cpu(data, meta, cset))):
+        if mode == "adaptive":
+            col, _ = render_camera_adaptive(dd, mm, cam, cc, base_spp=ssaa * ssaa,
+                                            extra_spp=3 * ssaa * ssaa, device=d,
+                                            jitter=jit)
+            imgs[d] = quantize(col).cpu().numpy()
+        else:
+            imgs[d] = render_camera_streamed(dd, mm, cam, cc, chunk=chunk,
+                                             ssaa=ssaa, ssaa_mode=mode, device=d,
+                                             jitter=jit).cpu().numpy()
+    compare_images(imgs["cuda"], imgs["cpu"],
+                   f"{label} at 64x64 (ssaa {ssaa}, {mode}), cuda vs cpu")
+
+
+@contextlib.contextmanager
+def patched(module, name, wrap):
+    """``module.name`` replaced by ``wrap(original)`` inside the block."""
+    orig = getattr(module, name)
+    setattr(module, name, wrap(orig))
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+@contextlib.contextmanager
+def instrumented(cap):
+    """One frame's bands, jitter draws and waves, inside ``cap``: yields
+    {"bands": ray count of every band render_camera_streamed renders,
+    "draws": (offsets, ms) of every jitter draw, timed on the card,
+    "compactions": activity compactions}; the kernel calls of adaptive
+    sampling's refinement waves are kept under the tag "@refine", and
+    those after a compaction under "@compacted" too."""
+    import torch
+
+    from raytracer_tpu_torch.models import whitted
+    from raytracer_tpu_torch.ops import adaptive
+
+    seen = {"bands": [], "draws": [], "compactions": 0}
+
+    def band(f):
+        def counted(*a, **kw):
+            seen["bands"].append(a[5] * a[7])          # ws * bh
+            return f(*a, **kw)
+        return counted
+
+    def draw(f):
+        def timed(jitter, seed, key, shape, device):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x = f(jitter, seed, key, shape, device)
+            torch.cuda.synchronize()
+            seen["draws"].append((math.prod(shape), (time.perf_counter() - t0) * 1e3))
+            return x
+        return timed
+
+    def wave(f):
+        def tagged(*a, compact_mode="auto", **kw):
+            cap.tag = "@refine" if compact_mode == "deep" else ""
+            try:
+                return f(*a, compact_mode=compact_mode, **kw)
+            finally:
+                cap.tag = ""
+        return tagged
+
+    def compact(f):
+        def tagged(carry):
+            seen["compactions"] += 1
+            if not cap.tag.endswith("@compacted"):
+                cap.tag += "@compacted"
+            return f(carry)
+        return tagged
+
+    def ray_wave(f):
+        def untagged(*a, **kw):
+            cap.tag = cap.tag.replace("@compacted", "")
+            return f(*a, **kw)
+        return untagged
+
+    with contextlib.ExitStack() as stack:
+        for mod, name, wrap in ((whitted, "render_band", band),
+                                (whitted, "draw_jitter", draw),
+                                (adaptive, "draw_jitter", draw),
+                                (adaptive, "trace", wave),
+                                (whitted, "render_rays", ray_wave),
+                                (whitted, "_compact_carry", compact)):
+            stack.enter_context(patched(mod, name, wrap))
+        yield seen
+
+
+def drive_mode(label, frame, results, key, must, checked, must_not=()):
+    """One render mode through ``frame`` (render_one_camera): a warm-up
+    frame; one frame with the launch counts reset just before and read
+    just after (every kernel of ``must`` launched, none of ``must_not``),
+    its kernel inputs captured and each kernel held against its plain
+    version (``checked``), its bands and its jitter draws timed; 3 timed
+    frames (median) and their peak device memory; one profiled frame
+    (device busy, idle share against the median).  Returns (image,
+    adaptive stats, launches)."""
+    import numpy as np
+    import torch
+
+    from raytracer_tpu_torch.ops import kernels as K
+
+    frame()
+    torch.cuda.synchronize()
+    K.reset_launches()
+    with Capture(K) as cap, instrumented(cap) as seen:
+        img, stats = frame()
+    torch.cuda.synchronize()
+    launches = dict(K.launches)
+    for name in must:
+        check(launches[name] > 0, f"{label}: {name} was not launched")
+    for name in must_not:
+        check(launches[name] == 0, f"{label}: {name} was launched")
+    bands = seen["bands"]
+    draw_ms = sum(ms for _, ms in seen["draws"])
+    n_draw = sum(n for n, _ in seen["draws"])
+    log(f"  {label}: launches {launches}; bands {len(bands)} "
+        f"({sorted(set(bands))} rays); compactions {seen['compactions']}; "
+        f"jitter draws on the card {draw_ms:.3f} ms for {n_draw} offsets "
+        f"({len(seen['draws'])} draws)")
+    log(f"  {label}: captured calls {sorted(cap.calls)}")
+    checked(label, cap.calls)
+    del cap
+    times = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frame()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    ms = statistics.median(times)
+    check(stats is not None or bands, f"{label}: neither adaptive nor streamed")
+    rays = stats["total_samples"] if stats else sum(bands)
+    profile_frame(frame, results, key + "_profile")
+    prof = results.get(key + "_profile")
+    busy = prof["device_busy_ms"] if prof else None
+    idle = 1 - busy / ms if prof else None
+    check(img.dtype == np.uint8 and img.max() > 0, f"{label}: empty image")
+    log(f"  {label}: frame ms (3 warm runs) {[round(t, 3) for t in times]}; median "
+        f"{ms:.3f} ms, {rays / ms / 1e3:.3f} Mrays/s ({rays} primary rays); peak "
+        f"{peak} bytes ({peak / 2**30:.3f} GiB); device busy {busy} ms, idle "
+        f"share {idle}")
+    results[key] = {"ms": ms, "runs_ms": times, "primary_rays": rays,
+                    "mrays_per_s": rays / ms / 1e3, "peak_bytes": peak,
+                    "launches": launches, "bands": bands, "device_busy_ms": busy,
+                    "idle_share": idle, "adaptive": stats, "draw_ms": draw_ms,
+                    "draw_offsets": n_draw, "compactions": seen["compactions"]}
+    return img, stats, launches
+
+
+def render_modes(dev, results, full, big, big_res, checked):
+    """Phase 6: ``terrain_scene(**full, mirror_stripes=True)`` through
+    render_one_camera streamed at --ssaa 4 parity, at --ssaa 2 jitter and
+    in adaptive mode (``drive_mode`` each, and each checked at 64x64
+    against the CPU); then ``terrain_scene(**big, ...)`` through a
+    ``big_res`` camera at --ssaa 2 jitter once with its kernel inputs
+    captured and checked, its launch counts (the hierarchical mask and
+    any-hit included, no shadow kernel) and bands (each within the
+    big-scene cap), and once more for its peak memory and wall time, and
+    checked at 64x64 against the CPU.  Returns {path: launches}."""
+    import torch
+
+    from raytracer_tpu_torch.models.whitted import _BIG_SCENE_CHUNK
+    from raytracer_tpu_torch.ops import kernels as K
+    from raytracer_tpu_torch.pipeline import render_one_camera
+    from raytracer_tpu_torch.utils.ppm import write_ppm
+    from raytracer_tpu_torch.utils.synth import terrain_scene
+
+    data, meta, cset = build(terrain_scene, dev, mirror_stripes=True, **full)
+    cam = meta.cameras[0]
+    res = cam.width
+    modes = {
+        "streamed_ssaa4": ("streamed, --ssaa 4 parity", dict(ssaa=4)),
+        "jitter_ssaa2": ("--ssaa 2 --ssaa-mode jitter", dict(ssaa=2, ssaa_mode="jitter")),
+        "adaptive": ("--ssaa-mode adaptive (base 4 spp, 12.5% of blocks get 12 more)",
+                     dict(ssaa=2, ssaa_mode="adaptive")),
+    }
+    path_launches = {}
+    for key, (label, kw) in modes.items():
+        def frame(kw=kw):
+            return render_one_camera(data, meta, cam, cset, device=dev, **kw)
+        img, stats, path_launches[key] = drive_mode(
+            f"full-width terrain {label}", frame, results, key, must=ENTRY_MUST,
+            checked=checked)
+        check(img.shape == (res, res, 3), f"{label}: image {img.shape}")
+        bands = results[key]["bands"]
+        if key == "adaptive":
+            check(stats["mean_spp"] == 5.5, f"{label}: stats {stats}")
+        else:
+            ssaa = kw["ssaa"]
+            check(sum(bands) == (res * ssaa) ** 2 and max(bands) <= 1 << 22,
+                  f"{label}: bands {bands}")
+        write_ppm(os.path.join(OUT, f"terrain_{res}_{key}.ppm"), img)
+    small_vs_cpu("full-width terrain", data, meta, cset, "parity", 4, chunk=16384)
+    small_vs_cpu("full-width terrain", data, meta, cset, "jitter", 2, chunk=2048)
+    small_vs_cpu("full-width terrain", data, meta, cset, "adaptive", 2)
+    del data, cset
+
+    data, meta, cset = build(terrain_scene, dev, mirror_stripes=True, **big)
+    cam = dataclasses.replace(meta.cameras[0], width=big_res, height=big_res)
+
+    def frame():
+        return render_one_camera(data, meta, cam, cset, ssaa=2,
+                                 ssaa_mode="jitter", device=dev)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    with Capture(K) as cap, instrumented(cap) as seen:
+        img, _ = frame()
+    torch.cuda.synchronize()
+    launches = dict(K.launches)
+    bands = seen["bands"]
+    path_launches["big_jitter"] = launches
+    log(f"  big terrain at {big_res}x{big_res}, --ssaa 2 jitter: launches "
+        f"{launches}; bands {bands}; captured calls {sorted(cap.calls)}")
+    for name in ("ray_mask", "ray_mask_hier", "closest_shared", "closest", "any"):
+        check(launches[name] > 0, f"big terrain jitter: {name} was not launched")
+    check(launches["shadow"] == 0, "big terrain jitter: shadow was launched")
+    check(sum(bands) == (2 * big_res) ** 2 and max(bands) <= _BIG_SCENE_CHUNK,
+          f"big terrain jitter: bands {bands}")
+    check(img.shape == (big_res, big_res, 3) and img.max() > 0,
+          "big terrain jitter: empty image")
+    checked(f"big terrain {big_res}x{big_res} jitter", cap.calls)
+    del cap
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    frame()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  big terrain at {big_res}x{big_res}, --ssaa 2 jitter, second frame: "
+        f"peak {peak} bytes ({peak / 2**30:.3f} GiB); wall time {wall:.3f} ms "
+        "(one frame, not a median)")
+    results["big_jitter"] = {"launches": launches, "bands": bands,
+                             "peak_bytes": peak, "wall_ms": wall}
+    small_vs_cpu("big terrain", data, meta, cset, "jitter", 2)
+    return path_launches
+
+
 def run():
     import torch
 
@@ -1203,6 +1582,7 @@ def run():
         cs = build_clusters(data, meta, build_bvh(data, meta))
         rad[d] = render_camera(data, meta, meta.cameras[0].scaled(2), cs, device=d)
     compare_radiance(rad["cuda"], rad["cpu"], "entry ssaa 2 radiance cuda vs cpu")
+    entry_cli_outputs(xml, results)
 
     # -- phase 3: full width
     log("== phase 3: full-width terrain (cells=126, res=1024, mirrors) at --ssaa 2")
@@ -1416,6 +1796,14 @@ def run():
         "a slab mask over cluster shortlists (flat or gated by superclusters), "
         "a shortlist closest hit, a plane-table shadow test or a shortlist "
         "segment any-hit")
+    # -- phase 6: the render modes beyond one whole frame
+    log("== phase 6: streamed bands, jitter and adaptive on the full-width "
+        "terrain; the big terrain streamed in jitter mode")
+    path_launches = render_modes(dev, results, dict(cells=126, res=1024),
+                                 dict(cells=512, res=1024), 512, checked)
+    for row in rows:
+        row["path_launches"] = {k: v[row["name"]] for k, v in path_launches.items()}
+        row["max_abs_err"] = max_err[row["name"]]
     results["kernels"] = rows
     results["card"] = smi
     with open(os.path.join(OUT, "results.json"), "w") as f:

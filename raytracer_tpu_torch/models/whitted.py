@@ -17,9 +17,16 @@ Shadows: per-light plane tables and the shadow kernel while a table fits
 ``SHADOW_PLANES_BYTES_MAX``, else the generic any-hit kernel
 (``cluster_any``).  Frames above the ray chunk render chunk by chunk; big
 scenes cap the chunk (``_cap_chunk_for_big_scenes``).
+
+``render_camera_streamed`` renders row bands of the SSAA-scaled frame and
+reduces each band on the device (SSAA, quantization), so ray state stays
+about one chunk; it is the route of every render request but adaptive
+sampling, jittered sampling included.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -27,7 +34,12 @@ from raytracer_tpu_torch.backend import resolve_device
 from raytracer_tpu_torch.models.clusters import ClusterSet
 from raytracer_tpu_torch.models.scene import Camera, SceneData, SceneMeta
 from raytracer_tpu_torch.ops import cluster_trace as ctr
-from raytracer_tpu_torch.ops.camera import camera_vectors, eye_rays_from
+from raytracer_tpu_torch.ops.camera import (
+    camera_vectors, draw_jitter, eye_rays_band, eye_rays_from,
+)
+from raytracer_tpu_torch.ops.image import (
+    downsample_mean, downsample_parity, quantize,
+)
 from raytracer_tpu_torch.ops.kernels import TILE
 from raytracer_tpu_torch.ops.shade import Hit, reflection_rays, shade_local
 from raytracer_tpu_torch.ops.tiling import (
@@ -60,9 +72,15 @@ def _uncompact_color(color, idx):
 
 
 def render_rays(data: SceneData, meta: SceneMeta, origin, dirs,
-                cset: ClusterSet, bfc: bool = False, relaxed: bool = False):
+                cset: ClusterSet, bfc: bool = False, relaxed: bool = False,
+                compact_mode: str = "auto"):
     """(R, 3) f32 radiance of a wavefront.  ``origin``: (3,) (a shared eye
-    point) or (R, 3); ``dirs``: (R, 3), unnormalized (the camera's)."""
+    point) or (R, 3); ``dirs``: (R, 3), unnormalized (the camera's).
+    ``compact_mode``: ``auto`` gates the activity compaction off below max
+    depth _COMPACT_MIN_DEPTH; ``deep`` keeps only the runtime scatter gate
+    (adaptive refinement waves, scattered by construction)."""
+    if compact_mode not in ("auto", "deep"):
+        raise ValueError(f"unknown compact_mode {compact_mode!r}")
     r = dirs.shape[0]
     eye_shared = origin.dim() == 1
     nl = meta.n_lights
@@ -89,7 +107,8 @@ def render_rays(data: SceneData, meta: SceneMeta, origin, dirs,
                     cset, planes, org, data.light_pos[:nl], masks,
                     relaxed=relaxed)
 
-    compact = meta.max_depth >= _COMPACT_MIN_DEPTH and r % TILE == 0
+    compact = ((meta.max_depth >= _COMPACT_MIN_DEPTH or compact_mode == "deep")
+               and r % TILE == 0)
 
     def bounce(carry, shared_eye: bool = False):
         if compact and carry[0] >= _COMPACT_FROM:
@@ -162,6 +181,50 @@ def _cap_chunk_for_big_scenes(chunk: int, cset: ClusterSet) -> int:
     return chunk
 
 
+def _render_device(data: SceneData, cset: ClusterSet, device) -> torch.device:
+    """The render's device (CUDA by default; raises without a GPU), which
+    must hold the scene and the clusters."""
+    dev = resolve_device(device)
+    if data.device != dev or cset.tri_dat.device != dev:
+        raise ValueError(f"scene on {data.device} and clusters on "
+                         f"{cset.tri_dat.device}, render on {dev}")
+    return dev
+
+
+def _tile_order(h: int, w: int, dev):
+    """(blocks, perm, inv) of ``apply_tile_order`` for an (h, w) ray grid:
+    8x16 blocks by reshape when they divide it, else a permutation."""
+    bh, bw = _tile_block_shape()
+    if divides(h, w, bh, bw):
+        return (bh, bw), None, None
+    p, i = block_permutation(h, w, bh, bw)
+    return None, torch.from_numpy(p).to(dev), torch.from_numpy(i).to(dev)
+
+
+def trace(data: SceneData, meta: SceneMeta, origin, dirs, cset: ClusterSet,
+          chunk: int, bfc: bool = False, relaxed: bool = False,
+          compact_mode: str = "auto"):
+    """(R, 3) radiance of rays in tile order (``origin`` (3,) shared or
+    (R, 3) per ray): one wavefront when R <= ``chunk``, else wavefronts of
+    ``chunk`` rays rounded down to whole tiles, the last padded with copies
+    of the last ray."""
+    r = dirs.shape[0]
+    if r <= chunk:
+        return render_rays(data, meta, origin, dirs, cset, bfc=bfc,
+                           relaxed=relaxed, compact_mode=compact_mode)
+    chunk = max(TILE, (chunk // TILE) * TILE)
+    pad = (-r) % chunk
+    dirs = torch.cat([dirs, dirs[-1:].expand(pad, 3)])
+    per_ray = origin.dim() == 2
+    if per_ray:
+        origin = torch.cat([origin, origin[-1:].expand(pad, 3)])
+    return torch.cat([
+        render_rays(data, meta, origin[s:s + chunk] if per_ray else origin,
+                    dirs[s:s + chunk], cset, bfc=bfc, relaxed=relaxed,
+                    compact_mode=compact_mode)
+        for s in range(0, r + pad, chunk)])[:r]
+
+
 def render_camera(data: SceneData, meta: SceneMeta, cam: Camera,
                   cset: ClusterSet, chunk: int = 1 << 22, bfc: bool = False,
                   relaxed: bool = False, device="cuda"):
@@ -171,33 +234,79 @@ def render_camera(data: SceneData, meta: SceneMeta, cam: Camera,
     at most ``chunk`` rays (capped for big scenes) is one wavefront;
     larger frames render chunk by chunk: whole tiles in tile order, the
     last chunk padded with copies of the last ray."""
-    dev = resolve_device(device)
-    if data.device != dev or cset.tri_dat.device != dev:
-        raise ValueError(f"scene on {data.device} and clusters on "
-                         f"{cset.tri_dat.device}, render on {dev}")
+    dev = _render_device(data, cset, device)
     h, w = cam.height, cam.width
-    r = h * w
     chunk = _cap_chunk_for_big_scenes(max(TILE, (chunk // TILE) * TILE), cset)
-    bh, bw = _tile_block_shape()
-    blocks = perm = inv = None
-    if divides(h, w, bh, bw):
-        blocks = (bh, bw)
-    else:
-        p, i = block_permutation(h, w, bh, bw)
-        perm = torch.from_numpy(p).to(dev)
-        inv = torch.from_numpy(i).to(dev)
+    blocks, perm, inv = _tile_order(h, w, dev)
     vec = torch.from_numpy(camera_vectors(cam)).to(dev)
     origin, dirs = eye_rays_from(vec, w, h)
     dirs = apply_tile_order(dirs, h, w, blocks, perm).contiguous()
-    if r <= chunk:
-        color = render_rays(data, meta, origin, dirs, cset, bfc=bfc,
-                            relaxed=relaxed)
-    else:
-        pad = (-r) % chunk
-        dirs = torch.cat([dirs, dirs[-1:].expand(pad, 3)])
-        color = torch.cat([
-            render_rays(data, meta, origin, dirs[s:s + chunk], cset, bfc=bfc,
-                        relaxed=relaxed)
-            for s in range(0, r + pad, chunk)])[:r]
+    color = trace(data, meta, origin, dirs, cset, chunk, bfc=bfc,
+                  relaxed=relaxed)
     color = undo_tile_order(color, h, w, blocks, inv)
     return color.reshape(h, w, 3)
+
+
+def render_band(data: SceneData, meta: SceneMeta, cset: ClusterSet, vec,
+                hs: int, ws: int, row0: int, bh: int, *, ssaa: int,
+                ssaa_mode: str, hdr: bool, chunk: int, jitter=None,
+                bfc: bool = False, relaxed: bool = False):
+    """Rows [row0, row0+bh) of the (hs, ws) SSAA-scaled frame: eye rays
+    (offset by ``jitter``, (bh, ws, 2), when given) in tile order, traced,
+    back in row order, then reduced on the device: ``hdr`` f32 radiance
+    (SSAA as a float mean), else uint8 (SSAA parity: quantize, then the
+    truncating mean; otherwise the float mean, then quantize)."""
+    origin, dirs = eye_rays_band(vec, ws, hs, row0, bh, jitter=jitter)
+    blocks, perm, inv = _tile_order(bh, ws, vec.device)
+    dirs = apply_tile_order(dirs, bh, ws, blocks, perm).contiguous()
+    color = trace(data, meta, origin, dirs, cset, chunk, bfc=bfc,
+                  relaxed=relaxed)
+    color = undo_tile_order(color, bh, ws, blocks, inv).reshape(bh, ws, 3)
+    if hdr:
+        return color if ssaa <= 1 else downsample_mean(color, ssaa)
+    if ssaa <= 1:
+        return quantize(color)
+    if ssaa_mode == "parity":
+        return downsample_parity(quantize(color), ssaa)
+    return quantize(downsample_mean(color, ssaa))
+
+
+def render_camera_streamed(data: SceneData, meta: SceneMeta, cam: Camera,
+                           cset: ClusterSet, chunk: int = 1 << 22,
+                           bfc: bool = False, ssaa: int = 1,
+                           ssaa_mode: str = "parity", hdr: bool = False,
+                           seed: int = 0, relaxed: bool = False,
+                           device="cuda", jitter=None):
+    """Render one camera to its final-resolution (H, W, 3) uint8 image (f32
+    radiance when ``hdr``) on ``device`` by streaming row bands of the
+    SSAA-scaled frame (``render_band``).  Bands are ``max(lcm, (chunk //
+    W*ssaa) // lcm * lcm)`` rows, lcm = lcm(16, ssaa), the last one
+    shorter, as in the JAX package: a band holds whole SSAA pixels, and the
+    jitter mode (ssaa > 1) draws each band's offsets keyed on (seed, its
+    first row).  ``jitter``: optional callable ``(key, shape) -> array``
+    that supplies those draws in place of ``ops.camera.jitter_offsets``
+    (key ``("band", row0)``, shape (rows, W*ssaa, 2))."""
+    dev = _render_device(data, cset, device)
+    chunk = _cap_chunk_for_big_scenes(chunk, cset)
+    hs, ws = cam.height * ssaa, cam.width * ssaa
+    lcm = 16 * ssaa // math.gcd(16, ssaa)
+    band_h = max(lcm, (chunk // ws) // lcm * lcm)
+    # The lcm alignment can make a band larger than the chunk (ws * lcm >
+    # chunk).  Such a band is traced in chunk-sized wavefronts of whole
+    # tiles, as render_camera traces a frame, so ray state stays within
+    # the (capped) chunk.  The tiles are the same; with the activity
+    # compaction on, each wavefront compacts only its own rays, which can
+    # change only which of two exactly equally near primitives wins (the
+    # exact-t tie class).
+    vec = torch.from_numpy(camera_vectors(cam)).to(dev)
+    bands = []
+    for row0 in range(0, hs, band_h):
+        bh = min(band_h, hs - row0)
+        offsets = None
+        if ssaa_mode == "jitter" and ssaa > 1:
+            offsets = draw_jitter(jitter, seed, ("band", row0), (bh, ws, 2), dev)
+        bands.append(render_band(
+            data, meta, cset, vec, hs, ws, row0, bh, ssaa=ssaa,
+            ssaa_mode=ssaa_mode, hdr=hdr, chunk=chunk, jitter=offsets,
+            bfc=bfc, relaxed=relaxed))
+    return torch.cat(bands)

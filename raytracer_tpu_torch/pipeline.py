@@ -1,59 +1,98 @@
-"""One camera -> one image (port of the whole-frame branch of
-``raytracer_tpu/pipeline.py``): render, SSAA reduction, quantization."""
+"""One camera -> one image (port of ``raytracer_tpu/pipeline.py``): the
+route of a render request (adaptive sampling, or row bands of about the
+ray chunk), then the SSAA reduction, tone curve and quantization, with
+the same semantics on both routes.  The JAX package's device mesh and
+engine choice are not ported: the port renders on one device with the
+cluster engine."""
 
 from __future__ import annotations
 
 import os
+from typing import Optional, Tuple
 
 import numpy as np
 
 from raytracer_tpu_torch.backend import resolve_device
-from raytracer_tpu_torch.models.whitted import render_camera
-from raytracer_tpu_torch.ops.image import (
-    downsample_mean, downsample_parity, quantize,
-)
+from raytracer_tpu_torch.models.whitted import render_camera_streamed
+from raytracer_tpu_torch.ops.adaptive import render_camera_adaptive
+from raytracer_tpu_torch.ops.image import TONE_MODES, quantize, tone_map
 
-SSAA_MODES = ("parity", "mean")
+SSAA_MODES = ("parity", "mean", "jitter", "adaptive")
+FORMATS = ("ppm", "png", "exr")
 
 
 def render_one_camera(data, meta, cam, accel, *, ssaa: int = 1,
                       ssaa_mode: str = "parity", bfc: bool = False,
-                      chunk: int = 1 << 22, relaxed: bool = False,
-                      device="cuda") -> np.ndarray:
-    """(H, W, 3) uint8 image of ``cam`` at its declared resolution.
+                      chunk: int = 1 << 22, tone: str = "none",
+                      hdr: bool = False, seed: int = 0,
+                      adaptive_frac: float = 0.125,
+                      adaptive_extra: Optional[int] = None,
+                      adaptive_rounds: int = 1, relaxed: bool = False,
+                      device="cuda") -> Tuple[np.ndarray, Optional[dict]]:
+    """Render ``cam`` at its declared resolution: ``(img, adaptive_stats)``.
 
-    ``ssaa_mode``: ``parity`` averages the QUANTIZED samples with
-    truncating integer division (the reference binary); ``mean`` averages
-    radiance, then quantizes.  Other modes of the JAX package (jitter,
-    adaptive) are not ported and raise ValueError.  A frame of more than
-    ``chunk`` rays (after SSAA) takes the JAX package's streamed band
-    renderer, which is not ported: NotImplementedError."""
+    ``img`` is (H, W, 3) uint8, or f32 linear radiance when ``hdr`` (the
+    EXR path; ``tone`` is then ignored).  ``adaptive_stats`` is None
+    except in adaptive mode.  ``ssaa_mode``: ``parity`` averages the
+    QUANTIZED samples with truncating integer division (the reference
+    binary); ``mean`` averages radiance, then quantizes; ``jitter`` is
+    ``mean`` over jittered samples (row bands, each band's offsets drawn
+    from ``seed``); ``adaptive`` gives every pixel max(2, ssaa^2) samples
+    and the noisiest ``adaptive_frac`` of pixel blocks ``adaptive_extra``
+    (default 3x that) more, over ``adaptive_rounds`` rounds.  Every other
+    request renders row bands of about ``chunk`` rays (after SSAA;
+    ``render_camera_streamed``), one band when the frame, its rows rounded
+    up to lcm(16, ssaa), fits.  Unknown mode strings raise ValueError."""
     if ssaa_mode not in SSAA_MODES:
-        raise ValueError(f"unknown or unported ssaa_mode {ssaa_mode!r}; "
-                         f"one of {SSAA_MODES}")
+        raise ValueError(f"unknown ssaa_mode {ssaa_mode!r}; one of {SSAA_MODES}")
+    if tone not in TONE_MODES:
+        raise ValueError(f"unknown tone {tone!r}; one of {TONE_MODES}")
     device = resolve_device(device)
-    rcam = cam.scaled(ssaa) if ssaa > 1 else cam
-    if rcam.width * rcam.height > chunk:
-        raise NotImplementedError(
-            f"{rcam.width * rcam.height} rays exceed chunk={chunk}: frames "
-            "beyond one chunk take the streamed band renderer, ROADMAP "
-            "queue 1 row 11")
-    color = render_camera(data, meta, rcam, accel, chunk=chunk, bfc=bfc,
-                          relaxed=relaxed, device=device)
-    if ssaa <= 1:
-        img = quantize(color)
-    elif ssaa_mode == "parity":
-        img = downsample_parity(quantize(color), ssaa)
+    want_float = hdr or tone != "none"
+    stats = None
+    if ssaa_mode == "adaptive":
+        # variance needs >= 2 samples: at ssaa 1 adaptive still supersamples
+        base = max(2, ssaa * ssaa)
+        color, stats = render_camera_adaptive(
+            data, meta, cam, accel, base_spp=base,
+            extra_spp=adaptive_extra if adaptive_extra is not None else 3 * base,
+            refine_frac=adaptive_frac, seed=seed, bfc=bfc,
+            rounds=adaptive_rounds, relaxed=relaxed, device=device)
+        img = (color if hdr else tone_map(color, tone) if want_float
+               else quantize(color))
     else:
-        img = quantize(downsample_mean(color, ssaa))
-    return img.cpu().numpy()
+        # row bands: ray state stays about one chunk, the SSAA reduction
+        # runs per band, and jittered samples are drawn per band
+        img = render_camera_streamed(
+            data, meta, cam, accel, chunk=chunk, bfc=bfc, ssaa=ssaa,
+            ssaa_mode=ssaa_mode, hdr=want_float, seed=seed, relaxed=relaxed,
+            device=device)
+        if want_float and not hdr:
+            img = tone_map(img, tone)
+    return img.cpu().numpy(), stats
 
 
-def write_image(out_dir: str, image_name: str, img: np.ndarray) -> str:
-    """Write ``img`` as the scene's declared PPM under ``out_dir``; returns
-    the path."""
-    from raytracer_tpu_torch.utils.ppm import write_ppm
+def write_image(out_dir: str, image_name: str, img: np.ndarray,
+                fmt: str = "ppm") -> str:
+    """Write ``img`` under ``out_dir`` in ``fmt``; returns the path.
+    ``image_name`` is the scene's declared name; png and exr swap its
+    extension."""
+    if fmt not in FORMATS:
+        raise ValueError(f"unknown format {fmt!r}; one of {FORMATS}")
+    stem = image_name.rsplit(".", 1)[0]
+    if fmt == "png":
+        from raytracer_tpu_torch.utils.png import write_png
 
-    path = os.path.join(out_dir, image_name)
-    write_ppm(path, img)
+        path = os.path.join(out_dir, f"{stem}.png")
+        write_png(path, img)
+    elif fmt == "exr":
+        from raytracer_tpu_torch.utils.exr import write_exr
+
+        path = os.path.join(out_dir, f"{stem}.exr")
+        write_exr(path, img)
+    else:
+        from raytracer_tpu_torch.utils.ppm import write_ppm
+
+        path = os.path.join(out_dir, image_name)
+        write_ppm(path, img)
     return path

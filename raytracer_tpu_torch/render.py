@@ -1,10 +1,11 @@
 """Command line: ``python -m raytracer_tpu_torch.render scene.xml [options]``.
 
 Port of ``raytracer_tpu/render.py`` on the cluster engine: loads the
-scene, builds the BVH and clusters ("plants trees"), renders every camera
-and writes one PPM per camera, printing per-phase timings and ray
-throughput.  SSAA defaults to the reference's 2x per dimension; ``--ssaa
-1`` is golden-parity mode.  Runs on the GPU unless ``--device cpu``.
+scene, builds the BVH and clusters ("plants trees") or loads them from
+``--accel-cache``, renders every camera and writes one image per camera
+(PPM, PNG or EXR), printing per-phase timings and ray throughput.  SSAA
+defaults to the reference's 2x per dimension; ``--ssaa 1`` is
+golden-parity mode.  Runs on the GPU unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -20,9 +21,32 @@ from raytracer_tpu_torch.backend import resolve_device
 from raytracer_tpu_torch.models.bvh import build_bvh
 from raytracer_tpu_torch.models.clusters import build_clusters
 from raytracer_tpu_torch.models.scene import load_scene
+from raytracer_tpu_torch.ops.image import TONE_MODES
 from raytracer_tpu_torch.pipeline import (
-    SSAA_MODES, render_one_camera, write_image,
+    FORMATS, SSAA_MODES, render_one_camera, write_image,
 )
+from raytracer_tpu_torch.utils.checkpoint import (
+    load_accel, save_accel, scene_digest,
+)
+
+
+def accel_for(path, data, meta, dev):
+    """The scene's clusters: loaded from the accel cache ``path`` when it
+    was saved for this scene (its ``scene_digest``), else built (and saved
+    to ``path`` when given).  A cache that cannot be read, is of another
+    version or was saved for other scene arrays is rebuilt and
+    overwritten, with a note."""
+    digest = scene_digest(data) if path else None
+    if path and os.path.exists(path):
+        try:
+            return load_accel(path, device=dev, digest=digest)[1]
+        except ValueError as e:
+            print(f"note: rebuilding the accel cache: {e}")
+    bvh = build_bvh(data, meta)
+    clusters = build_clusters(data, meta, bvh)
+    if path:
+        save_accel(path, bvh, clusters, digest)
+    return clusters
 
 
 def main(argv=None) -> None:
@@ -33,7 +57,23 @@ def main(argv=None) -> None:
                     help="supersampling factor per dimension (1 = off)")
     ap.add_argument("--ssaa-mode", choices=list(SSAA_MODES), default="parity",
                     help="parity: uint8 truncating box filter like the "
-                         "reference; mean: float mean before quantization")
+                         "reference; mean: float mean before quantization; "
+                         "jitter: jittered sub-pixel samples and the float "
+                         "mean; adaptive: every pixel gets ssaa^2 samples, "
+                         "the noisiest --adaptive-frac of pixel blocks "
+                         "--adaptive-extra more (ops/adaptive.py)")
+    ap.add_argument("--adaptive-frac", type=float, default=0.125,
+                    help="adaptive mode: fraction of pixel blocks refined")
+    ap.add_argument("--adaptive-extra", type=int, default=None,
+                    help="adaptive mode: extra samples for refined blocks "
+                         "(default 3x the base ssaa^2; split across "
+                         "--adaptive-rounds)")
+    ap.add_argument("--adaptive-rounds", type=int, default=1,
+                    help="adaptive mode: refinement passes, each re-scoring "
+                         "block variance from the samples so far")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the jitter and adaptive sample offsets; "
+                         "same seed, same image (on the CPU and on CUDA)")
     ap.add_argument("--relaxed-parity", action="store_true",
                     help="sqrt/div-free sphere occlusion sign tests in the "
                          "shadow kernel (grazing-sphere pairs may flip "
@@ -41,10 +81,21 @@ def main(argv=None) -> None:
     ap.add_argument("--bfc", action="store_true",
                     help="cull backfacing triangles (the TA golden semantics)")
     ap.add_argument("--chunk", type=int, default=1 << 22,
-                    help="most rays per frame; larger frames take the "
-                         "streamed band renderer, not ported yet (ROADMAP "
-                         "queue 1 row 11), and raise")
+                    help="most rays per wavefront; a larger frame (after "
+                         "SSAA) renders in row bands of about this many rays")
+    ap.add_argument("--accel-cache", metavar="PATH", default=None,
+                    help="load the BVH and clusters from PATH if they were "
+                         "saved there for this scene's geometry, else build "
+                         "them and save them there (the JAX package's npz "
+                         "layout, with a scene digest)")
     ap.add_argument("--out-dir", default=".", help="output directory")
+    ap.add_argument("--format", choices=list(FORMATS), default="ppm",
+                    help="ppm (the scene's declared name), png (8-bit RGB) "
+                         "or exr (linear float radiance before quantization, "
+                         "half floats; SSAA reduces as a float mean)")
+    ap.add_argument("--tone", choices=list(TONE_MODES), default="none",
+                    help="tone curve on linear radiance before 8-bit output "
+                         "(ppm/png; exr stays linear)")
     ap.add_argument("--repeat", type=int, default=1,
                     help="render repetitions for benchmarking")
     ap.add_argument("--json-metrics", action="store_true",
@@ -62,33 +113,39 @@ def main(argv=None) -> None:
 
     data, meta = load_scene(args.scene, device=dev)
     t0 = time.perf_counter()
-    clusters = build_clusters(data, meta, build_bvh(data, meta))
+    clusters = accel_for(args.accel_cache, data, meta, dev)
     sync()
     t1 = time.perf_counter()
     print(f"Planted trees in {t1 - t0:.3f} seconds.")
     if args.ssaa > 1:
         print(f"Super Sampling Anti aliasing is enabled. ({args.ssaa}*{args.ssaa}x)")
-    elif args.ssaa_mode == "mean":
-        print("note: --ssaa-mode mean has no effect at --ssaa 1 "
-              "(supersampling is off)")
+    elif args.ssaa_mode in ("mean", "jitter"):
+        print(f"note: --ssaa-mode {args.ssaa_mode} has no effect at "
+              "--ssaa 1 (supersampling is off)")
 
     t_render = 0.0
     for _ in range(args.repeat):
         for cam in meta.cameras:
             rcam = cam.scaled(args.ssaa) if args.ssaa > 1 else cam
+            if args.ssaa_mode == "adaptive":
+                rcam = cam  # adaptive samples at the final resolution
             print(f"Rendering {cam.image_name} "
                   f"({rcam.width}x{rcam.height}, engine=cluster)...")
             t2 = time.perf_counter()
-            img = render_one_camera(
+            img, adaptive_stats = render_one_camera(
                 data, meta, cam, clusters, ssaa=args.ssaa,
                 ssaa_mode=args.ssaa_mode, bfc=args.bfc, chunk=args.chunk,
+                tone=args.tone, hdr=args.format == "exr", seed=args.seed,
+                adaptive_frac=args.adaptive_frac,
+                adaptive_extra=args.adaptive_extra,
+                adaptive_rounds=args.adaptive_rounds,
                 relaxed=args.relaxed_parity, device=dev)
             t3 = time.perf_counter()  # the image is on the host: synced
             t_render += t3 - t2
             rays = rcam.width * rcam.height
             print(f"  {t3 - t2:.3f} s, {rays / (t3 - t2) / 1e6:.2f} Mrays/s (primary)")
             if args.json_metrics:
-                print(json.dumps({
+                line = {
                     "camera": cam.image_name,
                     "width": rcam.width, "height": rcam.height,
                     "primary_rays": rays,
@@ -98,8 +155,11 @@ def main(argv=None) -> None:
                     "device": str(dev),
                     "n_tris": meta.n_tris, "n_spheres": meta.n_spheres,
                     "max_depth": meta.max_depth, "lights": meta.n_lights,
-                }))
-            write_image(args.out_dir, cam.image_name, img)
+                }
+                if adaptive_stats is not None:
+                    line["adaptive"] = adaptive_stats
+                print(json.dumps(line))
+            write_image(args.out_dir, cam.image_name, img, args.format)
     print(f"Rendered in {t_render / args.repeat:.3f} seconds.")
     print(f"Total: {t_render / args.repeat + (t1 - t0):.3f} seconds.")
 

@@ -250,3 +250,70 @@ def test_hier_case_equals_plain_on_card(cuda):
             assert torch.equal(a, b)
     for a, b in zip(got, K.ray_mask(act, box, bundle)):
         assert torch.equal(a, b)
+
+
+def _on(obj, dev):
+    """A scene or cluster set with every tensor moved to ``dev``."""
+    return dataclasses.replace(obj, **{
+        f.name: getattr(obj, f.name).to(dev) for f in dataclasses.fields(obj)
+        if isinstance(getattr(obj, f.name), torch.Tensor)})
+
+
+def _terrain_both(cuda):
+    """(meta, camera, CPU (data, cset), CUDA (data, cset)) of one terrain."""
+    from raytracer_tpu_torch.models.bvh import build_bvh
+    from raytracer_tpu_torch.models.clusters import build_clusters
+    from raytracer_tpu_torch.utils import synth
+
+    data, meta = synth.terrain_scene(cells=40, res=64, mirror_stripes=True,
+                                     device="cpu")
+    cset = build_clusters(data, meta, build_bvh(data, meta))
+    return meta, meta.cameras[0], (data, cset), (_on(data, cuda), _on(cset, cuda))
+
+
+@pytest.mark.parametrize("ssaa,mode", [(2, "parity"), (4, "parity"), (2, "jitter")])
+def test_streamed_cuda_equals_cpu(cuda, ssaa, mode):
+    """The band renderer on the card (4 bands and more) against the CPU with
+    the same jitter: at most 4 pixels > 1 LSB (the repo's engine bar)."""
+    from raytracer_tpu_torch.models.whitted import render_camera_streamed
+    from raytracer_tpu_torch.ops.camera import recorded_jitter
+
+    meta, cam, (cd, cc), (gd, gc) = _terrain_both(cuda)
+    record, replay = recorded_jitter(3, cuda)
+    kw = dict(ssaa=ssaa, ssaa_mode=mode, chunk=cam.width * ssaa * 16)
+    got = render_camera_streamed(gd, meta, cam, gc, device=cuda, jitter=record, **kw)
+    want = render_camera_streamed(cd, meta, cam, cc, device="cpu", jitter=replay, **kw)
+    d = (got.cpu().int() - want.int()).abs().amax(-1)
+    assert got.shape == want.shape == (cam.height, cam.width, 3)
+    assert int((d > 1).sum()) <= 4
+
+
+@pytest.mark.parametrize("rounds", [1, 2])
+def test_adaptive_cuda_equals_cpu(cuda, rounds):
+    """Adaptive sampling on the card against the CPU with the same draws:
+    the same stats and at most 4 pixels > 1 LSB after quantization."""
+    from raytracer_tpu_torch.ops.adaptive import render_camera_adaptive
+    from raytracer_tpu_torch.ops.camera import recorded_jitter
+    from raytracer_tpu_torch.ops.image import quantize
+
+    meta, cam, (cd, cc), (gd, gc) = _terrain_both(cuda)
+    record, replay = recorded_jitter(5, cuda)
+    kw = dict(rounds=rounds, refine_frac=0.25)
+    got, gs = render_camera_adaptive(gd, meta, cam, gc, device=cuda, jitter=record, **kw)
+    want, ws = render_camera_adaptive(cd, meta, cam, cc, device="cpu", jitter=replay,
+                                      **kw)
+    assert gs == ws
+    d = (quantize(got).cpu().int() - quantize(want).int()).abs().amax(-1)
+    assert int((d > 1).sum()) <= 4
+
+
+@pytest.mark.parametrize("seed,key,shape", [(7, ("band", 48), (48, 512, 2)),
+                                            (2**40 + 3, ("base", 0), (64, 4, 128, 2))])
+def test_jitter_draws_on_card_equal_cpu(cuda, seed, key, shape):
+    """The jitter hash drawn on the card equals the CPU's bit for bit, so
+    one seed renders one image on either device."""
+    from raytracer_tpu_torch.ops.camera import jitter_offsets
+
+    got = jitter_offsets(seed, key, shape, cuda)
+    assert got.device.type == "cuda" and got.shape == shape
+    assert torch.equal(got.cpu(), jitter_offsets(seed, key, shape))

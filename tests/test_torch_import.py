@@ -35,6 +35,40 @@ def test_render_loads_no_jax(tmp_path):
     assert (tmp_path / "entry_scene.ppm").exists()
 
 
+def test_every_module_loads_no_jax(tmp_path):
+    """In a fresh interpreter: import every module of the port (the
+    adaptive sampler, the PNG/EXR writers, the accel cache and the diff CLI
+    among them) and run the CLI in the adaptive mode to PNG and the diff
+    CLI on its output."""
+    mods = sorted(
+        os.path.relpath(p, REPO)[:-3].replace(os.sep, ".").removesuffix(".__init__")
+        for p in _sources() if p.startswith(PKG))
+    assert {"raytracer_tpu_torch.ops.adaptive", "raytracer_tpu_torch.utils.png",
+            "raytracer_tpu_torch.utils.exr", "raytracer_tpu_torch.utils.checkpoint",
+            "raytracer_tpu_torch.compare"} <= set(mods)
+    png = os.path.join(str(tmp_path), "entry_scene.png")
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from raytracer_tpu_torch.render import main\n"
+        "from raytracer_tpu_torch.compare import main as compare\n"
+        f"main([{os.path.join(REPO, 'tests', 'data', 'entry_scene.xml')!r}, "
+        "'--ssaa-mode', 'adaptive', '--format', 'png', '--device', 'cpu', "
+        f"'--out-dir', {str(tmp_path)!r}])\n"
+        f"assert compare([{png!r}, {png!r}]) == 0\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
+        "('jax.', 'jaxlib')) or m == 'raytracer_tpu' or m.startswith('raytracer_tpu.'))\n"
+        "print('LOADED', bad)\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=str(tmp_path),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
 def _sources():
     for root, _, files in os.walk(PKG):
         for f in files:

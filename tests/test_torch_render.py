@@ -98,29 +98,58 @@ def test_sphere_field_radiance_matches_jax(scene):
     assert bad.sum() <= 0.03 * n
 
 
-def test_frame_beyond_chunk_raises():
-    """render_one_camera sends a frame above ``chunk`` rays (after SSAA) to
-    the JAX package's streamed band renderer, which is not ported: it
-    raises naming the roadmap row.  render_camera itself renders such a
-    frame in chunks (test_torch_bigscene)."""
+def _both_pipelines(monkeypatch, seed=0, **kw):
+    """render_one_camera of both packages on the entry scene's clusters:
+    (port image, JAX image, port stats, JAX stats).  The port draws the
+    JAX package's jitter (streamed bands and adaptive waves alike)."""
+    from raytracer_tpu.pipeline import render_one_camera as jrender
+    from raytracer_tpu_torch.ops import camera
+    from raytracer_tpu_torch.pipeline import render_one_camera
+    from torch_port_util import jax_adaptive_jitter, jax_band_jitter
+
+    draws = {"band": jax_band_jitter(seed), "base": jax_adaptive_jitter(seed),
+             "round": jax_adaptive_jitter(seed)}
+    monkeypatch.setattr(camera, "jitter_offsets",
+                        lambda s, key, shape, device: torch.as_tensor(
+                            np.array(draws[key[0]](key, shape)), device=device))
+    jdata, jcs, pdata, pmeta, pcs = shared_inputs("entry")
+    _, meta, _, _ = jax_accel("entry")
+    j, jstats = jrender(jdata, meta, meta.cameras[0], jcs, engine="cluster",
+                        seed=seed, **kw)
+    p, pstats = render_one_camera(pdata, pmeta, pmeta.cameras[0], pcs,
+                                  seed=seed, device="cpu", **kw)
+    return p, np.asarray(j), pstats, jstats
+
+
+@pytest.mark.parametrize("ssaa,chunk", [(1, 1024), (2, 4096)])
+def test_frame_beyond_chunk_raises(monkeypatch, ssaa, chunk):
+    """No longer raises: a frame above ``chunk`` rays (after SSAA) streams
+    row bands through render_one_camera, as the JAX package's does, and
+    the images agree at the image bar.  render_camera itself renders such
+    a frame in chunks (test_torch_bigscene)."""
+    p, j, pstats, jstats = _both_pipelines(monkeypatch, ssaa=ssaa, chunk=chunk)
+    assert p.shape == j.shape == (64, 64, 3) and p.dtype == np.uint8
+    assert pstats is None and jstats is None
+    assert _bad_pixels(p, j) <= 4
+
+
+@pytest.mark.parametrize("mode", ["jitter", "adaptive"])
+def test_unported_modes_raise(monkeypatch, mode):
+    """The modes that raised before this slice render through
+    render_one_camera at --ssaa 2 and agree with the JAX package's at the
+    image bar (its draws injected); adaptive returns the same stats.  An
+    unknown mode or tone still raises."""
     from raytracer_tpu_torch.pipeline import render_one_camera
 
+    p, j, pstats, jstats = _both_pipelines(monkeypatch, ssaa=2, ssaa_mode=mode)
+    assert p.shape == j.shape == (64, 64, 3) and p.dtype == np.uint8
+    assert pstats == jstats
+    assert _bad_pixels(p, j) <= 4
     _, _, pdata, pmeta, pcs = shared_inputs("entry")
-    cam = pmeta.cameras[0]
-    for ssaa, chunk in ((1, 1024), (2, cam.width * cam.height)):
-        with pytest.raises(NotImplementedError, match="queue 1 row 11"):
-            render_one_camera(pdata, pmeta, cam, pcs, ssaa=ssaa, chunk=chunk,
-                              device="cpu")
-
-
-def test_unported_modes_raise():
-    from raytracer_tpu_torch.pipeline import render_one_camera
-
-    _, _, pdata, pmeta, pcs = shared_inputs("entry")
-    for mode in ("jitter", "adaptive"):
-        with pytest.raises(ValueError, match=mode):
-            render_one_camera(pdata, pmeta, pmeta.cameras[0], pcs, ssaa=2,
-                              ssaa_mode=mode, device="cpu")
+    for kw in (dict(ssaa_mode="stratified"), dict(tone="filmic")):
+        with pytest.raises(ValueError, match="unknown"):
+            render_one_camera(pdata, pmeta, pmeta.cameras[0], pcs, device="cpu",
+                              **kw)
 
 
 def test_pipeline_small_frame_matches_render_camera():
@@ -132,7 +161,8 @@ def test_pipeline_small_frame_matches_render_camera():
 
     _, _, pdata, pmeta, pcs = shared_inputs("terrain16")
     cam = dataclasses.replace(pmeta.cameras[0], width=24, height=16)
-    img = render_one_camera(pdata, pmeta, cam, pcs, ssaa=2, device="cpu")
+    img, stats = render_one_camera(pdata, pmeta, cam, pcs, ssaa=2, device="cpu")
+    assert stats is None
     col = render_camera(pdata, pmeta, cam.scaled(2), pcs, device="cpu")
     np.testing.assert_array_equal(img, downsample_parity(quantize(col), 2).numpy())
     assert img.shape == (16, 24, 3)

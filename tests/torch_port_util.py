@@ -213,3 +213,50 @@ def prim_slots(cs, prim):
     inv[tri_slot[:cs.n_tri]] = np.arange(cs.n_tri)
     prim = np.asarray(prim)
     return np.where(prim >= 0, inv[np.maximum(prim, 0)], -1)
+
+
+def bad_pixels(a, b) -> int:
+    """Pixels of two uint8 images whose channels differ by more than 1 LSB
+    (the image bar: at most 4 on the test scenes)."""
+    d = np.abs(np.asarray(a).astype(int) - np.asarray(b).astype(int)).max(-1)
+    return int((d > 1).sum())
+
+
+def radiance_outside(a, b, rtol=1e-4, atol=1e-3) -> int:
+    """Pixels of two radiance images outside rtol / atol (the radiance bar:
+    at most 4 on the test scenes)."""
+    close = np.isclose(np.asarray(a), np.asarray(b), rtol=rtol, atol=atol)
+    return int((~close.all(-1)).sum())
+
+
+def jax_band_jitter(seed: int):
+    """The JAX package's jitter draws of a streamed frame, as the port's
+    ``jitter(key, shape)``: band ``("band", row0)`` draws
+    ``uniform(fold_in(PRNGKey(seed), row0), shape, -0.5, 0.5)``."""
+    import jax
+    import jax.numpy as jnp
+
+    def draw(key, shape):
+        stream, row0 = key
+        assert stream == "band", key
+        k = jax.random.fold_in(jax.random.PRNGKey(seed), row0)
+        return np.asarray(jax.random.uniform(k, shape, jnp.float32,
+                                             minval=-0.5, maxval=0.5))
+    return draw
+
+
+def jax_adaptive_jitter(seed: int):
+    """The JAX package's adaptive-sampling draws as the port's ``jitter(key,
+    shape)``: (kb, kr) = split(PRNGKey(seed)); the base wave draws from kb,
+    round r from kr (r = 0) or fold_in(kr, r)."""
+    import jax
+    import jax.numpy as jnp
+
+    kb, kr = jax.random.split(jax.random.PRNGKey(seed))
+
+    def draw(key, shape):
+        stream, i = key
+        k = kb if stream == "base" else (kr if i == 0 else jax.random.fold_in(kr, i))
+        return np.asarray(jax.random.uniform(k, shape, jnp.float32,
+                                             minval=-0.5, maxval=0.5))
+    return draw
