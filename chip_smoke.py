@@ -21,7 +21,13 @@ then:
    launch counts (the single light takes the 1-light shadow call) and its
    image against the CPU's through the diff CLI
    (``raytracer_tpu_torch.compare``); --accel-cache twice (the second run
-   must load the cache);
+   must load the cache); each --engine (brute, bvh, cluster, auto) on CUDA
+   and on the CPU (0 differing channels; brute and bvh launch no kernel,
+   and meet the image bar against cluster); the train CLI on CUDA from a
+   PNG target (--steps 3 with --checkpoint and --out, then a resume for 2
+   steps: the losses fall, and the steps launch the flat mask, the
+   per-ray-origin closest hit and the 1-light shadow, no shared-origin
+   closest hit);
 3. full width: ``terrain_scene(cells=126, res=1024, mirror_stripes=True)``
    (31,752 triangles, 2 lights, mirrors) rendered at --ssaa 2 (4,194,304
    rays, one band) through ``render_one_camera``: build time, warm
@@ -85,6 +91,21 @@ then:
    131,072-ray cap: both masks, the closest shapes and any-hit launched,
    no shadow kernel) with its kernel inputs captured and checked, once
    more for its peak memory, and at 64x64 against the CPU;
+7. training at full width: ``make_train_step`` (cluster engine, fields
+   mat_diffuse and light_int, Adam at lr 3e-2) on the full-width terrain
+   over its 1024x1024 camera's 1,048,576 eye rays (raster order) each
+   step, the target the forward radiance of the true scene, the start
+   with mat_diffuse x 0.5 and light_int x 0.7: 5 steps, the loss falling
+   and every gradient finite; the first step's launch counts (the flat
+   mask, the per-ray-origin closest hit and the n-light shadow, no
+   shared-origin closest hit) and kernel calls, each held against its
+   plain version; s/step (median of steps 2-5), rays/s, peak device
+   memory, one profiled step (device busy, idle share); one step with
+   vertices trained too, its gradients finite;
+7b. one training step on CUDA against the CPU, for brute, bvh and
+   cluster, on the full-width terrain through a 64x64 camera and on the
+   entry scene: the loss to rtol 1e-5, each field's gradient within 1e-3
+   of its max |g|;
 
 and prints the kernels' JSON line, then ``{"ok": true, "device": ...}``
 as its last line.  Any failure exits non-zero without that line.  Images
@@ -1070,17 +1091,28 @@ def build(scene_fn, device, **kw):
     return data, meta, cset
 
 
+def moved(xs, dev):
+    """The tensors, scenes and accelerators of ``xs`` on ``dev`` (other
+    items as they are)."""
+    import torch
+
+    out = []
+    for x in xs:
+        if isinstance(x, torch.Tensor):
+            x = x.to(dev)
+        elif dataclasses.is_dataclass(x) and not isinstance(x, type):
+            x = dataclasses.replace(x, **{
+                f.name: getattr(x, f.name).to(dev)
+                for f in dataclasses.fields(x)
+                if isinstance(getattr(x, f.name), torch.Tensor)})
+        out.append(x)
+    return tuple(out)
+
+
 def to_cpu(data, meta, cset):
     """(data, meta, cset) with every tensor moved to the CPU: the same
     arrays, not a second build."""
-    import torch
-
-    def moved(obj):
-        return dataclasses.replace(obj, **{
-            f.name: getattr(obj, f.name).cpu() for f in dataclasses.fields(obj)
-            if isinstance(getattr(obj, f.name), torch.Tensor)})
-
-    return moved(data), meta, moved(cset)
+    return moved((data, meta, cset), "cpu")
 
 
 def drive_path(label, data, meta, cset, results, key, must, must_not=()):
@@ -1249,6 +1281,291 @@ def entry_cli_outputs(xml, results):
     log(f"  entry --accel-cache: the second run loaded {os.path.getsize(cache)} "
         "bytes and built nothing; the same image")
     results["entry_cli"] = out_rows
+
+
+CLI_ENGINES = ("brute", "bvh", "cluster", "auto")
+
+
+def entry_engines(xml, results):
+    """The entry scene through the CLI at --ssaa 2 with each --engine, on
+    CUDA and on the CPU: each engine's CUDA image equals its CPU image (0
+    differing channels through the diff CLI), brute and bvh launch no
+    kernel and cluster and auto the entry path's, and brute's and bvh's
+    images meet the image bar against cluster's (the exact-t tie class)."""
+    from raytracer_tpu_torch import render as cli
+    from raytracer_tpu_torch.compare import _read as read_image
+    from raytracer_tpu_torch.compare import main as compare_main
+    from raytracer_tpu_torch.ops import kernels as K
+
+    imgs, rows = {}, {}
+    for engine in CLI_ENGINES:
+        paths = {}
+        for d in ("cuda", "cpu"):
+            out = os.path.join(OUT, f"entry_engine_{engine}_{d}")
+            K.reset_launches()
+            _, text = quiet(cli.main, [xml, "--ssaa", "2", "--engine", engine,
+                                       "--device", d, "--out-dir", out])
+            if d == "cuda":
+                launches = dict(K.launches)
+            paths[d] = os.path.join(out, "entry_scene.ppm")
+        named = "cluster" if engine == "auto" else engine
+        check(f"engine={named}" in text, f"--engine {engine}: {text}")
+        if named == "cluster":
+            for k in ENTRY_MUST:
+                check(launches[k] > 0, f"--engine {engine}: {k} was not launched")
+        else:
+            check(sum(launches.values()) == 0,
+                  f"--engine {engine} launched kernels: {launches}")
+        rc, diff = quiet(compare_main, [paths["cuda"], paths["cpu"]])
+        stats = json.loads(diff)
+        log(f"  entry --engine {engine}: launches {launches}; diff CLI cuda vs "
+            f"cpu: rc {rc} {diff}")
+        check(rc == 0 and stats["differing"] == 0,
+              f"--engine {engine}: the CUDA and CPU images differ")
+        imgs[engine] = read_image(paths["cuda"])
+        rows[engine] = {"launches": launches, "compare": stats}
+    for engine in ("brute", "bvh"):
+        compare_images(imgs[engine], imgs["cluster"],
+                       f"entry --engine {engine} vs cluster on CUDA")
+    results["entry_engines"] = rows
+
+
+TRAIN_MUST = ("ray_mask", "closest", "shadow")
+
+
+def _losses(text):
+    import re
+
+    return [float(x) for x in re.findall(r"loss (\S+)  \(", text)]
+
+
+def entry_train_cli(xml, results):
+    """The train CLI on CUDA: the entry scene with its first material's
+    diffuse albedo off, a PNG target rendered by the CLI from the true
+    scene, --steps 3 with --checkpoint and --out, then a resume for
+    --steps 2.  The training steps launch the flat mask, the per-ray-origin
+    closest hit and the 1-light shadow kernel, and no shared-origin
+    closest hit (the --out render, counted apart, does)."""
+    from raytracer_tpu_torch import render as cli
+    from raytracer_tpu_torch import train as train_cli
+    from raytracer_tpu_torch.models import whitted
+    from raytracer_tpu_torch.ops import kernels as K
+    from raytracer_tpu_torch.utils.ppm import read_ppm
+
+    out = os.path.join(OUT, "entry_train")
+    quiet(cli.main, [xml, "--ssaa", "1", "--format", "png", "--device", "cuda",
+                     "--out-dir", out])
+    target = os.path.join(out, "entry_scene.png")
+    with open(xml) as f:
+        text = f.read()
+    bad = text.replace("<DiffuseReflectance>0.8 0.4 0.2</DiffuseReflectance>",
+                       "<DiffuseReflectance>0.4 0.4 0.4</DiffuseReflectance>")
+    check(bad != text, "the entry scene's first diffuse albedo was not found")
+    scene = os.path.join(out, "perturbed.xml")
+    with open(scene, "w") as f:
+        f.write(bad)
+    ck, rec = os.path.join(out, "ck.npz"), os.path.join(out, "rec.ppm")
+    if os.path.exists(ck):
+        os.remove(ck)
+    at_out = {}
+
+    def counted(f):
+        def render(*a, **kw):
+            at_out.update(K.launches)
+            return f(*a, **kw)
+        return render
+
+    args = [scene, "--target", target, "--checkpoint", ck, "--log-every", "1",
+            "--device", "cuda"]
+    K.reset_launches()
+    with patched(whitted, "render_camera", counted):
+        _, first = quiet(train_cli.main, args + ["--steps", "3", "--out", rec])
+    total = dict(K.launches)
+    steps = dict(at_out)
+    render = {k: total[k] - steps[k] for k in total}
+    _, second = quiet(train_cli.main, args + ["--steps", "2"])
+    l1, l2 = _losses(first), _losses(second)
+    log(f"  train CLI --steps 3: losses {l1}; launches of the 3 steps {steps}, "
+        f"of the --out render {render}")
+    log(f"  train CLI resumed, --steps 2: losses {l2}")
+    for k in TRAIN_MUST:
+        check(steps[k] > 0, f"train CLI: {k} was not launched in the steps")
+    check(steps["closest_shared"] == 0, "train CLI: closest_shared launched")
+    check("Resumed train state" in second, "train CLI: no resume")
+    check(len(l1) == 3 and len(l2) == 2 and all(map(math.isfinite, l1 + l2))
+          and l2[-1] < l1[0], f"train CLI: losses {l1} then {l2}")
+    check(read_ppm(rec).shape == (64, 64, 3), "train CLI: --out image")
+    results["entry_train_cli"] = {"losses": l1, "resumed_losses": l2,
+                                  "step_launches": steps,
+                                  "out_render_launches": render}
+
+
+def train_full_width(dev, results, checked):
+    """Phase 7: make_train_step on the full-width terrain (cluster engine,
+    fields mat_diffuse and light_int, lr 3e-2) over its 1024x1024 camera's
+    1,048,576 eye rays in raster order every step, the target the port's
+    forward radiance of the true scene, the start mat_diffuse x 0.5 and
+    light_int x 0.7: 5 steps (the first with the launch counts reset just
+    before and read just after and its kernel calls captured and held
+    against the plain versions), the loss falling and every gradient
+    finite; s/step (median of steps 2-5, synchronized), rays/s, peak device
+    memory of steps 2-5, one profiled step (device busy, idle share); one
+    step with vertices too, its gradients finite.  Returns the launches of
+    one step."""
+    import torch
+
+    from raytracer_tpu_torch.models.whitted import render_rays
+    from raytracer_tpu_torch.ops import kernels as K
+    from raytracer_tpu_torch.ops.camera import camera_vectors, eye_rays_from
+    from raytracer_tpu_torch.parallel.train import init_state, make_train_step
+    from raytracer_tpu_torch.utils.synth import terrain_scene
+
+    data, meta, cset = build(terrain_scene, dev, cells=126, res=1024,
+                             mirror_stripes=True)
+    cam = meta.cameras[0]
+    rays = cam.width * cam.height
+    check(rays == 1_048_576 and meta.n_tris == 31_752 and meta.n_lights == 2,
+          f"full-width terrain: {rays} rays, {meta.n_tris} triangles")
+    vec = torch.from_numpy(camera_vectors(cam)).to(dev)
+    origin, dirs = eye_rays_from(vec, cam.width, cam.height)
+    with torch.no_grad():
+        target = render_rays(data, meta, origin, dirs, cset, engine="cluster")
+    bad = dataclasses.replace(data, mat_diffuse=data.mat_diffuse * 0.5,
+                              light_int=data.light_int * 0.7)
+    step = make_train_step(meta, lr=3e-2, engine="cluster", device=dev)
+    state = init_state(bad, fields=("mat_diffuse", "light_int"))
+
+    def one():
+        nonlocal state
+        state, loss = step(state, bad, origin, dirs, target, accel=cset)
+        return loss
+
+    losses, times = [], []
+    for i in range(5):
+        torch.cuda.synchronize()
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if i == 0:
+            K.reset_launches()
+            with Capture(K) as cap:
+                loss = one()
+            torch.cuda.synchronize()
+            launches = dict(K.launches)
+        else:
+            loss = one()
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        for f, p in state.params.items():
+            check(bool(torch.isfinite(p.grad).all()), f"step {i + 1}: {f} grad")
+    peak = torch.cuda.max_memory_allocated()
+    s_step = statistics.median(times[1:])
+    log(f"  launches in one step: {launches}")
+    for name in TRAIN_MUST:
+        check(launches[name] > 0, f"training step: {name} was not launched")
+    check(launches["closest_shared"] == 0, "training step: closest_shared launched")
+    # every bounce's shadow wave is one launch over all the lights (the
+    # TPU's _shadow_kernel_ml), not one 1-light launch per light
+    nl_call = named("shadow", cap.calls["shadow"])["planes"].shape[0]
+    check(launches["shadow"] == meta.max_depth + 1 and nl_call == meta.n_lights,
+          f"training step: {launches['shadow']} shadow launches over "
+          f"{nl_call} lights, want {meta.max_depth + 1} over {meta.n_lights}")
+    log(f"  losses {losses}; s/step {[round(t, 4) for t in times]} (first: "
+        f"launch counts and capture); median of steps 2-5 {s_step:.4f} s, "
+        f"{rays / s_step / 1e6:.3f} Mrays/s; peak {peak} bytes "
+        f"({peak / 2**30:.3f} GiB)")
+    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+          f"training losses {losses}")
+    log(f"  training step calls captured: {sorted(cap.calls)}")
+    checked("full-width training step", cap.calls)
+    del cap
+    profile_frame(one, results, "train_profile")
+    prof = results.get("train_profile")
+    busy = prof["device_busy_ms"] if prof else None
+    idle = 1 - busy / (s_step * 1e3) if prof else None
+    log(f"  profiled step: device busy {busy} ms of the unprofiled median "
+        f"{s_step * 1e3:.3f} ms: idle share {idle}")
+    vstate = init_state(bad, fields=("mat_diffuse", "light_int", "vertices"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vstate, vloss = step(vstate, bad, origin, dirs, target, accel=cset)
+    torch.cuda.synchronize()
+    v_s = time.perf_counter() - t0
+    for f, p in vstate.params.items():
+        check(bool(torch.isfinite(p.grad).all()), f"step with vertices: {f} grad")
+    log(f"  one step with vertices: loss {float(vloss):.6f}, {v_s:.4f} s, "
+        f"every gradient finite (max |d vertices| "
+        f"{float(vstate.params['vertices'].grad.abs().max()):.6g})")
+    results["train"] = {"rays": rays, "losses": losses, "runs_s": times,
+                        "s_per_step": s_step, "rays_per_s": rays / s_step,
+                        "peak_bytes": peak, "device_busy_ms": busy,
+                        "idle_share": idle, "launches": launches,
+                        "vertices_step_s": v_s}
+    return launches
+
+
+def train_cuda_vs_cpu(dev, results):
+    """Phase 7b: one training step (fields mat_diffuse, light_int,
+    light_pos, vertices) on CUDA and on the CPU from the same perturbed
+    scene and target, for brute, bvh and cluster, on the full-width
+    terrain through a 64x64 camera and on the entry scene: the loss to
+    rtol 1e-5, each field's gradient within 1e-3 of its max |g|."""
+    import torch
+
+    from raytracer_tpu_torch.models.bvh import build_bvh, device_bvh
+    from raytracer_tpu_torch.models.clusters import build_clusters
+    from raytracer_tpu_torch.models.scene import load_scene
+    from raytracer_tpu_torch.models.whitted import render_rays
+    from raytracer_tpu_torch.ops.camera import camera_vectors, eye_rays_from
+    from raytracer_tpu_torch.parallel.train import init_state, make_train_step
+    from raytracer_tpu_torch.utils.synth import terrain_scene
+
+    fields = ("mat_diffuse", "light_int", "light_pos", "vertices")
+    scenes = {
+        "terrain 64x64": terrain_scene(cells=126, res=64, mirror_stripes=True,
+                                       device="cpu"),
+        "entry": load_scene(os.path.join(REPO, "tests", "data",
+                                         "entry_scene.xml"), device="cpu"),
+    }
+    rows = {}
+    for label, (data, meta) in scenes.items():
+        cam = meta.cameras[0]
+        origin, dirs = eye_rays_from(torch.from_numpy(camera_vectors(cam)),
+                                     cam.width, cam.height)
+        cset = build_clusters(data, meta, build_bvh(data, meta))
+        with torch.no_grad():
+            target = render_rays(*moved((data, meta, origin, dirs, cset), dev),
+                                 engine="cluster").cpu()
+        bad = dataclasses.replace(data, mat_diffuse=data.mat_diffuse * 0.5,
+                                  light_int=data.light_int * 0.7)
+        for engine in ("brute", "bvh", "cluster"):
+            accel = {"brute": None, "cluster": cset,
+                     "bvh": device_bvh(build_bvh(data, meta, ordered=True),
+                                       "cpu")}[engine]
+            got = {}
+            for d in (dev, torch.device("cpu")):
+                b, o, di, t, acc = moved((bad, origin, dirs, target, accel), d)
+                state = init_state(b, fields=fields)
+                t0 = time.perf_counter()
+                state, loss = make_train_step(meta, engine=engine, device=d)(
+                    state, b, o, di, t, accel=acc)
+                got[d.type] = (float(loss), {f: p.grad.cpu() for f, p in
+                                             state.params.items()},
+                               time.perf_counter() - t0)
+            (gl, gg, gs), (cl, cg, cs) = got["cuda"], got["cpu"]
+            errs = {f: float((gg[f] - cg[f]).abs().max())
+                    / max(float(cg[f].abs().max()), 1e-30) for f in fields}
+            log(f"  {label} {engine}: loss cuda {gl:.8g} cpu {cl:.8g}; grad "
+                f"error / max |g| {errs}; step {gs:.3f} s cuda, {cs:.3f} s cpu")
+            check(abs(gl - cl) <= 1e-5 * abs(cl) and math.isfinite(gl),
+                  f"{label} {engine}: losses {gl} and {cl}")
+            for f in fields:
+                check(bool(torch.isfinite(gg[f]).all()) and errs[f] <= 1e-3,
+                      f"{label} {engine}: {f} gradient apart by {errs[f]}")
+            rows[f"{label} {engine}"] = {"loss_cuda": gl, "loss_cpu": cl,
+                                         "grad_err": errs}
+    results["train_cuda_vs_cpu"] = rows
 
 
 def small_vs_cpu(label, data, meta, cset, mode, ssaa, chunk=1 << 22):
@@ -1583,6 +1900,8 @@ def run():
         rad[d] = render_camera(data, meta, meta.cameras[0].scaled(2), cs, device=d)
     compare_radiance(rad["cuda"], rad["cpu"], "entry ssaa 2 radiance cuda vs cpu")
     entry_cli_outputs(xml, results)
+    entry_engines(xml, results)
+    entry_train_cli(xml, results)
 
     # -- phase 3: full width
     log("== phase 3: full-width terrain (cells=126, res=1024, mirrors) at --ssaa 2")
@@ -1801,6 +2120,12 @@ def run():
         "terrain; the big terrain streamed in jitter mode")
     path_launches = render_modes(dev, results, dict(cells=126, res=1024),
                                  dict(cells=512, res=1024), 512, checked)
+    # -- phase 7: training at full width
+    log("== phase 7: make_train_step on the full-width terrain, 1,048,576 rays "
+        "a step")
+    path_launches["train_step"] = train_full_width(dev, results, checked)
+    log("== phase 7b: one training step on CUDA against the CPU")
+    train_cuda_vs_cpu(dev, results)
     for row in rows:
         row["path_launches"] = {k: v[row["name"]] for k, v in path_launches.items()}
         row["max_abs_err"] = max_err[row["name"]]

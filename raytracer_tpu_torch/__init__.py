@@ -5,16 +5,21 @@ The port keeps the JAX package's module layout and names so that each
 counterpart is easy to find; it never imports JAX or ``raytracer_tpu``.
 
 - ``models``: scene, BVH and cluster builds (host numpy -> device
-  tensors), the Whitted wavefront integrator.
-- ``ops``: eye rays, tile order, the cluster engine's glue
+  tensors), the Whitted wavefront integrator (forward and
+  differentiable).
+- ``ops``: eye rays, tile order, the brute and BVH engines
+  (``traverse``, ``intersect``), the cluster engine's glue
   (``cluster_trace``) and its CUDA kernels with their plain PyTorch
-  versions (``kernels``), shading, quantization and SSAA.
+  versions (``kernels``), shading and hit refinement, quantization and
+  SSAA.
+- ``parallel``: the training step (inverse rendering, one device).
 - ``utils``: XML ingest, PPM I/O, the native host library, synthetic
   scenes.
 - ``backend``: device resolution and the kernel build.
 
-Entry points (``render.main``, ``pipeline.render_one_camera``,
-``models.whitted.render_camera``) run on CUDA by default and raise
+Entry points (``render.main``, ``train.main``,
+``pipeline.render_one_camera``, ``models.whitted.render_camera``,
+``parallel.train.make_train_step``) run on CUDA by default and raise
 without a GPU; ``device="cpu"`` selects the plain versions.
 """
 

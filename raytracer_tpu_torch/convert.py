@@ -6,6 +6,12 @@ name -> numpy array (for the clusters also the ints ``n_tri`` and
 ``device``.  The host builds use them, and so do the tests, which hand
 the JAX package's structures across field by field (``np.asarray`` on
 each) so that both packages trace the very same accelerator.
+
+``train_state_from_numpy`` and ``train_state_to_numpy`` carry a training
+state across: the JAX package's ``TrainState(params, optax.adam state)``
+as numpy arrays (params, adam's ``count``, ``mu``, ``nu``) to and from
+the port's ``parallel.train.TrainState`` (``count`` is Adam's ``step``,
+``mu`` its ``exp_avg``, ``nu`` its ``exp_avg_sq``).
 """
 
 from __future__ import annotations
@@ -38,3 +44,41 @@ def clusters_from_numpy(fields: Mapping, device="cuda") -> ClusterSet:
     the real primitive counts ``n_tri`` and ``n_sph``."""
     return ClusterSet(**_tensors(ClusterSet, fields, resolve_device(device)),
                       n_tri=int(fields["n_tri"]), n_sph=int(fields["n_sph"]))
+
+
+def train_state_from_numpy(params: Mapping, count, mu: Mapping, nu: Mapping,
+                           device="cuda"):
+    """The port's TrainState on ``device`` from numpy arrays: ``params``,
+    ``mu`` and ``nu`` keyed by field name, ``count`` the optax step count
+    (shape ``()``)."""
+    from raytracer_tpu_torch.parallel.train import TrainState
+
+    dev = resolve_device(device)
+
+    def tensor(x):
+        return torch.from_numpy(np.array(x, np.float32)).to(dev)
+
+    leaves = {f: tensor(v).requires_grad_(True) for f, v in params.items()}
+    opt = torch.optim.Adam(list(leaves.values()))
+    for f, p in leaves.items():
+        opt.state[p] = {"step": torch.tensor(float(np.asarray(count)),
+                                             dtype=torch.float32),
+                        "exp_avg": tensor(mu[f]), "exp_avg_sq": tensor(nu[f])}
+    return TrainState(leaves, opt)
+
+
+def train_state_to_numpy(state):
+    """(params, count, mu, nu) of a port TrainState as numpy arrays, the
+    JAX package's adam state (zeros and count 0 before the first step)."""
+    params, mu, nu = {}, {}, {}
+    count = np.int32(0)
+    for f, p in state.params.items():
+        params[f] = p.detach().cpu().numpy()
+        st = state.opt.state.get(p, {})
+        if st:
+            count = np.int32(int(st["step"]))
+        mu[f] = (st["exp_avg"].cpu().numpy() if st
+                 else np.zeros_like(params[f]))
+        nu[f] = (st["exp_avg_sq"].cpu().numpy() if st
+                 else np.zeros_like(params[f]))
+    return params, count, mu, nu

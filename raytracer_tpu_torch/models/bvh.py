@@ -1,7 +1,6 @@
 """BVH: host-side build -> flat, skip-threaded struct-of-arrays.
 
-Port of ``raytracer_tpu/models/bvh.py`` without the octant threads (the
-BVH engine that reads them is not ported yet).  The reference's recipe:
+Port of ``raytracer_tpu/models/bvh.py``.  The reference's recipe:
 top-down, split on the WIDEST axis at the spatial MIDPOINT with up to 19
 bisection retries toward the non-empty side; a node becomes a leaf at
 <= 1 primitive, depth 19 or a failed split.  Nodes are in PREORDER and
@@ -9,15 +8,20 @@ carry a SKIP index (the next preorder node outside the subtree).  Leaves
 reference a contiguous range of the reordered ``prim_idx`` (triangles
 before spheres within a leaf).
 
-The arrays stay numpy: the only consumer here is the host-side cluster
-build, which needs ``prim_idx`` (the preorder primitive sequence).
+``BVH`` holds host numpy arrays: the cluster build reads ``prim_idx``
+(the preorder primitive sequence) on the host.  The BVH engine walks a
+``DeviceBVH``, the one node thread per octant (``with_octant_threads``,
+built only for that engine) or the plain preorder, as tensors on the
+render's device (``device_bvh``, the one place that converts).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
+import torch
 
 from raytracer_tpu_torch.models.scene import SceneData, SceneMeta
 
@@ -28,7 +32,14 @@ SPLIT_RETRIES = 19
 @dataclasses.dataclass(frozen=True)
 class BVH:
     """Flat skip-threaded BVH (host numpy arrays).  Primitive ids encode
-    triangles as [0, T_pad) and spheres as T_pad + s."""
+    triangles as [0, T_pad) and spheres as T_pad + s.
+
+    The optional ``oct_*`` arrays are eight re-threaded copies of the node
+    arrays, one per ray direction octant o = 4*(dx<0) + 2*(dy<0) + (dz<0),
+    concatenated as blocks of N: block o's preorder visits the NEAR child
+    of every inner node first for rays of that octant (left first iff
+    dir[axis] >= 0), the reference's ordered descent without a stack.
+    Block 0 is the plain preorder; skip values are global (offset o*N)."""
 
     box_min: np.ndarray      # (N, 3) f32
     box_max: np.ndarray      # (N, 3) f32
@@ -37,6 +48,115 @@ class BVH:
     leaf_count: np.ndarray   # (N,)  i32, 0 for inner nodes
     axis: np.ndarray         # (N,)  i32, split axis (inner nodes)
     prim_idx: np.ndarray     # (P,)  i32, reordered primitive ids
+    oct_box_min: Optional[np.ndarray] = None      # (8N, 3) f32
+    oct_box_max: Optional[np.ndarray] = None      # (8N, 3) f32
+    oct_skip: Optional[np.ndarray] = None         # (8N,)  i32, global indices
+    oct_leaf_start: Optional[np.ndarray] = None   # (8N,)  i32
+    oct_leaf_count: Optional[np.ndarray] = None   # (8N,)  i32
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceBVH:
+    """The node thread the BVH engine walks, as tensors on one device
+    (``device_bvh``): the eight octant threads of a BVH that has them
+    (``blocks`` 8, block o for rays of octant o), else its plain preorder
+    (``blocks`` 1).  Boxes f32, indices int64, skip values global."""
+
+    box_min: torch.Tensor     # (blocks*N, 3)
+    box_max: torch.Tensor     # (blocks*N, 3)
+    skip: torch.Tensor        # (blocks*N,)
+    leaf_start: torch.Tensor  # (blocks*N,)
+    leaf_count: torch.Tensor  # (blocks*N,)
+    prim_idx: torch.Tensor    # (P,)
+    n_nodes: int              # N
+    blocks: int               # 8 or 1
+
+
+OCT_FIELDS = ("oct_box_min", "oct_box_max", "oct_skip", "oct_leaf_start",
+              "oct_leaf_count")
+
+# above this many nodes the octant threads (8x the node memory) are not
+# built and the walk takes the plain preorder
+_ORDERED_MAX_NODES = 200_000
+
+
+def _octant_threads(bvh: BVH) -> BVH:
+    """``bvh`` with the eight ordered-descent node threads (a vectorized
+    host pass, O(8N))."""
+    skip0 = bvh.skip.astype(np.int64)
+    leaf_count = bvh.leaf_count.astype(np.int64)
+    axis = bvh.axis.astype(np.int64)
+    box_min = bvh.box_min.astype(np.float32)
+    box_max = bvh.box_max.astype(np.float32)
+    leaf_start = bvh.leaf_start.astype(np.int64)
+    n = skip0.shape[0]
+    size = skip0 - np.arange(n)          # subtree size per node
+    inner = leaf_count == 0
+    idx = np.arange(n)
+    left = np.minimum(idx + 1, n - 1)
+    right = np.where(inner, skip0[left], 0)
+
+    obm, obx, osk, ols, olc = [], [], [], [], []
+    for o in range(8):
+        neg = np.array([(o >> 2) & 1, (o >> 1) & 1, o & 1], bool)
+        swap = inner & neg[axis]
+        first = np.where(swap, right, idx + 1)
+        second = np.where(swap, idx + 1, right)
+        newpos = np.zeros(n, np.int64)
+        frontier = np.array([0], np.int64)
+        while frontier.size:
+            f = frontier[inner[frontier]]
+            if f.size == 0:
+                break
+            fc, sc = first[f], second[f]
+            newpos[fc] = newpos[f] + 1
+            newpos[sc] = newpos[f] + 1 + size[fc]
+            frontier = np.concatenate([fc, sc])
+        inv = np.empty(n, np.int64)
+        inv[newpos] = idx                 # old node at each new slot
+        base = o * n
+        obm.append(box_min[inv])
+        obx.append(box_max[inv])
+        osk.append((np.arange(n) + size[inv] + base).astype(np.int32))
+        ols.append(leaf_start[inv].astype(np.int32))
+        olc.append(leaf_count[inv].astype(np.int32))
+    return dataclasses.replace(
+        bvh,
+        oct_box_min=np.concatenate(obm),
+        oct_box_max=np.concatenate(obx),
+        oct_skip=np.concatenate(osk),
+        oct_leaf_start=np.concatenate(ols),
+        oct_leaf_count=np.concatenate(olc),
+    )
+
+
+def with_octant_threads(bvh: BVH) -> BVH:
+    """``bvh`` with the octant threads, when it has none and at most
+    _ORDERED_MAX_NODES nodes (the BVH engine's build step)."""
+    if bvh.oct_skip is not None or bvh.skip.shape[0] > _ORDERED_MAX_NODES:
+        return bvh
+    return _octant_threads(bvh)
+
+
+def device_bvh(bvh: BVH, device) -> DeviceBVH:
+    """The thread the BVH engine walks on ``device``: the octant threads
+    when ``bvh`` has them, else the plain preorder."""
+    pre = "" if bvh.oct_skip is None else "oct_"
+
+    def box(name):
+        return torch.from_numpy(
+            getattr(bvh, pre + name).astype(np.float32)).to(device)
+
+    def idx(x):
+        return torch.from_numpy(x.astype(np.int64)).to(device)
+
+    return DeviceBVH(
+        box_min=box("box_min"), box_max=box("box_max"),
+        skip=idx(getattr(bvh, pre + "skip")),
+        leaf_start=idx(getattr(bvh, pre + "leaf_start")),
+        leaf_count=idx(getattr(bvh, pre + "leaf_count")),
+        prim_idx=idx(bvh.prim_idx), n_nodes=bvh.skip.shape[0],
+        blocks=1 if bvh.oct_skip is None else 8)
 
 
 def _build_native(prim_min, prim_max, centers, prim_ids):
@@ -87,8 +207,14 @@ def _build_native(prim_min, prim_max, centers, prim_ids):
     )
 
 
-def build_bvh(data: SceneData, meta: SceneMeta) -> BVH:
-    """Build on the host from the scene's tensors (read back to numpy)."""
+def build_bvh(data: SceneData, meta: SceneMeta, ordered: bool = False) -> BVH:
+    """Build on the host from the scene's tensors (read back to numpy);
+    ``ordered`` attaches the octant threads (``with_octant_threads``)."""
+    bvh = _build(data, meta)
+    return with_octant_threads(bvh) if ordered else bvh
+
+
+def _build(data: SceneData, meta: SceneMeta) -> BVH:
     verts = data.vertices.cpu().numpy().astype(np.float32)
     tri_v_all = data.tri_v.cpu().numpy()
     tri_v = tri_v_all.astype(np.int64)[: meta.n_tris]
@@ -197,3 +323,26 @@ def build_bvh(data: SceneData, meta: SceneMeta) -> BVH:
         axis=np.array(node_axis, dtype=np.int32),
         prim_idx=np.concatenate(prim_order).astype(np.int32),
     )
+
+
+def validate_bvh(bvh: BVH, n_prims: int) -> None:
+    """Structural invariants: every primitive appears in exactly one leaf;
+    child boxes lie inside their parent's; skip pointers land inside
+    [i+1, N].  Raises AssertionError on a violation."""
+    prim_idx, counts, starts = bvh.prim_idx, bvh.leaf_count, bvh.leaf_start
+    n = counts.shape[0]
+    seen: list[int] = []
+    for i in range(n):
+        if counts[i] > 0:
+            seen.extend(prim_idx[starts[i]: starts[i] + counts[i]].tolist())
+    assert len(seen) == n_prims, (len(seen), n_prims)
+    assert len(set(seen)) == n_prims
+    skip = bvh.skip
+    assert (skip >= np.arange(n) + 1).all()
+    assert (skip <= n).all()
+    bmin, bmax = bvh.box_min, bvh.box_max
+    for i in range(n):
+        if counts[i] == 0:  # inner: children are i+1 and skip[i+1]
+            for ch in (i + 1, int(skip[i + 1])):
+                assert (bmin[ch] >= bmin[i] - 1e-5).all()
+                assert (bmax[ch] <= bmax[i] + 1e-5).all()

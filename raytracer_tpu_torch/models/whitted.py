@@ -1,5 +1,7 @@
-"""The Whitted integrator as a bounded-depth wavefront loop (port of the
-cluster engine's forward path in ``raytracer_tpu/models/whitted.py``).
+"""The Whitted integrator as a bounded-depth wavefront loop (port of
+``raytracer_tpu/models/whitted.py``), on the brute, BVH or cluster engine
+(``engine="auto"`` picks by accelerator, ``resolve_engine``), forward or
+differentiable.
 
 The whole wavefront of rays runs through max_depth+1 lockstep bounces with
 a running throughput (the product of mirror tints along the path):
@@ -10,13 +12,17 @@ a running throughput (the product of mirror tints along the path):
 
 Background only for a depth-0 miss, black for deeper misses; ambient
 re-added at every bounce; the loop ends after depth max_depth or when no
-lane is active.  Bounce 0 of an eye wavefront is peeled out so the
-closest-hit kernel can use the shared origin.
+lane is active (the differentiable path runs all max_depth + 1 bounces).
+On the cluster engine's forward path bounce 0 of an eye wavefront is
+peeled out so the closest-hit kernel can use the shared origin.
 
-Shadows: per-light plane tables and the shadow kernel while a table fits
-``SHADOW_PLANES_BYTES_MAX``, else the generic any-hit kernel
-(``cluster_any``).  Frames above the ray chunk render chunk by chunk; big
-scenes cap the chunk (``_cap_chunk_for_big_scenes``).
+Cluster-engine shadows: per-light plane tables and the shadow kernel
+while a table fits ``SHADOW_PLANES_BYTES_MAX``, else the generic any-hit
+kernel (``cluster_any``); brute and bvh take their own any-hit.  Frames
+above the ray chunk render chunk by chunk; on the cluster engine rays go
+in 8x16 tile order and big scenes cap the chunk
+(``_cap_chunk_for_big_scenes``), the other engines trace rays in raster
+order.
 
 ``render_camera_streamed`` renders row bands of the SSAA-scaled frame and
 reduces each band on the device (SSAA, quantization), so ray state stays
@@ -31,9 +37,11 @@ import math
 import torch
 
 from raytracer_tpu_torch.backend import resolve_device
+from raytracer_tpu_torch.models.bvh import DeviceBVH
 from raytracer_tpu_torch.models.clusters import ClusterSet
 from raytracer_tpu_torch.models.scene import Camera, SceneData, SceneMeta
 from raytracer_tpu_torch.ops import cluster_trace as ctr
+from raytracer_tpu_torch.ops import traverse
 from raytracer_tpu_torch.ops.camera import (
     camera_vectors, draw_jitter, eye_rays_band, eye_rays_from,
 )
@@ -41,7 +49,9 @@ from raytracer_tpu_torch.ops.image import (
     downsample_mean, downsample_parity, quantize,
 )
 from raytracer_tpu_torch.ops.kernels import TILE
-from raytracer_tpu_torch.ops.shade import Hit, reflection_rays, shade_local
+from raytracer_tpu_torch.ops.shade import (
+    Hit, refine_hit, reflection_rays, shade_local,
+)
 from raytracer_tpu_torch.ops.tiling import (
     apply_tile_order, block_permutation, divides, undo_tile_order,
 )
@@ -71,43 +81,74 @@ def _uncompact_color(color, idx):
     return color[torch.argsort(idx, stable=True)]
 
 
-def render_rays(data: SceneData, meta: SceneMeta, origin, dirs,
-                cset: ClusterSet, bfc: bool = False, relaxed: bool = False,
+def resolve_engine(engine: str, accel, meta: SceneMeta) -> str:
+    """``auto``: a ClusterSet gives cluster, another accelerator over a
+    scene of more than 64 primitives gives bvh, else brute; the other
+    names are checked and returned."""
+    if engine == "auto":
+        if isinstance(accel, ClusterSet):
+            return "cluster"
+        if accel is not None and meta.n_tris + meta.n_spheres > 64:
+            return "bvh"
+        return "brute"
+    if engine not in traverse.ENGINES:
+        raise ValueError(f"unknown engine {engine!r}; auto or one of "
+                         f"{traverse.ENGINES}")
+    return engine
+
+
+def render_rays(data: SceneData, meta: SceneMeta, origin, dirs, accel,
+                engine: str = "cluster", differentiable: bool = False,
+                bfc: bool = False, relaxed: bool = False,
                 compact_mode: str = "auto"):
     """(R, 3) f32 radiance of a wavefront.  ``origin``: (3,) (a shared eye
     point) or (R, 3); ``dirs``: (R, 3), unnormalized (the camera's).
-    ``compact_mode``: ``auto`` gates the activity compaction off below max
-    depth _COMPACT_MIN_DEPTH; ``deep`` keeps only the runtime scatter gate
-    (adaptive refinement waves, scattered by construction)."""
+    ``accel``: the engine's accelerator (a ClusterSet, a DeviceBVH, None
+    for brute).
+
+    ``differentiable``: the hits are re-derived from the engine's
+    primitive ids by ``refine_hit`` (gradients flow into the scene
+    tensors), in exactly max_depth + 1 bounces: no early exit, no
+    compaction, no peeled eye bounce.  Otherwise the cluster engine takes
+    its hits from the kernel's slot table (the fast path), and brute and
+    bvh refine their ids the same way, stopping once no ray is active.
+    The cluster engine's shadow kernels (plane tables within
+    ``SHADOW_PLANES_BYTES_MAX``) serve both paths.
+    ``compact_mode`` (fast path only): ``auto`` gates the activity
+    compaction off below max depth _COMPACT_MIN_DEPTH; ``deep`` keeps only
+    the runtime scatter gate (adaptive refinement waves, scattered by
+    construction)."""
     if compact_mode not in ("auto", "deep"):
         raise ValueError(f"unknown compact_mode {compact_mode!r}")
     r = dirs.shape[0]
-    eye_shared = origin.dim() == 1
+    fast_hits = engine == "cluster" and not differentiable
     nl = meta.n_lights
     shadow_fn = shadow_multi_fn = None
 
     def occluded_fn(org, seg, t_max, mask):
-        return ctr.cluster_any(cset, org, seg, t_max, active=mask, bfc=bfc,
-                               relaxed=relaxed)
+        return traverse.any_hit(data, org, seg, t_max, accel, engine,
+                                active=mask, bfc=bfc, relaxed=relaxed)
 
-    pt = cset.tri_verts.shape[1]
-    if nl > 0 and pt * 64 <= ctr.SHADOW_PLANES_BYTES_MAX:
-        planes = [ctr.build_shadow_planes(cset, data.light_pos[l], bfc=bfc)
-                  for l in range(nl)]
+    if engine == "cluster" and nl > 0:
+        pt = accel.tri_verts.shape[1]
+        if pt * 64 <= ctr.SHADOW_PLANES_BYTES_MAX:
+            planes = [ctr.build_shadow_planes(accel, data.light_pos[l], bfc=bfc)
+                      for l in range(nl)]
 
-        def shadow_fn(org, sdir, mask, l):
-            return ctr.cluster_shadow(cset, planes[l], org, sdir,
-                                      data.light_pos[l], active=mask,
-                                      relaxed=relaxed)
+            def shadow_fn(org, sdir, mask, l):
+                return ctr.cluster_shadow(accel, planes[l], org, sdir,
+                                          data.light_pos[l], active=mask,
+                                          relaxed=relaxed)
 
-        # all lights in ONE kernel launch while every table fits together
-        if nl >= 2 and nl * pt * 64 <= ctr.SHADOW_PLANES_BYTES_MAX:
-            def shadow_multi_fn(org, masks):
-                return ctr.cluster_shadow_multi(
-                    cset, planes, org, data.light_pos[:nl], masks,
-                    relaxed=relaxed)
+            # all lights in ONE kernel launch while every table fits together
+            if nl >= 2 and nl * pt * 64 <= ctr.SHADOW_PLANES_BYTES_MAX:
+                def shadow_multi_fn(org, masks):
+                    return ctr.cluster_shadow_multi(
+                        accel, planes, org, data.light_pos[:nl], masks,
+                        relaxed=relaxed)
 
-    compact = ((meta.max_depth >= _COMPACT_MIN_DEPTH or compact_mode == "deep")
+    compact = (fast_hits and (meta.max_depth >= _COMPACT_MIN_DEPTH
+                              or compact_mode == "deep")
                and r % TILE == 0)
 
     def bounce(carry, shared_eye: bool = False):
@@ -118,11 +159,18 @@ def render_rays(data: SceneData, meta: SceneMeta, origin, dirs,
             if bool(live_f - act_f > _COMPACT_SCATTER):
                 carry = _compact_carry(carry)
         depth, color, throughput, active, cur_org, cur_dir, idx = carry
-        fhit, t, normal, mat, point, offset, _ = ctr.cluster_closest_hit(
-            cset, origin if shared_eye else cur_org, cur_dir,
-            meta.shadow_eps, active=active, bfc=bfc, shared_origin=shared_eye)
-        h = Hit(hit=fhit & active, t=t, normal=normal, mat=mat, point=point,
-                offset=offset)
+        if fast_hits:
+            fhit, t, normal, mat, point, offset, _ = ctr.cluster_closest_hit(
+                accel, origin if shared_eye else cur_org, cur_dir,
+                meta.shadow_eps, active=active, bfc=bfc,
+                shared_origin=shared_eye)
+            h = Hit(hit=fhit & active, t=t, normal=normal, mat=mat,
+                    point=point, offset=offset)
+        else:
+            prim = traverse.closest_hit(data, cur_org, cur_dir, accel, engine,
+                                        active=active, bfc=bfc)
+            prim = torch.where(active, prim, traverse.MISS)
+            h = refine_hit(data, meta, cur_org, cur_dir, prim)
         if depth == 0:
             color = color + torch.where((~h.hit & active)[:, None],
                                         data.background[None, :], 0.0)
@@ -147,7 +195,11 @@ def render_rays(data: SceneData, meta: SceneMeta, origin, dirs,
         dirs,
         torch.arange(r, device=dev),
     )
-    if eye_shared:
+    if differentiable:
+        for _ in range(meta.max_depth + 1):
+            carry = bounce(carry)
+        return carry[1]
+    if fast_hits and origin.dim() == 1:
         carry = bounce(carry, shared_eye=True)
     while carry[0] <= meta.max_depth and bool(carry[3].any()):
         carry = bounce(carry)
@@ -170,30 +222,44 @@ SEG_SLOTS = 128 * 1024
 _BIG_SCENE_CHUNK = 1 << 17
 
 
-def _cap_chunk_for_big_scenes(chunk: int, cset: ClusterSet) -> int:
-    """Cap the ray chunk of scenes beyond SEG_SLOTS slots at 131,072 rays
-    (1,024 tiles), as the JAX package does.  Its reason was its compile
-    service; here it bounds the glue's dense (tiles, clusters) and (tiles,
-    clusters, 3) temporaries, which grow with both."""
-    if (cset.tri_dat.shape[1] > SEG_SLOTS
-            or cset.sph_dat.shape[1] > SEG_SLOTS):
+def _cap_chunk_for_big_scenes(chunk: int, accel) -> int:
+    """Cap the ray chunk of cluster scenes beyond SEG_SLOTS slots at
+    131,072 rays (1,024 tiles), as the JAX package does.  Its reason was
+    its compile service; here it bounds the glue's dense (tiles, clusters)
+    and (tiles, clusters, 3) temporaries, which grow with both.  Any other
+    accelerator keeps ``chunk``."""
+    if isinstance(accel, ClusterSet) and (
+            accel.tri_dat.shape[1] > SEG_SLOTS
+            or accel.sph_dat.shape[1] > SEG_SLOTS):
         return min(chunk, _BIG_SCENE_CHUNK)
     return chunk
 
 
-def _render_device(data: SceneData, cset: ClusterSet, device) -> torch.device:
+def _render_device(data: SceneData, accel, device) -> torch.device:
     """The render's device (CUDA by default; raises without a GPU), which
-    must hold the scene and the clusters."""
+    must hold the scene and the accelerator (a ClusterSet, a DeviceBVH or
+    None)."""
     dev = resolve_device(device)
-    if data.device != dev or cset.tri_dat.device != dev:
-        raise ValueError(f"scene on {data.device} and clusters on "
-                         f"{cset.tri_dat.device}, render on {dev}")
+    where = {"scene": data.device}
+    if isinstance(accel, ClusterSet):
+        where["clusters"] = accel.tri_dat.device
+    elif isinstance(accel, DeviceBVH):
+        where["bvh"] = accel.skip.device
+    elif accel is not None:
+        raise ValueError("the bvh engine walks a DeviceBVH "
+                         "(models.bvh.device_bvh)")
+    if any(d != dev for d in where.values()):
+        raise ValueError(", ".join(f"{k} on {d}" for k, d in where.items())
+                         + f"; render on {dev}")
     return dev
 
 
-def _tile_order(h: int, w: int, dev):
+def _tile_order(h: int, w: int, dev, engine: str = "cluster"):
     """(blocks, perm, inv) of ``apply_tile_order`` for an (h, w) ray grid:
-    8x16 blocks by reshape when they divide it, else a permutation."""
+    for the cluster engine 8x16 blocks by reshape when they divide it,
+    else a permutation; raster order (all None) for the other engines."""
+    if engine != "cluster":
+        return None, None, None
     bh, bw = _tile_block_shape()
     if divides(h, w, bh, bw):
         return (bh, bw), None, None
@@ -201,17 +267,18 @@ def _tile_order(h: int, w: int, dev):
     return None, torch.from_numpy(p).to(dev), torch.from_numpy(i).to(dev)
 
 
-def trace(data: SceneData, meta: SceneMeta, origin, dirs, cset: ClusterSet,
+def trace(data: SceneData, meta: SceneMeta, origin, dirs, accel,
           chunk: int, bfc: bool = False, relaxed: bool = False,
-          compact_mode: str = "auto"):
-    """(R, 3) radiance of rays in tile order (``origin`` (3,) shared or
-    (R, 3) per ray): one wavefront when R <= ``chunk``, else wavefronts of
-    ``chunk`` rays rounded down to whole tiles, the last padded with copies
-    of the last ray."""
+          compact_mode: str = "auto", engine: str = "cluster"):
+    """(R, 3) radiance of rays (``origin`` (3,) shared or (R, 3) per ray;
+    in tile order for the cluster engine): one wavefront when R <=
+    ``chunk``, else wavefronts of ``chunk`` rays rounded down to whole
+    tiles, the last padded with copies of the last ray."""
     r = dirs.shape[0]
+    kw = dict(engine=engine, bfc=bfc, relaxed=relaxed,
+              compact_mode=compact_mode)
     if r <= chunk:
-        return render_rays(data, meta, origin, dirs, cset, bfc=bfc,
-                           relaxed=relaxed, compact_mode=compact_mode)
+        return render_rays(data, meta, origin, dirs, accel, **kw)
     chunk = max(TILE, (chunk // TILE) * TILE)
     pad = (-r) % chunk
     dirs = torch.cat([dirs, dirs[-1:].expand(pad, 3)])
@@ -220,47 +287,51 @@ def trace(data: SceneData, meta: SceneMeta, origin, dirs, cset: ClusterSet,
         origin = torch.cat([origin, origin[-1:].expand(pad, 3)])
     return torch.cat([
         render_rays(data, meta, origin[s:s + chunk] if per_ray else origin,
-                    dirs[s:s + chunk], cset, bfc=bfc, relaxed=relaxed,
-                    compact_mode=compact_mode)
+                    dirs[s:s + chunk], accel, **kw)
         for s in range(0, r + pad, chunk)])[:r]
 
 
-def render_camera(data: SceneData, meta: SceneMeta, cam: Camera,
-                  cset: ClusterSet, chunk: int = 1 << 22, bfc: bool = False,
-                  relaxed: bool = False, device="cuda"):
+def render_camera(data: SceneData, meta: SceneMeta, cam: Camera, accel,
+                  chunk: int = 1 << 22, bfc: bool = False,
+                  relaxed: bool = False, device="cuda", engine: str = "auto"):
     """Render one camera to an (H, W, 3) f32 radiance image on ``device``
-    (CUDA by default; raises without a GPU).  Rays are reordered into 8x16
-    pixel blocks so every kernel tile is a coherent frustum.  A frame of
-    at most ``chunk`` rays (capped for big scenes) is one wavefront;
-    larger frames render chunk by chunk: whole tiles in tile order, the
-    last chunk padded with copies of the last ray."""
-    dev = _render_device(data, cset, device)
+    (CUDA by default; raises without a GPU) through ``engine``
+    (``resolve_engine``).  On the cluster engine rays are reordered into
+    8x16 pixel blocks so every kernel tile is a coherent frustum.  A frame
+    of at most ``chunk`` rays (capped for big cluster scenes) is one
+    wavefront; larger frames render chunk by chunk: whole tiles, the last
+    chunk padded with copies of the last ray."""
+    dev = _render_device(data, accel, device)
+    engine = resolve_engine(engine, accel, meta)
     h, w = cam.height, cam.width
-    chunk = _cap_chunk_for_big_scenes(max(TILE, (chunk // TILE) * TILE), cset)
-    blocks, perm, inv = _tile_order(h, w, dev)
+    chunk = _cap_chunk_for_big_scenes(max(TILE, (chunk // TILE) * TILE),
+                                      accel)
+    blocks, perm, inv = _tile_order(h, w, dev, engine)
     vec = torch.from_numpy(camera_vectors(cam)).to(dev)
     origin, dirs = eye_rays_from(vec, w, h)
     dirs = apply_tile_order(dirs, h, w, blocks, perm).contiguous()
-    color = trace(data, meta, origin, dirs, cset, chunk, bfc=bfc,
-                  relaxed=relaxed)
+    color = trace(data, meta, origin, dirs, accel, chunk, bfc=bfc,
+                  relaxed=relaxed, engine=engine)
     color = undo_tile_order(color, h, w, blocks, inv)
     return color.reshape(h, w, 3)
 
 
-def render_band(data: SceneData, meta: SceneMeta, cset: ClusterSet, vec,
+def render_band(data: SceneData, meta: SceneMeta, accel, vec,
                 hs: int, ws: int, row0: int, bh: int, *, ssaa: int,
                 ssaa_mode: str, hdr: bool, chunk: int, jitter=None,
-                bfc: bool = False, relaxed: bool = False):
+                bfc: bool = False, relaxed: bool = False,
+                engine: str = "cluster"):
     """Rows [row0, row0+bh) of the (hs, ws) SSAA-scaled frame: eye rays
-    (offset by ``jitter``, (bh, ws, 2), when given) in tile order, traced,
-    back in row order, then reduced on the device: ``hdr`` f32 radiance
-    (SSAA as a float mean), else uint8 (SSAA parity: quantize, then the
-    truncating mean; otherwise the float mean, then quantize)."""
+    (offset by ``jitter``, (bh, ws, 2), when given), in tile order for the
+    cluster engine, traced, back in row order, then reduced on the device:
+    ``hdr`` f32 radiance (SSAA as a float mean), else uint8 (SSAA parity:
+    quantize, then the truncating mean; otherwise the float mean, then
+    quantize)."""
     origin, dirs = eye_rays_band(vec, ws, hs, row0, bh, jitter=jitter)
-    blocks, perm, inv = _tile_order(bh, ws, vec.device)
+    blocks, perm, inv = _tile_order(bh, ws, vec.device, engine)
     dirs = apply_tile_order(dirs, bh, ws, blocks, perm).contiguous()
-    color = trace(data, meta, origin, dirs, cset, chunk, bfc=bfc,
-                  relaxed=relaxed)
+    color = trace(data, meta, origin, dirs, accel, chunk, bfc=bfc,
+                  relaxed=relaxed, engine=engine)
     color = undo_tile_order(color, bh, ws, blocks, inv).reshape(bh, ws, 3)
     if hdr:
         return color if ssaa <= 1 else downsample_mean(color, ssaa)
@@ -272,22 +343,24 @@ def render_band(data: SceneData, meta: SceneMeta, cset: ClusterSet, vec,
 
 
 def render_camera_streamed(data: SceneData, meta: SceneMeta, cam: Camera,
-                           cset: ClusterSet, chunk: int = 1 << 22,
+                           accel, chunk: int = 1 << 22,
                            bfc: bool = False, ssaa: int = 1,
                            ssaa_mode: str = "parity", hdr: bool = False,
                            seed: int = 0, relaxed: bool = False,
-                           device="cuda", jitter=None):
+                           device="cuda", jitter=None, engine: str = "auto"):
     """Render one camera to its final-resolution (H, W, 3) uint8 image (f32
-    radiance when ``hdr``) on ``device`` by streaming row bands of the
-    SSAA-scaled frame (``render_band``).  Bands are ``max(lcm, (chunk //
-    W*ssaa) // lcm * lcm)`` rows, lcm = lcm(16, ssaa), the last one
-    shorter, as in the JAX package: a band holds whole SSAA pixels, and the
-    jitter mode (ssaa > 1) draws each band's offsets keyed on (seed, its
-    first row).  ``jitter``: optional callable ``(key, shape) -> array``
-    that supplies those draws in place of ``ops.camera.jitter_offsets``
-    (key ``("band", row0)``, shape (rows, W*ssaa, 2))."""
-    dev = _render_device(data, cset, device)
-    chunk = _cap_chunk_for_big_scenes(chunk, cset)
+    radiance when ``hdr``) on ``device`` through ``engine``
+    (``resolve_engine``) by streaming row bands of the SSAA-scaled frame
+    (``render_band``).  Bands are ``max(lcm, (chunk // W*ssaa) // lcm *
+    lcm)`` rows, lcm = lcm(16, ssaa), the last one shorter, as in the JAX
+    package: a band holds whole SSAA pixels, and the jitter mode (ssaa >
+    1) draws each band's offsets keyed on (seed, its first row).
+    ``jitter``: optional callable ``(key, shape) -> array`` that supplies
+    those draws in place of ``ops.camera.jitter_offsets`` (key ``("band",
+    row0)``, shape (rows, W*ssaa, 2))."""
+    dev = _render_device(data, accel, device)
+    engine = resolve_engine(engine, accel, meta)
+    chunk = _cap_chunk_for_big_scenes(chunk, accel)
     hs, ws = cam.height * ssaa, cam.width * ssaa
     lcm = 16 * ssaa // math.gcd(16, ssaa)
     band_h = max(lcm, (chunk // ws) // lcm * lcm)
@@ -306,7 +379,7 @@ def render_camera_streamed(data: SceneData, meta: SceneMeta, cam: Camera,
         if ssaa_mode == "jitter" and ssaa > 1:
             offsets = draw_jitter(jitter, seed, ("band", row0), (bh, ws, 2), dev)
         bands.append(render_band(
-            data, meta, cset, vec, hs, ws, row0, bh, ssaa=ssaa,
+            data, meta, accel, vec, hs, ws, row0, bh, ssaa=ssaa,
             ssaa_mode=ssaa_mode, hdr=hdr, chunk=chunk, jitter=offsets,
-            bfc=bfc, relaxed=relaxed))
+            bfc=bfc, relaxed=relaxed, engine=engine))
     return torch.cat(bands)

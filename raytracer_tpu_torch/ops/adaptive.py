@@ -27,10 +27,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from raytracer_tpu_torch.models.clusters import ClusterSet
 from raytracer_tpu_torch.models.scene import Camera, SceneData, SceneMeta
 from raytracer_tpu_torch.models.whitted import (
-    _cap_chunk_for_big_scenes, _render_device, _tile_block_shape, trace,
+    _cap_chunk_for_big_scenes, _render_device, _tile_block_shape,
+    resolve_engine, trace,
 )
 from raytracer_tpu_torch.ops.camera import (
     camera_vectors, draw_jitter, eye_rays_pixels,
@@ -73,12 +73,14 @@ def _luma(color: torch.Tensor) -> torch.Tensor:
 
 
 def render_camera_adaptive(data: SceneData, meta: SceneMeta, cam: Camera,
-                           cset: ClusterSet, base_spp: int = 4,
+                           accel, base_spp: int = 4,
                            extra_spp: int = 12, refine_frac: float = 0.125,
                            seed: int = 0, bfc: bool = False, rounds: int = 1,
-                           relaxed: bool = False, device="cuda", jitter=None):
-    """Render one camera adaptively: ``(img, stats)`` with ``img`` the
-    (H, W, 3) f32 mean radiance on ``device``.  ``rounds`` refinement
+                           relaxed: bool = False, device="cuda", jitter=None,
+                           engine: str = "auto"):
+    """Render one camera adaptively through ``engine`` (``resolve_engine``):
+    ``(img, stats)`` with ``img`` the (H, W, 3) f32 mean radiance on
+    ``device``.  ``rounds`` refinement
     passes each give the ``refine_frac`` noisiest blocks their exact share
     of ``extra_spp`` (earlier rounds take the remainder).  ``stats``
     records the budget spent.  ``jitter``: optional callable ``(key,
@@ -92,7 +94,8 @@ def render_camera_adaptive(data: SceneData, meta: SceneMeta, cam: Camera,
         raise ValueError(
             f"rounds={rounds} exceeds extra_spp={extra_spp}: each round "
             "needs at least one sample (the budget is split exactly)")
-    dev = _render_device(data, cset, device)
+    dev = _render_device(data, accel, device)
+    engine = resolve_engine(engine, accel, meta)
     h, w = cam.height, cam.width
     bh, bw = _tile_block_shape()
     tile = bh * bw
@@ -125,9 +128,9 @@ def render_camera_adaptive(data: SceneData, meta: SceneMeta, cam: Camera,
         rr = rows2.reshape(b, 1, sub, 1, p).expand(b, og, sub, g, p).reshape(-1)
         cc = cols2.reshape(b, 1, sub, 1, p).expand(b, og, sub, g, p).reshape(-1)
         e, dirs = eye_rays_pixels(vec, w, h, rr, cc, jitter=offs.reshape(-1, 2))
-        color = trace(data, meta, e, dirs, cset,
-                      _cap_chunk_for_big_scenes(dirs.shape[0], cset), bfc=bfc,
-                      relaxed=relaxed,
+        chunk = _cap_chunk_for_big_scenes(dirs.shape[0], accel)
+        color = trace(data, meta, e, dirs, accel, chunk, bfc=bfc,
+                      relaxed=relaxed, engine=engine,
                       compact_mode="auto" if center_first else "deep")
         color = color.reshape(b, og, sub, g, p, 3).permute(0, 1, 3, 2, 4, 5)
         return color.reshape(b, spp, npx, 3)

@@ -16,6 +16,11 @@ Per trace call:
 3. The ``closest``, ``shadow`` or ``any_hit`` kernel visits each tile's
    candidates.
 
+Visibility carries no gradient: the entry points (and the plane-table
+build) run under ``torch.no_grad()`` on detached inputs, where the JAX
+package calls ``stop_gradient``; the differentiable path re-derives hits
+from ``cluster_closest``'s primitive ids (``ops.shade.refine_hit``).
+
 The TPU scaffolding is not ported: the ``MAX_NT`` splits (SMEM budget),
 ``TPB`` tiles per program and the ``SEG_SLOTS`` segmentation (VMEM
 residency).  The CUDA kernels read the tables from device memory at any
@@ -253,6 +258,7 @@ def _sum3(x):
     return x[0] + x[1] + x[2]
 
 
+@torch.no_grad()
 def build_shadow_planes(cset: ClusterSet, light_pos, bfc: bool = False):
     """(16, Pt) f32 per-light occlusion planes for every triangle slot.
 
@@ -267,7 +273,7 @@ def build_shadow_planes(cset: ClusterSet, light_pos, bfc: bool = False):
     back-facing occluders."""
     sv = cset.tri_verts
     a, b, c = sv[0:3], sv[3:6], sv[6:9]
-    lp = light_pos.to(torch.float32).reshape(3, 1)
+    lp = light_pos.detach().to(torch.float32).reshape(3, 1)
     n = cross(b - a, c - a)
     d0 = -_sum3(n * a)
     k0 = _sum3(n * (lp - a))
@@ -362,6 +368,24 @@ def _slot_to_prim(cset: ClusterSet, slot):
     return torch.where(slot < 0, MISS, prim)
 
 
+@torch.no_grad()
+def cluster_closest(cset: ClusterSet, origin, dirs, active=None,
+                    bfc: bool = False):
+    """(R,) int64 global primitive ids of the closest hits (MISS on a miss)
+    of rays ``origin`` ((3,) or (R, 3)) + t ``dirs``: the exact mask, the
+    per-ray-origin closest kernel, the dense small-sphere merge."""
+    dirs = dirs.detach().contiguous()
+    origin = origin.detach().expand(dirs.shape).contiguous()
+    r, origin, dirs, active = _pad_rays(origin, dirs, active)
+    thit, shit = _cluster_masks(cset, origin, dirs, active, None)
+    t, slot = kernels.closest(*_lists(thit, shit), origin, dirs,
+                              cset.tri_dat, cset.sph_dat, bfc)
+    if 0 < cset.n_sph <= SMALL_SPH:
+        _, slot = _merge_small_spheres(cset, origin, dirs, t, slot)
+    return _slot_to_prim(cset, slot)[:r].long()
+
+
+@torch.no_grad()
 def cluster_closest_hit(cset: ClusterSet, origin, dirs, shadow_eps: float,
                         active=None, bfc: bool = False,
                         shared_origin: bool = False):
@@ -404,17 +428,18 @@ def cluster_closest_hit(cset: ClusterSet, origin, dirs, shadow_eps: float,
     return hit, t, normal, mat, point, offset, prim
 
 
+@torch.no_grad()
 def cluster_shadow(cset: ClusterSet, planes, origin, dirs, light_pos,
                    active=None, relaxed: bool = False):
     """Occlusion of the segments origin -> light_pos (t < 1) for ONE light;
     ``dirs`` is the unnormalized segment light_pos - origin (it shapes the
     tile shortlists; the kernel tests origins against ``planes``)."""
-    r, origin, dirs, active = _pad_rays(origin.contiguous(),
-                                        dirs.contiguous(), active)
+    r, origin, dirs, active = _pad_rays(origin.detach().contiguous(),
+                                        dirs.detach().contiguous(), active)
     ones = torch.ones((origin.shape[0],), device=origin.device)
     thit, shit = _cluster_masks(cset, origin, dirs, active, ones)
     lists = [x[None] for x in _lists(thit, shit)]
-    lp = light_pos.to(torch.float32).reshape(3).contiguous()
+    lp = light_pos.detach().to(torch.float32).reshape(3).contiguous()
     found = kernels.shadow(*lists, lp, origin, planes[None], cset.sph_dat,
                            relaxed)
     occ = (found & 1) != 0
@@ -423,15 +448,17 @@ def cluster_shadow(cset: ClusterSet, planes, origin, dirs, light_pos,
     return occ[:r]
 
 
+@torch.no_grad()
 def cluster_shadow_multi(cset: ClusterSet, planes_list, origin, light_pos,
                          active_per_light, relaxed: bool = False):
     """Occlusion toward ALL lights in ONE kernel launch: light_pos (L, 3),
     active_per_light (R, L) bool; returns (R, L) bool, per light equal to
     :func:`cluster_shadow`."""
     nl = len(planes_list)
-    lp = light_pos.to(torch.float32).reshape(-1).contiguous()
+    lp = light_pos.detach().to(torch.float32).reshape(-1).contiguous()
+    origin = origin.detach().contiguous()
     acts = [active_per_light[:, l] for l in range(nl)]
-    r, origin, _, *acts = _pad_rays(origin.contiguous(), origin, *acts)
+    r, origin, _, *acts = _pad_rays(origin, origin, *acts)
     ones = torch.ones((origin.shape[0],), device=origin.device)
     per_light = []
     for l in range(nl):
@@ -447,15 +474,17 @@ def cluster_shadow_multi(cset: ClusterSet, planes_list, origin, light_pos,
     return occ[:r]
 
 
+@torch.no_grad()
 def cluster_any(cset: ClusterSet, origin, dirs, t_max, active=None,
                 bfc: bool = False, relaxed: bool = False):
     """(R,) bool: some accepted hit with t < t_max on origin + t dirs (the
     ``any_hit`` kernel; shadow segments pass t_max 1).  ``origin``: (3,)
     or (R, 3); ``t_max``: (R,); ``active`` (R,) bool marks the lanes whose
     result is read (it shapes the shortlists)."""
-    origin = origin.expand(dirs.shape).contiguous()
-    r, origin, dirs, active, t_max = _pad_rays(origin, dirs.contiguous(),
-                                               active, t_max)
+    dirs = dirs.detach().contiguous()
+    origin = origin.detach().expand(dirs.shape).contiguous()
+    r, origin, dirs, active, t_max = _pad_rays(origin, dirs, active,
+                                               t_max.detach())
     t_max = t_max.to(torch.float32).contiguous()
     thit, shit = _cluster_masks(cset, origin, dirs, active, t_max)
     found = kernels.any_hit(*_lists(thit, shit), origin, dirs, t_max,

@@ -1,9 +1,9 @@
 """One camera -> one image (port of ``raytracer_tpu/pipeline.py``): the
 route of a render request (adaptive sampling, or row bands of about the
 ray chunk), then the SSAA reduction, tone curve and quantization, with
-the same semantics on both routes.  The JAX package's device mesh and
-engine choice are not ported: the port renders on one device with the
-cluster engine."""
+the same semantics on both routes, through the brute, BVH or cluster
+engine.  The JAX package's device mesh is not ported: the port renders on
+one device."""
 
 from __future__ import annotations
 
@@ -28,8 +28,11 @@ def render_one_camera(data, meta, cam, accel, *, ssaa: int = 1,
                       adaptive_frac: float = 0.125,
                       adaptive_extra: Optional[int] = None,
                       adaptive_rounds: int = 1, relaxed: bool = False,
-                      device="cuda") -> Tuple[np.ndarray, Optional[dict]]:
-    """Render ``cam`` at its declared resolution: ``(img, adaptive_stats)``.
+                      device="cuda", engine: str = "auto",
+                      ) -> Tuple[np.ndarray, Optional[dict]]:
+    """Render ``cam`` at its declared resolution through ``engine``
+    (``auto``: cluster for a ClusterSet ``accel``, bvh for a BVH over more
+    than 64 primitives, else brute): ``(img, adaptive_stats)``.
 
     ``img`` is (H, W, 3) uint8, or f32 linear radiance when ``hdr`` (the
     EXR path; ``tone`` is then ignored).  ``adaptive_stats`` is None
@@ -57,7 +60,8 @@ def render_one_camera(data, meta, cam, accel, *, ssaa: int = 1,
             data, meta, cam, accel, base_spp=base,
             extra_spp=adaptive_extra if adaptive_extra is not None else 3 * base,
             refine_frac=adaptive_frac, seed=seed, bfc=bfc,
-            rounds=adaptive_rounds, relaxed=relaxed, device=device)
+            rounds=adaptive_rounds, relaxed=relaxed, device=device,
+            engine=engine)
         img = (color if hdr else tone_map(color, tone) if want_float
                else quantize(color))
     else:
@@ -66,7 +70,7 @@ def render_one_camera(data, meta, cam, accel, *, ssaa: int = 1,
         img = render_camera_streamed(
             data, meta, cam, accel, chunk=chunk, bfc=bfc, ssaa=ssaa,
             ssaa_mode=ssaa_mode, hdr=want_float, seed=seed, relaxed=relaxed,
-            device=device)
+            device=device, engine=engine)
         if want_float and not hdr:
             img = tone_map(img, tone)
     return img.cpu().numpy(), stats

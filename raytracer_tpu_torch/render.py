@@ -1,9 +1,11 @@
 """Command line: ``python -m raytracer_tpu_torch.render scene.xml [options]``.
 
-Port of ``raytracer_tpu/render.py`` on the cluster engine: loads the
-scene, builds the BVH and clusters ("plants trees") or loads them from
-``--accel-cache``, renders every camera and writes one image per camera
-(PPM, PNG or EXR), printing per-phase timings and ray throughput.  SSAA
+Port of ``raytracer_tpu/render.py``: loads the scene, builds the
+engine's accelerator ("plants trees": the clusters, or loads them from
+``--accel-cache``, for ``--engine cluster`` and ``auto``; the BVH with its
+octant threads for ``bvh``; nothing for ``brute``), renders every camera
+and writes one image per camera (PPM, PNG or EXR), printing per-phase
+timings and ray throughput.  SSAA
 defaults to the reference's 2x per dimension; ``--ssaa 1`` is
 golden-parity mode.  Runs on the GPU unless ``--device cpu``.
 """
@@ -18,9 +20,10 @@ import time
 import torch
 
 from raytracer_tpu_torch.backend import resolve_device
-from raytracer_tpu_torch.models.bvh import build_bvh
+from raytracer_tpu_torch.models.bvh import build_bvh, device_bvh
 from raytracer_tpu_torch.models.clusters import build_clusters
 from raytracer_tpu_torch.models.scene import load_scene
+from raytracer_tpu_torch.models.whitted import resolve_engine
 from raytracer_tpu_torch.ops.image import TONE_MODES
 from raytracer_tpu_torch.pipeline import (
     FORMATS, SSAA_MODES, render_one_camera, write_image,
@@ -49,6 +52,20 @@ def accel_for(path, data, meta, dev):
     return clusters
 
 
+def engine_accel(engine, cache, data, meta, dev):
+    """The accelerator of ``engine``: the clusters (``accel_for``, with
+    the accel cache) for cluster and auto, the BVH with its octant threads
+    on ``dev`` for bvh, None for brute."""
+    if engine == "brute":
+        return None
+    if engine == "bvh":
+        if cache:
+            print("note: --accel-cache is read and written by the cluster "
+                  "engine only")
+        return device_bvh(build_bvh(data, meta, ordered=True), dev)
+    return accel_for(cache, data, meta, dev)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(
         description="Whitted ray tracer on PyTorch and CUDA")
@@ -74,6 +91,11 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the jitter and adaptive sample offsets; "
                          "same seed, same image (on the CPU and on CUDA)")
+    ap.add_argument("--engine", choices=["auto", "brute", "bvh", "cluster"],
+                    default="auto",
+                    help="visibility engine: cluster (the CUDA kernels; "
+                         "auto's choice here), bvh (a lockstep walk of the "
+                         "BVH) or brute (every ray against every primitive)")
     ap.add_argument("--relaxed-parity", action="store_true",
                     help="sqrt/div-free sphere occlusion sign tests in the "
                          "shadow kernel (grazing-sphere pairs may flip "
@@ -113,7 +135,8 @@ def main(argv=None) -> None:
 
     data, meta = load_scene(args.scene, device=dev)
     t0 = time.perf_counter()
-    clusters = accel_for(args.accel_cache, data, meta, dev)
+    accel = engine_accel(args.engine, args.accel_cache, data, meta, dev)
+    engine = resolve_engine(args.engine, accel, meta)
     sync()
     t1 = time.perf_counter()
     print(f"Planted trees in {t1 - t0:.3f} seconds.")
@@ -130,10 +153,10 @@ def main(argv=None) -> None:
             if args.ssaa_mode == "adaptive":
                 rcam = cam  # adaptive samples at the final resolution
             print(f"Rendering {cam.image_name} "
-                  f"({rcam.width}x{rcam.height}, engine=cluster)...")
+                  f"({rcam.width}x{rcam.height}, engine={engine})...")
             t2 = time.perf_counter()
             img, adaptive_stats = render_one_camera(
-                data, meta, cam, clusters, ssaa=args.ssaa,
+                data, meta, cam, accel, ssaa=args.ssaa, engine=engine,
                 ssaa_mode=args.ssaa_mode, bfc=args.bfc, chunk=args.chunk,
                 tone=args.tone, hdr=args.format == "exr", seed=args.seed,
                 adaptive_frac=args.adaptive_frac,
@@ -151,7 +174,7 @@ def main(argv=None) -> None:
                     "primary_rays": rays,
                     "render_s": round(t3 - t2, 4),
                     "mrays_per_s": round(rays / (t3 - t2) / 1e6, 3),
-                    "engine": "cluster", "ssaa": args.ssaa,
+                    "engine": engine, "ssaa": args.ssaa,
                     "device": str(dev),
                     "n_tris": meta.n_tris, "n_spheres": meta.n_spheres,
                     "max_depth": meta.max_depth, "lights": meta.n_lights,

@@ -317,3 +317,132 @@ def test_jitter_draws_on_card_equal_cpu(cuda, seed, key, shape):
     got = jitter_offsets(seed, key, shape, cuda)
     assert got.device.type == "cuda" and got.shape == shape
     assert torch.equal(got.cpu(), jitter_offsets(seed, key, shape))
+
+
+def _train_step_both(cuda, engine, fields=("mat_diffuse", "light_int")):
+    """One make_train_step on the card and on the CPU from the same
+    perturbed terrain at 32x32 (target: the true radiance, rendered on
+    the CPU): ((loss, grads) on the card, (loss, grads) on the CPU)."""
+    from raytracer_tpu_torch.models.bvh import build_bvh, device_bvh
+    from raytracer_tpu_torch.models.clusters import build_clusters
+    from raytracer_tpu_torch.models.whitted import render_rays
+    from raytracer_tpu_torch.ops.camera import camera_vectors, eye_rays_from
+    from raytracer_tpu_torch.parallel.train import init_state, make_train_step
+    from raytracer_tpu_torch.utils import synth
+
+    data, meta = synth.terrain_scene(cells=12, res=32, mirror_stripes=True,
+                                     device="cpu")
+    bvh = build_bvh(data, meta, ordered=engine == "bvh")
+    accel = {"brute": None, "bvh": device_bvh(bvh, "cpu"),
+             "cluster": build_clusters(data, meta, bvh)}[engine]
+    cam = meta.cameras[0]
+    origin, dirs = eye_rays_from(torch.from_numpy(camera_vectors(cam)),
+                                 cam.width, cam.height)
+    with torch.no_grad():
+        target = render_rays(data, meta, origin, dirs, accel, engine=engine)
+    bad = dataclasses.replace(data, mat_diffuse=data.mat_diffuse * 0.5,
+                              light_int=data.light_int * 0.7)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        d = _on(bad, dev)
+        acc = None if accel is None else _on(accel, dev)
+        state = init_state(d, fields=fields)
+        step = make_train_step(meta, engine=engine, device=dev)
+        state, loss = step(state, d, origin.to(dev), dirs.to(dev),
+                           target.to(dev), accel=acc)
+        out.append((float(loss), {f: p.grad.cpu() for f, p in
+                                  state.params.items()}))
+    return out
+
+
+@pytest.mark.parametrize("engine", ["brute", "bvh", "cluster"])
+def test_train_step_cuda_equals_cpu(cuda, engine):
+    """One training step on the card against the CPU: the loss to rtol
+    1e-5, each field's gradient within 1e-3 of its max |g| (the material
+    gathers' backward sums in another order on the card)."""
+    (gl, gg), (cl, cg) = _train_step_both(cuda, engine,
+                                          fields=("mat_diffuse", "light_int",
+                                                  "vertices"))
+    assert abs(gl - cl) <= 1e-5 * abs(cl)
+    for f, want in cg.items():
+        assert torch.isfinite(gg[f]).all(), f
+        assert float((gg[f] - want).abs().max()) <= 1e-3 * float(want.abs().max()), f
+
+
+@pytest.mark.parametrize("engine", ["brute", "bvh"])
+def test_brute_bvh_cuda_equal_cpu(cuda, engine):
+    """The brute and BVH engines on the card: prim ids and occlusion bits
+    equal the CPU's on random rays, and a rendered image meets the image
+    bar against the CPU's."""
+    import numpy as np
+
+    from raytracer_tpu_torch.models.bvh import build_bvh, device_bvh
+    from raytracer_tpu_torch.models.whitted import render_camera
+    from raytracer_tpu_torch.ops import traverse as PT
+    from raytracer_tpu_torch.ops.image import quantize
+
+    meta, cam, (cd, _), (gd, _) = _terrain_both(cuda)
+    bvh = build_bvh(cd, meta, ordered=True)
+    accel = {"cpu": None, "cuda": None}
+    if engine == "bvh":
+        accel = {"cpu": device_bvh(bvh, "cpu"), "cuda": device_bvh(bvh, cuda)}
+    rng = np.random.default_rng(0)
+    o = torch.from_numpy(rng.uniform(-50, 50, (4096, 3)).astype(np.float32))
+    o[:, 1] = 40.0
+    d = torch.from_numpy(rng.normal(size=(4096, 3)).astype(np.float32))
+    d[:, 1] = -torch.abs(d[:, 1]) - 0.2
+    t_max = torch.from_numpy(rng.uniform(0.5, 80, 4096).astype(np.float32))
+    res = {}
+    for key, data in (("cpu", cd), ("cuda", gd)):
+        dev = data.device
+        p = PT.closest_hit(data, o.to(dev), d.to(dev), accel[key], engine)
+        a = PT.any_hit(data, o.to(dev), d.to(dev), t_max.to(dev), accel[key],
+                       engine)
+        img = quantize(render_camera(data, meta, cam, accel[key], device=dev,
+                                     engine=engine))
+        res[key] = (p.cpu(), a.cpu(), img.cpu())
+    assert float((res["cpu"][0] >= 0).float().mean()) > 0.3
+    assert torch.equal(res["cuda"][0], res["cpu"][0])
+    assert torch.equal(res["cuda"][1], res["cpu"][1])
+    dd = (res["cuda"][2].int() - res["cpu"][2].int()).abs().amax(-1)
+    assert int((dd > 1).sum()) <= 4
+
+
+def test_train_step_kernels_equal_plain_on_card(cuda):
+    """The cluster engine's training step on the card: every kernel call
+    it makes (the flat mask, the per-ray-origin closest hit, the 2-light
+    shadow, once a bounce; no shared-origin closest) equals its plain
+    version."""
+    from raytracer_tpu_torch.ops import kernels as K
+
+    calls = []
+    names = ("ray_mask", "closest", "shadow")
+    wrapped = {n: getattr(K, n) for n in names}
+
+    def spy(name):
+        def f(*a):
+            calls.append((name, a))
+            return wrapped[name](*a)
+        return f
+
+    for n in names:
+        setattr(K, n, spy(n))
+    try:
+        _train_step_both(cuda, "cluster")
+    finally:
+        for n, f in wrapped.items():
+            setattr(K, n, f)
+    on_card = [(n, a) for n, a in calls if a[0].device.type == "cuda"]
+    assert {n for n, _ in on_card} == set(names)
+    # one multi-light launch per bounce (max depth 2), never one per light
+    shadows = [a for n, a in on_card if n == "shadow"]
+    assert len(shadows) == 3 and all(a[8].shape[0] == 2 for a in shadows)
+    for name, args in on_card:
+        if name == "closest":
+            assert args[6].dim() == 2, "a shared-origin closest call"
+        out_k = wrapped[name](*args)
+        out_p = getattr(K, name + "_plain")(*args)
+        out_k = out_k if isinstance(out_k, tuple) else (out_k,)
+        out_p = out_p if isinstance(out_p, tuple) else (out_p,)
+        for a, b in zip(out_k, out_p):
+            assert torch.equal(a, b), name

@@ -55,7 +55,9 @@ def test_bvh_equal(scene):
 
     _, _, jbvh, _ = jax_accel(scene)
     pdata, pmeta = port_scene(scene)
-    pbvh = build_bvh(pdata, pmeta)
+    # the JAX build attaches the octant threads by default, the port's on
+    # request (the bvh engine's)
+    pbvh = build_bvh(pdata, pmeta, ordered=True)
     for name, val in numpy_fields(pbvh).items():
         assert_same(val, getattr(jbvh, name), name)
 

@@ -37,15 +37,17 @@ def test_render_loads_no_jax(tmp_path):
 
 def test_every_module_loads_no_jax(tmp_path):
     """In a fresh interpreter: import every module of the port (the
-    adaptive sampler, the PNG/EXR writers, the accel cache and the diff CLI
-    among them) and run the CLI in the adaptive mode to PNG and the diff
-    CLI on its output."""
+    adaptive sampler, the PNG/EXR writers, the accel cache, the diff CLI,
+    the brute and BVH engines and training among them) and run the CLI in
+    the adaptive mode to PNG and the diff CLI on its output."""
     mods = sorted(
         os.path.relpath(p, REPO)[:-3].replace(os.sep, ".").removesuffix(".__init__")
         for p in _sources() if p.startswith(PKG))
     assert {"raytracer_tpu_torch.ops.adaptive", "raytracer_tpu_torch.utils.png",
             "raytracer_tpu_torch.utils.exr", "raytracer_tpu_torch.utils.checkpoint",
-            "raytracer_tpu_torch.compare"} <= set(mods)
+            "raytracer_tpu_torch.compare", "raytracer_tpu_torch.ops.intersect",
+            "raytracer_tpu_torch.ops.traverse", "raytracer_tpu_torch.parallel.train",
+            "raytracer_tpu_torch.train"} <= set(mods)
     png = os.path.join(str(tmp_path), "entry_scene.png")
     code = (
         "import importlib, sys\n"
