@@ -106,6 +106,34 @@ then:
    cluster, on the full-width terrain through a 64x64 camera and on the
    entry scene: the loss to rtol 1e-5, each field's gradient within 1e-3
    of its max |g|;
+8. the mesh, processes and the server (``parallel``, ``serve``):
+   8a. the full-width terrain at --ssaa 2 through render_one_camera on a
+   2-shard mesh of cuda:0 (two logical shards of 2,097,152 rays): equal
+   bit for bit to phase 3's image, every kernel of phase 3 launched, its
+   kernel calls held against the plain versions, warm ms/frame (median of
+   3) and peak; the terrain and the entry scene at 64x64 on it against
+   the CPU's 2-shard render in parity and jitter mode; 128x150, whose last
+   band takes virtual rows, bit for bit against one device;
+   8b. two processes (``chip_smoke.py --worker RANK STORE``), gloo over a
+   file store in smoke_out/, both on cuda:0: each renders its half of the
+   full-width frame, which must equal phase 3's image on both ranks, with
+   the frame's ms and its gather's ms; 3 sharded training steps on a
+   64x64 camera, the parameters equal on both ranks and the loss within
+   1e-5 of the one-process step;
+   8c. phase 7's training on a 2-shard mesh: 5 steps, the loss falling,
+   every gradient finite, step 1 against phase 7's loss (rtol 1e-5) and a
+   one-device step's gradients and parameters (1e-3 of each field's max),
+   the step's kernel calls against the plain versions, s/step;
+   8d. ``python -m raytracer_tpu_torch.serve`` on stdin: ping, the entry
+   scene equal to phase 2's CLI image, the full-width terrain written to
+   a scene XML and rendered at --ssaa 2 twice (the second from the cache)
+   equal to render_one_camera on the loaded XML, a bad ssaa_mode answered
+   and survived, shutdown (exit 0), each request's render_s and Mrays/s;
+   over TCP (--port 0) a render, a client dropping mid-request, a
+   reconnect, ping and shutdown; the served terrain frame in process with
+   its launches and kernel calls against the plain versions;
+   8e. measure_scaling over 1 and 2 logical shards of the card (the split,
+   not a scaling result);
 
 and prints the kernels' JSON line, then ``{"ok": true, "device": ...}``
 as its last line.  Any failure exits non-zero without that line.  Images
@@ -1094,19 +1122,7 @@ def build(scene_fn, device, **kw):
 def moved(xs, dev):
     """The tensors, scenes and accelerators of ``xs`` on ``dev`` (other
     items as they are)."""
-    import torch
-
-    out = []
-    for x in xs:
-        if isinstance(x, torch.Tensor):
-            x = x.to(dev)
-        elif dataclasses.is_dataclass(x) and not isinstance(x, type):
-            x = dataclasses.replace(x, **{
-                f.name: getattr(x, f.name).to(dev)
-                for f in dataclasses.fields(x)
-                if isinstance(getattr(x, f.name), torch.Tensor)})
-        out.append(x)
-    return tuple(out)
+    return tuple(x.to(dev) if hasattr(x, "to") else x for x in xs)
 
 
 def to_cpu(data, meta, cset):
@@ -1400,24 +1416,15 @@ def entry_train_cli(xml, results):
                                   "out_render_launches": render}
 
 
-def train_full_width(dev, results, checked):
-    """Phase 7: make_train_step on the full-width terrain (cluster engine,
-    fields mat_diffuse and light_int, lr 3e-2) over its 1024x1024 camera's
-    1,048,576 eye rays in raster order every step, the target the port's
-    forward radiance of the true scene, the start mat_diffuse x 0.5 and
-    light_int x 0.7: 5 steps (the first with the launch counts reset just
-    before and read just after and its kernel calls captured and held
-    against the plain versions), the loss falling and every gradient
-    finite; s/step (median of steps 2-5, synchronized), rays/s, peak device
-    memory of steps 2-5, one profiled step (device busy, idle share); one
-    step with vertices too, its gradients finite.  Returns the launches of
-    one step."""
+def training_setup(dev):
+    """Phase 7's training problem: (data, meta, clusters, origin, dirs,
+    target, start) of the full-width terrain, its 1024x1024 camera's
+    1,048,576 eye rays in raster order, the target the forward radiance of
+    the true scene, the start with mat_diffuse x 0.5 and light_int x 0.7."""
     import torch
 
     from raytracer_tpu_torch.models.whitted import render_rays
-    from raytracer_tpu_torch.ops import kernels as K
     from raytracer_tpu_torch.ops.camera import camera_vectors, eye_rays_from
-    from raytracer_tpu_torch.parallel.train import init_state, make_train_step
     from raytracer_tpu_torch.utils.synth import terrain_scene
 
     data, meta, cset = build(terrain_scene, dev, cells=126, res=1024,
@@ -1432,6 +1439,28 @@ def train_full_width(dev, results, checked):
         target = render_rays(data, meta, origin, dirs, cset, engine="cluster")
     bad = dataclasses.replace(data, mat_diffuse=data.mat_diffuse * 0.5,
                               light_int=data.light_int * 0.7)
+    return data, meta, cset, origin, dirs, target, bad
+
+
+def train_full_width(dev, results, checked):
+    """Phase 7: make_train_step on the full-width terrain (cluster engine,
+    fields mat_diffuse and light_int, lr 3e-2) over its 1024x1024 camera's
+    1,048,576 eye rays in raster order every step, the target the port's
+    forward radiance of the true scene, the start mat_diffuse x 0.5 and
+    light_int x 0.7: 5 steps (the first with the launch counts reset just
+    before and read just after and its kernel calls captured and held
+    against the plain versions), the loss falling and every gradient
+    finite; s/step (median of steps 2-5, synchronized), rays/s, peak device
+    memory of steps 2-5, one profiled step (device busy, idle share); one
+    step with vertices too, its gradients finite.  Returns the launches of
+    one step."""
+    import torch
+
+    from raytracer_tpu_torch.ops import kernels as K
+    from raytracer_tpu_torch.parallel.train import init_state, make_train_step
+
+    _, meta, cset, origin, dirs, target, bad = training_setup(dev)
+    rays = dirs.shape[0]
     step = make_train_step(meta, lr=3e-2, engine="cluster", device=dev)
     state = init_state(bad, fields=("mat_diffuse", "light_int"))
 
@@ -1834,6 +1863,614 @@ def render_modes(dev, results, full, big, big_res, checked):
     return path_launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the mesh, two processes, sharded training and the render server
+# ---------------------------------------------------------------------------
+
+FRAME_MUST = ("ray_mask", "closest_shared", "closest", "shadow")
+
+
+def frame_rays(fn):
+    """(fn(), the ray count of every wavefront ``whitted.trace`` traced
+    in it): the shards of each band."""
+    from raytracer_tpu_torch.models import whitted
+
+    traced = []
+
+    def count(f):
+        def counted(data, meta, origin, dirs, *a, **kw):
+            traced.append(dirs.shape[0])
+            return f(data, meta, origin, dirs, *a, **kw)
+        return counted
+
+    with patched(whitted, "trace", count):
+        return fn(), traced
+
+
+def profiled(fn, results, key, ms):
+    """One profiled run of ``fn`` (``profile_frame``): its device busy ms
+    against the unprofiled median ``ms``; returns the idle share."""
+    profile_frame(fn, results, key)
+    prof = results.get(key)
+    if not prof:
+        return None
+    idle = 1 - prof["device_busy_ms"] / ms
+    log(f"  device busy {prof['device_busy_ms']:.3f} ms of the unprofiled "
+        f"median {ms:.3f} ms: idle share {idle:.3f}")
+    return idle
+
+
+def timed_frames(fn, n=3):
+    """(median ms, each run's ms, peak bytes) of ``n`` synchronized runs."""
+    import torch
+
+    times = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), times, torch.cuda.max_memory_allocated()
+
+
+def mesh_on_card(dev, results, checked):
+    """Phase 8a: the full-width terrain at --ssaa 2 (4,194,304 rays, one
+    band) through render_one_camera on a 2-shard mesh of ``dev``: equal
+    bit for bit to phase 3's single-device image, every kernel of phase 3
+    launched (counts reset just before the frame, read just after), its
+    kernel calls held against the plain versions, warm ms/frame (median of
+    3) and peak; at 64x64 the terrain and the entry scene on the 2-shard
+    mesh against the CPU's 2-shard render (parity and jitter at --ssaa 2);
+    the 128x150 terrain, whose last band takes virtual rows, against the
+    single-device render bit for bit.  Returns the frame's launches."""
+    import numpy as np
+    import torch
+
+    from raytracer_tpu_torch.models.scene import load_scene
+    from raytracer_tpu_torch.ops import kernels as K
+    from raytracer_tpu_torch.parallel.mesh import make_mesh
+    from raytracer_tpu_torch.pipeline import render_one_camera
+    from raytracer_tpu_torch.utils.ppm import read_ppm
+    from raytracer_tpu_torch.utils.synth import terrain_scene
+
+    ref = read_ppm(os.path.join(OUT, "terrain_1024.ppm"))
+    data, meta, cset = build(terrain_scene, dev, cells=126, res=1024,
+                             mirror_stripes=True)
+    mesh = make_mesh(devices=[dev, dev])
+    cam = meta.cameras[0]
+
+    def frame():
+        return render_one_camera(data, meta, cam, cset, ssaa=2, device=dev,
+                                 mesh=mesh)[0]
+
+    frame()
+    torch.cuda.synchronize()
+    K.reset_launches()
+    with Capture(K) as cap:
+        img, traced = frame_rays(frame)
+    torch.cuda.synchronize()
+    launches = dict(K.launches)
+    log(f"  2-shard frame: launches {launches}; wavefronts traced {traced}")
+    check(traced == [2_097_152, 2_097_152], f"2-shard frame traced {traced}")
+    for name in FRAME_MUST:
+        check(launches[name] > 0, f"2-shard frame: {name} was not launched")
+    n_diff = int((img != ref).any(-1).sum())
+    log(f"  2-shard frame vs phase 3's single-device image: {n_diff} pixels "
+        "differ")
+    check(img.shape == ref.shape and n_diff == 0,
+          f"2-shard frame: {n_diff} pixels differ from phase 3's image")
+    checked("2-shard full-width frame", cap.calls)
+    del cap
+    ms, times, peak = timed_frames(frame)
+    log(f"  2-shard frame ms (3 warm runs) {[round(t, 3) for t in times]}; "
+        f"median {ms:.3f} ms, {4_194_304 / ms / 1e3:.3f} Mrays/s; peak {peak} "
+        f"bytes ({peak / 2**30:.3f} GiB); phase 3 single-device median "
+        f"{results['frame']['ms']:.3f} ms")
+    idle = profiled(frame, results, "mesh_frame_profile", ms)
+    results["mesh_frame"] = {"ms": ms, "runs_ms": times, "peak_bytes": peak,
+                             "launches": launches, "wavefronts": traced,
+                             "idle_share": idle}
+
+    cpu_mesh = make_mesh(devices=["cpu", "cpu"])
+    entry = build(lambda device: load_scene(
+        os.path.join(REPO, "tests", "data", "entry_scene.xml"), device=device),
+        dev)
+    small = {"terrain": (data, meta, cset), "entry": entry}
+    for label, (d, m, c) in small.items():
+        cam64 = dataclasses.replace(m.cameras[0], width=64, height=64)
+        cd, cm, cc = to_cpu(d, m, c)
+        for mode in ("parity", "jitter"):
+            a = render_one_camera(d, m, cam64, c, ssaa=2, ssaa_mode=mode,
+                                  seed=5, device=dev, mesh=mesh)[0]
+            b = render_one_camera(cd, cm, cam64, cc, ssaa=2, ssaa_mode=mode,
+                                  seed=5, device="cpu", mesh=cpu_mesh)[0]
+            compare_images(a, b, f"{label} 64x64 {mode} on 2 shards, cuda vs cpu")
+    # 150 rows: 2 shards make bands of lcm(16, 8 x 2) rows, so the last is
+    # padded with 10 virtual rows, mid tile-block
+    cam150 = dataclasses.replace(cam, width=128, height=150)
+    single = render_one_camera(data, meta, cam150, cset, device=dev)[0]
+    padded, traced = frame_rays(lambda: render_one_camera(
+        data, meta, cam150, cset, device=dev, mesh=mesh)[0])
+    check(sum(traced) == 160 * 128, f"128x150 on 2 shards traced {traced}")
+    check(np.array_equal(single, padded),
+          "128x150 on 2 shards differs from the single-device render")
+    log(f"  128x150 on 2 shards (wavefronts {traced}: 10 virtual rows) equals "
+        "the single-device render bit for bit")
+    return launches
+
+
+def rank_worker(rank: int, store: str) -> int:
+    """One of phase 8b's two processes (``chip_smoke.py --worker RANK
+    STORE``): gloo over the file store, both ranks on cuda:0.  Renders its
+    half of the full-width frame through render_one_camera (warm-up, one
+    frame with the launch counts reset and read, 3 timed frames with each
+    gather timed), holds the image against phase 3's, then 3 sharded
+    training steps on the terrain through a 64x64 camera against the
+    one-process step.  Writes smoke_out/rank<R>.json."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from raytracer_tpu_torch.models.whitted import render_rays
+    from raytracer_tpu_torch.ops import kernels as K
+    from raytracer_tpu_torch.ops.camera import camera_vectors, eye_rays_from
+    from raytracer_tpu_torch.parallel import distributed
+    from raytracer_tpu_torch.parallel.mesh import mesh_from_arg
+    from raytracer_tpu_torch.parallel.train import init_state, make_train_step
+    from raytracer_tpu_torch.pipeline import render_one_camera
+    from raytracer_tpu_torch.utils.ppm import read_ppm
+    from raytracer_tpu_torch.utils.synth import terrain_scene
+
+    try:
+        distributed.initialize(f"file://{store}", 2, rank)
+        mesh = mesh_from_arg("auto", "cuda")
+        dev = torch.device("cuda", 0)
+        check(dist.get_backend() == "gloo" and mesh.size == 2
+              and mesh.devices == (dev,), f"rank {rank}: mesh {mesh}")
+        data, meta, cset = build(terrain_scene, dev, cells=126, res=1024,
+                                 mirror_stripes=True)
+        cam = meta.cameras[0]
+
+        def frame():
+            return render_one_camera(data, meta, cam, cset, ssaa=2,
+                                     device=dev, mesh=mesh)[0]
+
+        gathers = []
+
+        def timed(f):
+            # the gather alone: both ranks' shards traced before the clock
+            def gather(local, m=None):
+                torch.cuda.synchronize()
+                dist.barrier()
+                t0 = time.perf_counter()
+                out = f(local, m)
+                torch.cuda.synchronize()
+                gathers.append((time.perf_counter() - t0) * 1e3)
+                return out
+            return gather
+
+        frame()
+        dist.barrier()
+        K.reset_launches()
+        img, traced = frame_rays(frame)
+        torch.cuda.synchronize()
+        launches = dict(K.launches)
+        for name in FRAME_MUST:
+            check(launches[name] > 0, f"rank {rank}: {name} was not launched")
+        ref = read_ppm(os.path.join(OUT, "terrain_1024.ppm"))
+        n_diff = int((img != ref).any(-1).sum())
+        check(n_diff == 0, f"rank {rank}: {n_diff} pixels differ from phase 3")
+        times = []
+        with patched(distributed, "gather_rows", timed):
+            for _ in range(3):
+                dist.barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                frame()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+
+        # 3 sharded steps on a 64x64 camera against the one-process step
+        cam64 = dataclasses.replace(cam, width=64, height=64)
+        vec = torch.from_numpy(camera_vectors(cam64)).to(dev)
+        origin, dirs = eye_rays_from(vec, 64, 64)
+        with torch.no_grad():
+            target = render_rays(data, meta, origin, dirs, cset, engine="cluster")
+        bad = dataclasses.replace(data, mat_diffuse=data.mat_diffuse * 0.5,
+                                  light_int=data.light_int * 0.7)
+        fields = ("mat_diffuse", "light_int")
+        one = init_state(bad, fields=fields)
+        _, one_loss = make_train_step(meta, engine="cluster", device=dev)(
+            one, bad, origin, dirs, target, accel=cset)
+        state = init_state(bad, fields=fields)
+        step = make_train_step(meta, engine="cluster", device=dev, mesh=mesh)
+        losses = []
+        for _ in range(3):
+            state, loss = step(state, bad, origin, dirs, target, accel=cset)
+            losses.append(float(loss))
+        check(abs(losses[0] - float(one_loss)) <= 1e-5 * abs(float(one_loss)),
+              f"rank {rank}: sharded loss {losses[0]}, one process "
+              f"{float(one_loss)}")
+        flat = torch.cat([p.detach().flatten() for p in state.params.values()]).cpu()
+        both = [torch.empty_like(flat) for _ in range(2)]
+        dist.all_gather(both, flat)
+        check(torch.equal(both[0], both[1]),
+              f"rank {rank}: parameters differ across the ranks")
+        out = {"rank": rank, "traced": traced, "launches": launches,
+               "frame_ms": statistics.median(times), "runs_ms": times,
+               "gather_ms": gathers, "losses": losses,
+               "one_process_loss": float(one_loss)}
+        with open(os.path.join(OUT, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        dist.barrier()
+        dist.destroy_process_group()
+    except Failure as e:
+        print(f"FAIL: {e}", file=sys.stderr, flush=True)
+        return 1
+    print(f"rank {rank}: ok", flush=True)
+    return 0
+
+
+def two_ranks(results):
+    """Phase 8b: two processes on the card (``rank_worker``), gloo over a
+    file store in smoke_out/ (NCCL refuses two ranks on one card); both
+    must exit 0 within 400 s.  Returns rank 0's launches of its frame."""
+    store = os.path.join(OUT, "rank_store")
+    for f in [store] + [os.path.join(OUT, f"rank{r}.json") for r in (0, 1)]:
+        if os.path.exists(f):
+            os.remove(f)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--worker", str(r), store],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in (0, 1)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=400)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.strip().splitlines()[-6:]:
+            log(f"  [rank {r}] {line}")
+        check(p.returncode == 0, f"rank {r} exited with {p.returncode}")
+    ranks = []
+    for r in (0, 1):
+        with open(os.path.join(OUT, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    for d in ranks:
+        log(f"  rank {d['rank']}: wavefronts {d['traced']}, launches "
+            f"{d['launches']}; frame ms {[round(t, 3) for t in d['runs_ms']]} "
+            f"(median {d['frame_ms']:.3f}); gather ms "
+            f"{[round(t, 3) for t in d['gather_ms']]}; image equal to phase "
+            f"3's; losses {d['losses']} (one process {d['one_process_loss']})")
+    check(ranks[0]["losses"] == ranks[1]["losses"], "the ranks' losses differ")
+    results["rank2"] = ranks
+    return ranks[0]["launches"]
+
+
+def train_on_mesh(dev, results, checked):
+    """Phase 8c: phase 7's training problem on a 2-shard mesh of ``dev``:
+    5 steps (the first with its launches and kernel calls, held against
+    the plain versions), the loss falling, every gradient finite; step 1's
+    loss within rtol 1e-5 of phase 7's first, its gradients and parameters
+    within 1e-3 of each field's max against a one-device step; s/step
+    (median of steps 2-5).  Returns the step's launches."""
+    import torch
+
+    from raytracer_tpu_torch.ops import kernels as K
+    from raytracer_tpu_torch.parallel.mesh import make_mesh
+    from raytracer_tpu_torch.parallel.train import init_state, make_train_step
+
+    _, meta, cset, origin, dirs, target, bad = training_setup(dev)
+    fields = ("mat_diffuse", "light_int")
+    one = init_state(bad, fields=fields)
+    one, _ = make_train_step(meta, lr=3e-2, engine="cluster", device=dev)(
+        one, bad, origin, dirs, target, accel=cset)
+    mesh = make_mesh(devices=[dev, dev])
+    step = make_train_step(meta, lr=3e-2, engine="cluster", device=dev,
+                           mesh=mesh)
+    state = init_state(bad, fields=fields)
+    losses, times = [], []
+    for i in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 0:
+            K.reset_launches()
+            with Capture(K) as cap:
+                state, loss = step(state, bad, origin, dirs, target, accel=cset)
+            torch.cuda.synchronize()
+            launches = dict(K.launches)
+        else:
+            state, loss = step(state, bad, origin, dirs, target, accel=cset)
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        for f, p in state.params.items():
+            check(bool(torch.isfinite(p.grad).all()), f"2-shard step {i + 1}: {f} grad")
+        if i == 0:
+            errs = {}
+            for f in fields:
+                for what, a, b in (("grad", state.params[f].grad, one.params[f].grad),
+                                   ("param", state.params[f].detach(),
+                                    one.params[f].detach())):
+                    errs[f"{f} {what}"] = float((a - b).abs().max()) / max(
+                        float(b.abs().max()), 1e-30)
+            log(f"  2-shard step 1 against one device: error / max {errs}")
+            for k, e in errs.items():
+                check(e <= 1e-3, f"2-shard step 1: {k} apart by {e}")
+    phase7 = results["train"]["losses"][0]
+    check(abs(losses[0] - phase7) <= 1e-5 * abs(phase7),
+          f"2-shard step 1 loss {losses[0]}, phase 7's {phase7}")
+    check(losses[-1] < losses[0], f"2-shard training losses {losses}")
+    for name in TRAIN_MUST:
+        check(launches[name] > 0, f"2-shard step: {name} was not launched")
+    checked("2-shard training step", cap.calls)
+    s_step = statistics.median(times[1:])
+    log(f"  2-shard steps: launches {launches}; losses {losses} (phase 7's "
+        f"first {phase7}); s/step {[round(t, 4) for t in times]}; median of "
+        f"steps 2-5 {s_step:.4f} s (phase 7 {results['train']['s_per_step']:.4f})")
+    def one_step():
+        nonlocal state
+        state, _ = step(state, bad, origin, dirs, target, accel=cset)
+
+    idle = profiled(one_step, results, "mesh_train_profile", s_step * 1e3)
+    results["mesh_train"] = {"losses": losses, "runs_s": times,
+                             "s_per_step": s_step, "launches": launches,
+                             "step1_err": errs, "idle_share": idle}
+    return launches
+
+
+def write_scene_xml(parsed, path):
+    """A CENG477 scene XML of the parsed dict that ``models.scene
+    .from_parsed`` takes (1-based ids, lights, materials, meshes)."""
+    import numpy as np
+
+    def v(x):
+        return " ".join(repr(float(t)) for t in x)
+
+    cams = "".join(
+        f'<Camera id="{i + 1}"><Position>{v(c["position"])}</Position>'
+        f'<Gaze>{v(c["gaze"])}</Gaze><Up>{v(c["up"])}</Up>'
+        f'<NearPlane>{v(c["near_plane"])}</NearPlane>'
+        f'<NearDistance>{c["near_distance"]!r}</NearDistance>'
+        f'<ImageResolution>{c["width"]} {c["height"]}</ImageResolution>'
+        f'<ImageName>{c["image_name"]}</ImageName></Camera>\n'
+        for i, c in enumerate(parsed["cameras"]))
+    lights = "".join(
+        f'<PointLight id="{i + 1}"><Position>{v(p)}</Position>'
+        f'<Intensity>{v(q)}</Intensity></PointLight>\n'
+        for i, (p, q) in enumerate(parsed["point_lights"]))
+    mirror = ' type="mirror"'
+    mats = "".join(
+        f'<Material id="{i + 1}"{mirror if m["is_mirror"] else ""}>'
+        f'<AmbientReflectance>{v(m["ambient"])}</AmbientReflectance>'
+        f'<DiffuseReflectance>{v(m["diffuse"])}</DiffuseReflectance>'
+        f'<SpecularReflectance>{v(m["specular"])}</SpecularReflectance>'
+        f'<MirrorReflectance>{v(m["mirror"])}</MirrorReflectance>'
+        f'<PhongExponent>{m["phong"]!r}</PhongExponent></Material>\n'
+        for i, m in enumerate(parsed["materials"]))
+    verts = "\n".join(v(r) for r in np.asarray(parsed["vertices"]).reshape(-1, 3))
+    meshes = "".join(
+        f'<Mesh id="{i + 1}"><Material>{mat}</Material><Faces>\n'
+        + "\n".join(" ".join(str(int(k)) for k in f) for f in faces)
+        + "\n</Faces></Mesh>\n"
+        for i, (mat, faces) in enumerate(parsed["meshes"]))
+    check(not parsed["triangles"] and not parsed["spheres"],
+          "write_scene_xml writes meshes only")
+    background = " ".join(str(int(c)) for c in parsed["background"])
+    with open(path, "w") as f:
+        f.write(
+            f'<Scene>\n<BackgroundColor>{background}'
+            f'</BackgroundColor>\n<ShadowRayEpsilon>{parsed["shadow_eps"]!r}'
+            f'</ShadowRayEpsilon>\n<MaxRecursionDepth>{parsed["max_depth"]}'
+            f'</MaxRecursionDepth>\n<Cameras>\n{cams}</Cameras>\n<Lights>\n'
+            f'<AmbientLight>{v(parsed["ambient_light"])}</AmbientLight>\n{lights}'
+            f'</Lights>\n<Materials>\n{mats}</Materials>\n<VertexData>\n{verts}\n'
+            f'</VertexData>\n<Objects>\n{meshes}</Objects>\n</Scene>\n')
+
+
+class ServerProcess:
+    """``python -m raytracer_tpu_torch.serve ARGS`` as a child process,
+    asked one JSON line at a time on stdin (or, with ``--port``, over TCP).
+    Killed on exit if it is still running."""
+
+    def __init__(self, *args):
+        self.t0 = time.perf_counter()
+        self.p = subprocess.Popen(
+            [sys.executable, "-m", "raytracer_tpu_torch.serve", *args],
+            cwd=REPO, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, bufsize=1)
+        self.ready = json.loads(self.p.stdout.readline() or "null")
+        self.ready_s = time.perf_counter() - self.t0
+        check(self.ready and self.ready.get("ready"),
+              f"the server did not start: {self.ready}")
+
+    def ask(self, req):
+        t0 = time.perf_counter()
+        self.p.stdin.write(json.dumps(req) + "\n")
+        self.p.stdin.flush()
+        line = self.p.stdout.readline()
+        check(line, f"the server gave no answer to {req}")
+        return json.loads(line), time.perf_counter() - t0
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        if self.p.poll() is None:
+            self.p.kill()
+        self.p.wait()
+        for f in (self.p.stdin, self.p.stdout, self.p.stderr):
+            f.close()
+
+
+def tcp_ask(sock_file, req):
+    sock_file.write(json.dumps(req) + "\n")
+    sock_file.flush()
+    line = sock_file.readline()
+    check(line, f"no TCP answer to {req}")
+    return json.loads(line)
+
+
+def serve_on_card(dev, results, checked):
+    """Phase 8d: the render server.  The full-width terrain written to a
+    scene XML in smoke_out/; ``serve --warmup entry_scene.xml`` on stdin:
+    ping; the entry scene (ssaa 1) equal bit for bit to phase 2's CLI
+    image on CUDA; the terrain XML at ssaa 2 twice, the second from the
+    cache, both equal to render_one_camera on the same loaded XML; a bad
+    ssaa_mode answered ok: false with the server alive; shutdown, exit 0;
+    each request's render_s and Mrays/s.  Then over TCP (--port 0):
+    render, a client dropping mid-request, reconnect, ping, shutdown.
+    Then the terrain request through an in-process RenderServer with its
+    launches (counts reset just before, read just after) and kernel calls
+    held against the plain versions.  Returns those launches."""
+    import socket
+
+    import numpy as np
+    import torch
+
+    from raytracer_tpu_torch.models.scene import load_scene
+    from raytracer_tpu_torch.ops import kernels as K
+    from raytracer_tpu_torch.pipeline import render_one_camera
+    from raytracer_tpu_torch.render import engine_accel
+    from raytracer_tpu_torch.serve import RenderServer
+    from raytracer_tpu_torch.utils import synth
+    from raytracer_tpu_torch.utils.ppm import read_ppm
+
+    parsed = []
+    with patched(synth, "from_parsed",
+                 lambda f: lambda p, d: parsed.append(p) or f(p, d)):
+        synth.terrain_scene(cells=126, res=1024, mirror_stripes=True,
+                            device="cpu")
+    xml = os.path.join(OUT, "terrain_1024.xml")
+    write_scene_xml(parsed[0], xml)
+    entry_xml = os.path.join(REPO, "tests", "data", "entry_scene.xml")
+    data, meta = load_scene(xml, device=dev)
+    check(meta.n_tris == 31_752 and meta.n_lights == 2,
+          f"the terrain XML loads {meta.n_tris} triangles")
+    accel = engine_accel("auto", None, data, meta, dev)
+    ref = render_one_camera(data, meta, meta.cameras[0], accel, ssaa=2,
+                            device=dev)[0]
+    out_dir = os.path.join(OUT, "served")
+    served = {}
+    with ServerProcess("--warmup", entry_xml, "--device", dev.type) as srv:
+        log(f"  server ready in {srv.ready_s:.2f} s (with the warm-up render)")
+        r, _ = srv.ask({"cmd": "ping"})
+        check(r.get("ok") and "pong" in r, f"ping: {r}")
+        r, wall = srv.ask({"scene": entry_xml, "out_dir": out_dir, "id": "entry"})
+        check(r.get("ok") and r["id"] == "entry", f"entry request: {r}")
+        cli = read_ppm(os.path.join(OUT, "entry_cuda_ssaa1", "entry_scene.ppm"))
+        check(np.array_equal(read_ppm(r["images"][0]), cli),
+              "the served entry scene differs from the CLI's CUDA image")
+        served["entry"] = {"render_s": r["render_s"],
+                           "mrays_per_s": r["mrays_per_s"], "wall_s": wall}
+        for i in (1, 2):
+            r, wall = srv.ask({"scene": xml, "out_dir": out_dir, "ssaa": 2})
+            check(r.get("ok"), f"terrain request {i}: {r}")
+            check(np.array_equal(read_ppm(r["images"][0]), ref),
+                  f"terrain request {i} differs from render_one_camera")
+            st, _ = srv.ask({"cmd": "stats"})
+            served[f"terrain_{i}"] = {"render_s": r["render_s"],
+                                      "mrays_per_s": r["mrays_per_s"],
+                                      "wall_s": wall, "stats": st}
+        check(served["terrain_2"]["stats"]["scenes_cached"]
+              == served["terrain_1"]["stats"]["scenes_cached"] == 2,
+              f"the second terrain request was not cached: {served}")
+        r, _ = srv.ask({"scene": xml, "out_dir": out_dir, "ssaa": 2,
+                        "ssaa_mode": "pairty"})
+        check(r.get("ok") is False and "ssaa_mode" in r["error"],
+              f"a bad ssaa_mode: {r}")
+        r, _ = srv.ask({"cmd": "ping"})
+        check(r.get("ok"), "the server died on a bad request")
+        r, _ = srv.ask({"cmd": "shutdown"})
+        check(r.get("shutdown"), f"shutdown: {r}")
+        rc = srv.p.wait(timeout=60)
+        check(rc == 0, f"the server exited with {rc}")
+        warm = srv.p.stderr.read().strip().splitlines()
+    log(f"  served (render_s, Mrays/s, client wall s): " + ", ".join(
+        f"{k} {v['render_s']} s {v['mrays_per_s']} Mrays/s {v['wall_s']:.4f} s"
+        for k, v in served.items()) + f"; warm-up {warm[-1:]}")
+    served["ready_s"] = srv.ready_s
+
+    with ServerProcess("--port", "0", "--device", dev.type) as srv:
+        port = srv.ready["port"]
+        with socket.create_connection(("127.0.0.1", port), timeout=300) as s, \
+                s.makefile("rw", encoding="utf-8") as f:
+            r = tcp_ask(f, {"scene": entry_xml, "out_dir": out_dir})
+            check(r.get("ok"), f"TCP render: {r}")
+        # a client that sends a request and drops before the answer
+        with socket.create_connection(("127.0.0.1", port), timeout=300) as s:
+            s.sendall((json.dumps({"scene": xml, "out_dir": out_dir,
+                                   "ssaa": 2}) + "\n").encode())
+            s.shutdown(socket.SHUT_RDWR)
+        with socket.create_connection(("127.0.0.1", port), timeout=300) as s, \
+                s.makefile("rw", encoding="utf-8") as f:
+            check(tcp_ask(f, {"cmd": "ping"}).get("ok"), "TCP ping after a drop")
+            check(tcp_ask(f, {"cmd": "shutdown"}).get("shutdown"), "TCP shutdown")
+        rc = srv.p.wait(timeout=120)
+        check(rc == 0, f"the TCP server exited with {rc}")
+    log(f"  TCP (--port 0 bound {port}): render, a dropped client, reconnect, "
+        "ping, shutdown: exit 0")
+
+    server = RenderServer(device=dev)
+    req = {"scene": xml, "out_dir": out_dir, "ssaa": 2}
+    server.handle(req)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    with Capture(K) as cap:
+        r = server.handle(req)
+    torch.cuda.synchronize()
+    launches = dict(K.launches)
+    check(r.get("ok"), f"in-process request: {r}")
+    for name in FRAME_MUST:
+        check(launches[name] > 0, f"served frame: {name} was not launched")
+    log(f"  in-process served terrain frame: launches {launches}, "
+        f"render_s {r['render_s']}")
+    checked("served terrain frame", cap.calls)
+    del cap
+    ms, times, _ = timed_frames(lambda: server.handle(req))
+    log(f"  in-process served terrain request ms (3 warm runs) "
+        f"{[round(t, 3) for t in times]}; median {ms:.3f} ms")
+    idle = profiled(lambda: server.handle(req), results, "served_profile", ms)
+    served["in_process"] = {"render_s": r["render_s"], "launches": launches,
+                            "ms": ms, "runs_ms": times, "idle_share": idle}
+    results["serve"] = served
+    return launches
+
+
+def scaling_on_card(dev, results):
+    """Phase 8e: measure_scaling of the full-width terrain's 4,194,304 eye
+    rays (tile order) over [cuda:0] and 2 logical shards of it."""
+    import torch
+
+    from raytracer_tpu_torch.models.whitted import _tile_order
+    from raytracer_tpu_torch.ops.camera import camera_vectors, eye_rays_from
+    from raytracer_tpu_torch.ops.tiling import apply_tile_order
+    from raytracer_tpu_torch.parallel.scaling import measure_scaling
+    from raytracer_tpu_torch.utils.synth import terrain_scene
+
+    data, meta, cset = build(terrain_scene, dev, cells=126, res=1024,
+                             mirror_stripes=True)
+    cam = meta.cameras[0].scaled(2)
+    origin, dirs = eye_rays_from(torch.from_numpy(camera_vectors(cam)).to(dev),
+                                 cam.width, cam.height)
+    blocks, perm, _ = _tile_order(cam.height, cam.width, dev)
+    dirs = apply_tile_order(dirs, cam.height, cam.width, blocks, perm).contiguous()
+    points = measure_scaling(data, meta, origin, dirs, cset, "cluster",
+                             sizes=[1, 2], device=dev)
+    for p in points:
+        log(f"  {p.n_devices} logical shard(s) on one card: "
+            f"{p.rays_per_s / 1e6:.3f} Mrays/s, {p.seconds_per_frame * 1e3:.3f} "
+            f"ms/frame, efficiency {p.efficiency:.3f} (the split, not scaling)")
+    results["scaling"] = [dataclasses.asdict(p) for p in points]
+
+
 def run():
     import torch
 
@@ -2126,6 +2763,18 @@ def run():
     path_launches["train_step"] = train_full_width(dev, results, checked)
     log("== phase 7b: one training step on CUDA against the CPU")
     train_cuda_vs_cpu(dev, results)
+    # -- phase 8: the mesh, two processes, sharded training, the server
+    log("== phase 8a: the full-width terrain on a 2-shard mesh of cuda:0")
+    path_launches["mesh_frame"] = mesh_on_card(dev, results, checked)
+    log("== phase 8b: two processes on the card (gloo), the full-width frame "
+        "and 3 sharded steps")
+    path_launches["rank2_frame"] = two_ranks(results)
+    log("== phase 8c: phase 7's training on a 2-shard mesh of cuda:0")
+    path_launches["mesh_train_step"] = train_on_mesh(dev, results, checked)
+    log("== phase 8d: the render server (stdin, TCP, in process)")
+    path_launches["served_frame"] = serve_on_card(dev, results, checked)
+    log("== phase 8e: measure_scaling over 1 and 2 logical shards of one card")
+    scaling_on_card(dev, results)
     for row in rows:
         row["path_launches"] = {k: v[row["name"]] for k, v in path_launches.items()}
         row["max_abs_err"] = max_err[row["name"]]
@@ -2143,6 +2792,8 @@ def run():
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--worker"]:
+        return rank_worker(int(sys.argv[2]), sys.argv[3])
     try:
         return run()
     except Failure as e:

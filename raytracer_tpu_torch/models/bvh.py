@@ -23,7 +23,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from raytracer_tpu_torch.models.scene import SceneData, SceneMeta
+from raytracer_tpu_torch.models.scene import SceneData, SceneMeta, tensors_to
 
 MAX_BVH_DEPTH = 19
 SPLIT_RETRIES = 19
@@ -70,6 +70,9 @@ class DeviceBVH:
     prim_idx: torch.Tensor    # (P,)
     n_nodes: int              # N
     blocks: int               # 8 or 1
+
+    def to(self, device) -> "DeviceBVH":
+        return tensors_to(self, device)
 
 
 OCT_FIELDS = ("oct_box_min", "oct_box_max", "oct_skip", "oct_leaf_start",

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from raytracer_tpu_torch.models.bvh import BVH
-from raytracer_tpu_torch.models.scene import SceneData, SceneMeta
+from raytracer_tpu_torch.models.scene import SceneData, SceneMeta, tensors_to
 
 CLUSTER = 128  # primitives per cluster (one kernel tile of lanes)
 
@@ -51,6 +51,9 @@ class ClusterSet:
     tri_verts: torch.Tensor  # (9, Pt) f32
     n_tri: int = 0
     n_sph: int = 0
+
+    def to(self, device) -> "ClusterSet":
+        return tensors_to(self, device)
 
 
 def _pad_to_multiple(n: int, m: int) -> int:

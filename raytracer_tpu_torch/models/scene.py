@@ -44,6 +44,22 @@ class SceneData:
     def device(self) -> torch.device:
         return self.vertices.device
 
+    def to(self, device) -> "SceneData":
+        return tensors_to(self, device)
+
+
+def tensors_to(obj, device):
+    """The frozen dataclass ``obj`` with every tensor field moved to
+    ``device`` by ``Tensor.to`` (so a field already there is kept, not
+    copied, and a move keeps the autograd graph); ``obj`` itself when
+    nothing moves."""
+    device = torch.device(device)
+    moved = {f.name: getattr(obj, f.name).to(device)
+             for f in dataclasses.fields(obj)
+             if isinstance(getattr(obj, f.name), torch.Tensor)
+             and getattr(obj, f.name).device != device}
+    return dataclasses.replace(obj, **moved) if moved else obj
+
 
 @dataclasses.dataclass(frozen=True)
 class Camera:

@@ -27,7 +27,8 @@ order.
 ``render_camera_streamed`` renders row bands of the SSAA-scaled frame and
 reduces each band on the device (SSAA, quantization), so ray state stays
 about one chunk; it is the route of every render request but adaptive
-sampling, jittered sampling included.
+sampling, jittered sampling included, and over a device mesh it splits
+each band's rays into the mesh's shards (``parallel.render``).
 """
 
 from __future__ import annotations
@@ -320,18 +321,29 @@ def render_band(data: SceneData, meta: SceneMeta, accel, vec,
                 hs: int, ws: int, row0: int, bh: int, *, ssaa: int,
                 ssaa_mode: str, hdr: bool, chunk: int, jitter=None,
                 bfc: bool = False, relaxed: bool = False,
-                engine: str = "cluster"):
+                engine: str = "cluster", mesh=None):
     """Rows [row0, row0+bh) of the (hs, ws) SSAA-scaled frame: eye rays
     (offset by ``jitter``, (bh, ws, 2), when given), in tile order for the
     cluster engine, traced, back in row order, then reduced on the device:
     ``hdr`` f32 radiance (SSAA as a float mean), else uint8 (SSAA parity:
     quantize, then the truncating mean; otherwise the float mean, then
-    quantize)."""
+    quantize).  ``mesh`` (``parallel.mesh.Mesh``): the tile-ordered rays
+    are traced shard by shard and gathered across processes; everything
+    around the trace is the same code, so the band is the same bit for bit
+    (bh must hold whole blocks per shard, ``render_camera_streamed``)."""
     origin, dirs = eye_rays_band(vec, ws, hs, row0, bh, jitter=jitter)
     blocks, perm, inv = _tile_order(bh, ws, vec.device, engine)
     dirs = apply_tile_order(dirs, bh, ws, blocks, perm).contiguous()
-    color = trace(data, meta, origin, dirs, accel, chunk, bfc=bfc,
-                  relaxed=relaxed, engine=engine)
+    if mesh is None:
+        color = trace(data, meta, origin, dirs, accel, chunk, bfc=bfc,
+                      relaxed=relaxed, engine=engine)
+    else:
+        from raytracer_tpu_torch.parallel.distributed import gather_rows
+        from raytracer_tpu_torch.parallel.render import render_rays_sharded
+
+        color = gather_rows(render_rays_sharded(
+            data, meta, origin, dirs, mesh, accel, engine, chunk=chunk,
+            bfc=bfc, relaxed=relaxed), mesh)
     color = undo_tile_order(color, bh, ws, blocks, inv).reshape(bh, ws, 3)
     if hdr:
         return color if ssaa <= 1 else downsample_mean(color, ssaa)
@@ -347,7 +359,8 @@ def render_camera_streamed(data: SceneData, meta: SceneMeta, cam: Camera,
                            bfc: bool = False, ssaa: int = 1,
                            ssaa_mode: str = "parity", hdr: bool = False,
                            seed: int = 0, relaxed: bool = False,
-                           device="cuda", jitter=None, engine: str = "auto"):
+                           device="cuda", jitter=None, engine: str = "auto",
+                           mesh=None):
     """Render one camera to its final-resolution (H, W, 3) uint8 image (f32
     radiance when ``hdr``) on ``device`` through ``engine``
     (``resolve_engine``) by streaming row bands of the SSAA-scaled frame
@@ -357,12 +370,27 @@ def render_camera_streamed(data: SceneData, meta: SceneMeta, cam: Camera,
     1) draws each band's offsets keyed on (seed, its first row).
     ``jitter``: optional callable ``(key, shape) -> array`` that supplies
     those draws in place of ``ops.camera.jitter_offsets`` (key ``("band",
-    row0)``, shape (rows, W*ssaa, 2))."""
+    row0)``, shape (rows, W*ssaa, 2)).
+
+    ``mesh`` (``parallel.mesh.Mesh`` of more than one shard, its first
+    device ``device``): each band's rays are split over it.  The lcm then
+    also takes 8 rows (the cluster engine's block; 1 row otherwise) per
+    shard, so every shard holds whole blocks, as in the JAX package, whose
+    band heights (and so jitter sample sets) this keeps; a short last band
+    is padded with virtual rows below the frame (the eye rays extrapolate
+    the image plane), rendered and cropped."""
     dev = _render_device(data, accel, device)
     engine = resolve_engine(engine, accel, meta)
     chunk = _cap_chunk_for_big_scenes(chunk, accel)
     hs, ws = cam.height * ssaa, cam.width * ssaa
     lcm = 16 * ssaa // math.gcd(16, ssaa)
+    if mesh is not None and mesh.size > 1:
+        if mesh.devices[0] != dev:
+            raise ValueError(f"mesh on {mesh.devices[0]}, render on {dev}")
+        shard_rows = _tile_block_shape()[0] if engine == "cluster" else 1
+        lcm = math.lcm(lcm, shard_rows * mesh.size)
+    else:
+        mesh = None
     band_h = max(lcm, (chunk // ws) // lcm * lcm)
     # The lcm alignment can make a band larger than the chunk (ws * lcm >
     # chunk).  Such a band is traced in chunk-sized wavefronts of whole
@@ -375,11 +403,14 @@ def render_camera_streamed(data: SceneData, meta: SceneMeta, cam: Camera,
     bands = []
     for row0 in range(0, hs, band_h):
         bh = min(band_h, hs - row0)
+        if mesh is not None:
+            bh = -(-bh // lcm) * lcm          # virtual rows below the frame
         offsets = None
         if ssaa_mode == "jitter" and ssaa > 1:
             offsets = draw_jitter(jitter, seed, ("band", row0), (bh, ws, 2), dev)
         bands.append(render_band(
             data, meta, accel, vec, hs, ws, row0, bh, ssaa=ssaa,
             ssaa_mode=ssaa_mode, hdr=hdr, chunk=chunk, jitter=offsets,
-            bfc=bfc, relaxed=relaxed, engine=engine))
-    return torch.cat(bands)
+            bfc=bfc, relaxed=relaxed, engine=engine, mesh=mesh))
+    out = torch.cat(bands)
+    return out[:cam.height] if out.shape[0] != cam.height else out

@@ -71,8 +71,10 @@ def eye_rays_band(vec: torch.Tensor, width: int, height: int, row0: int,
                   band_h: int, jitter=None):
     """(origin (3,), dirs (band_h*W, 3)) for rows [row0, row0+band_h) of
     the (height, width) grid; without ``jitter`` equal bit for bit to
-    those rows of ``eye_rays_from``.  ``jitter``: (band_h, W, 2) offsets in
-    [-0.5, 0.5) of each sample from its pixel center (x, y)."""
+    those rows of ``eye_rays_from``.  Rows past ``height`` (a mesh's
+    virtual pad rows) extrapolate the image plane.  ``jitter``: (band_h,
+    W, 2) offsets in [-0.5, 0.5) of each sample from its pixel center (x,
+    y)."""
     e, u, v, q, su_mult, sv_mult = camera_basis_from(vec, width, height)
     dev = vec.device
     cols = torch.arange(width, dtype=torch.float32, device=dev) + 0.5

@@ -1,1 +1,3 @@
-"""Training over the differentiable renderer (single device)."""
+"""Parallel execution: the device mesh, sharded rendering, the process
+group and the training step (inverse rendering, on one device or a
+mesh)."""

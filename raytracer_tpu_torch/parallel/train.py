@@ -1,5 +1,5 @@
 """Differentiable inverse rendering: the training step (port of
-``raytracer_tpu/parallel/train.py`` on one device).
+``raytracer_tpu/parallel/train.py``), on one device or over a mesh.
 
 Given a target image, recover scene parameters (vertex positions, sphere
 radii, material reflectances, light positions and intensities) by Adam
@@ -10,8 +10,16 @@ the BVH go stale, as in the JAX package.
 
 ``torch.optim.Adam`` at its defaults (betas 0.9/0.999, eps 1e-8) makes
 optax ``adam``'s update ``lr * m_hat / (sqrt(v_hat) + eps)``; the two
-differ only in rounding.  The JAX package's mesh and ``pmean`` are not
-ported (one device).
+differ only in rounding.
+
+Over a mesh (``parallel.mesh``) the rays and the target are split into
+the shards; the master parameters stay on the mesh's first device, and
+each shard renders through a differentiable copy on its own device, so
+its gradient flows back to them.  The loss and the gradients are the
+means over the shards: over this process's shards by autograd, then over
+the processes by an all-reduce (the JAX step's two ``pmean``s), before
+one ``Adam.step()`` on every rank from the same numbers, so every rank
+keeps the same parameters bit for bit.
 """
 
 from __future__ import annotations
@@ -24,6 +32,8 @@ import torch
 from raytracer_tpu_torch.backend import resolve_device
 from raytracer_tpu_torch.models.scene import SceneData, SceneMeta
 from raytracer_tpu_torch.models.whitted import render_rays
+from raytracer_tpu_torch.parallel.distributed import all_mean
+from raytracer_tpu_torch.parallel.mesh import replicate, shard_rays
 
 # SceneData fields that train; geometry gradients flow through
 # ``vertices`` (triangle corners and sphere centers)
@@ -66,13 +76,18 @@ def image_loss(params, data, meta, origin, dirs, target, accel, engine,
 
 
 def make_train_step(meta: SceneMeta, lr: float = 3e-2, engine: str = "brute",
-                    ldr: bool = False, device="cuda"):
+                    ldr: bool = False, device="cuda", mesh=None):
     """The step ``(state, data, origin, dirs, target, accel=None) ->
     (state, loss)``: the loss at the current params, then one Adam update
     at ``lr`` of ``state``'s params (in place).  Runs on ``device`` (CUDA
     by default; raises without a GPU), which must hold the data, the rays
-    and the state."""
+    and the state.  ``mesh``: ``dirs`` and ``target`` (and a per-ray
+    ``origin``) are the whole batch, whose rows the mesh size divides;
+    each shard traces its slice (``shard_rays``) and the loss and the
+    gradients are the shards' means; ``device`` is the mesh's first."""
     dev = resolve_device(device)
+    if mesh is not None and mesh.devices[0] != dev:
+        raise ValueError(f"mesh on {mesh.devices[0]}, training on {dev}")
 
     def step(state: TrainState, data, origin, dirs, target, accel=None):
         for name, x in (("scene", data.vertices), ("rays", dirs),
@@ -83,11 +98,29 @@ def make_train_step(meta: SceneMeta, lr: float = 3e-2, engine: str = "brute",
         for group in state.opt.param_groups:
             group["lr"] = lr
         state.opt.zero_grad(set_to_none=True)
-        loss = image_loss(state.params, data, meta, origin, dirs, target,
-                          accel, engine, ldr)
-        loss.backward()
+        if mesh is None:
+            loss = image_loss(state.params, data, meta, origin, dirs, target,
+                              accel, engine, ldr)
+            loss.backward()
+            state.opt.step()
+            return state, loss.detach()
+        n = len(mesh.devices)
+        origins = (shard_rays(mesh, origin) if origin.dim() == 2
+                   else [origin.to(d) for d in mesh.devices])
+        loss = torch.zeros((), device=dev)
+        for d, d_data, d_accel, org, dd, tt in zip(
+                mesh.devices, replicate(mesh, data), replicate(mesh, accel),
+                origins, shard_rays(mesh, dirs), shard_rays(mesh, target)):
+            params = {f: p.to(d) for f, p in state.params.items()}
+            shard = image_loss(params, d_data, meta, org, dd, tt, d_accel,
+                               engine, ldr) / n
+            shard.backward()
+            loss = loss + shard.detach().to(dev)
+        for p in state.params.values():
+            if p.grad is not None:
+                p.grad = all_mean(p.grad, mesh)
         state.opt.step()
-        return state, loss.detach()
+        return state, all_mean(loss, mesh)
 
     return step
 

@@ -2,8 +2,7 @@
 route of a render request (adaptive sampling, or row bands of about the
 ray chunk), then the SSAA reduction, tone curve and quantization, with
 the same semantics on both routes, through the brute, BVH or cluster
-engine.  The JAX package's device mesh is not ported: the port renders on
-one device."""
+engine, on one device or split over a device mesh (``parallel.mesh``)."""
 
 from __future__ import annotations
 
@@ -13,7 +12,9 @@ from typing import Optional, Tuple
 import numpy as np
 
 from raytracer_tpu_torch.backend import resolve_device
-from raytracer_tpu_torch.models.whitted import render_camera_streamed
+from raytracer_tpu_torch.models.whitted import (
+    _tile_block_shape, render_camera_streamed, resolve_engine,
+)
 from raytracer_tpu_torch.ops.adaptive import render_camera_adaptive
 from raytracer_tpu_torch.ops.image import TONE_MODES, quantize, tone_map
 
@@ -28,7 +29,7 @@ def render_one_camera(data, meta, cam, accel, *, ssaa: int = 1,
                       adaptive_frac: float = 0.125,
                       adaptive_extra: Optional[int] = None,
                       adaptive_rounds: int = 1, relaxed: bool = False,
-                      device="cuda", engine: str = "auto",
+                      device="cuda", engine: str = "auto", mesh=None,
                       ) -> Tuple[np.ndarray, Optional[dict]]:
     """Render ``cam`` at its declared resolution through ``engine``
     (``auto``: cluster for a ClusterSet ``accel``, bvh for a BVH over more
@@ -45,7 +46,17 @@ def render_one_camera(data, meta, cam, accel, *, ssaa: int = 1,
     (default 3x that) more, over ``adaptive_rounds`` rounds.  Every other
     request renders row bands of about ``chunk`` rays (after SSAA;
     ``render_camera_streamed``), one band when the frame, its rows rounded
-    up to lcm(16, ssaa), fits.  Unknown mode strings raise ValueError."""
+    up to lcm(16, ssaa), fits.  Unknown mode strings raise ValueError.
+
+    ``mesh`` (``parallel.mesh.Mesh``, its first device ``device``): the
+    bands' rays are split over its shards and gathered across processes,
+    so every rank returns the whole image, bit for bit the single-device
+    one in the deterministic modes.  The mesh is dropped, as in the JAX
+    package, when it has one shard, in adaptive mode (its refinement waves
+    are small and data-dependent) and when the scaled width is not a
+    multiple of the cluster engine's 16-pixel block (a shard would split
+    blocks).  Jitter is keyed on the band rows, so a jittered image
+    depends on the mesh's band heights (the JAX mesh path's)."""
     if ssaa_mode not in SSAA_MODES:
         raise ValueError(f"unknown ssaa_mode {ssaa_mode!r}; one of {SSAA_MODES}")
     if tone not in TONE_MODES:
@@ -53,6 +64,12 @@ def render_one_camera(data, meta, cam, accel, *, ssaa: int = 1,
     device = resolve_device(device)
     want_float = hdr or tone != "none"
     stats = None
+    if mesh is not None:
+        block_w = (_tile_block_shape()[1]
+                   if resolve_engine(engine, accel, meta) == "cluster" else 1)
+        if (mesh.size == 1 or ssaa_mode == "adaptive"
+                or (cam.width * ssaa) % block_w):
+            mesh = None
     if ssaa_mode == "adaptive":
         # variance needs >= 2 samples: at ssaa 1 adaptive still supersamples
         base = max(2, ssaa * ssaa)
@@ -70,7 +87,7 @@ def render_one_camera(data, meta, cam, accel, *, ssaa: int = 1,
         img = render_camera_streamed(
             data, meta, cam, accel, chunk=chunk, bfc=bfc, ssaa=ssaa,
             ssaa_mode=ssaa_mode, hdr=want_float, seed=seed, relaxed=relaxed,
-            device=device, engine=engine)
+            device=device, engine=engine, mesh=mesh)
         if want_float and not hdr:
             img = tone_map(img, tone)
     return img.cpu().numpy(), stats

@@ -8,11 +8,19 @@ and writes one image per camera (PPM, PNG or EXR), printing per-phase
 timings and ray throughput.  SSAA
 defaults to the reference's 2x per dimension; ``--ssaa 1`` is
 golden-parity mode.  Runs on the GPU unless ``--device cpu``.
+
+``--mesh auto|N`` splits every band's rays over a device mesh
+(``parallel.mesh.mesh_from_arg``: every card of the process by default),
+after bringing up ``torch.distributed`` when torchrun's environment is
+set (``parallel.distributed.initialize``); every rank then holds the
+whole image and rank 0 alone writes it.  ``--profile DIR`` writes a
+``torch.profiler`` trace of the render loop into DIR.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import time
@@ -25,6 +33,8 @@ from raytracer_tpu_torch.models.clusters import build_clusters
 from raytracer_tpu_torch.models.scene import load_scene
 from raytracer_tpu_torch.models.whitted import resolve_engine
 from raytracer_tpu_torch.ops.image import TONE_MODES
+from raytracer_tpu_torch.parallel.distributed import initialize
+from raytracer_tpu_torch.parallel.mesh import mesh_from_arg
 from raytracer_tpu_torch.pipeline import (
     FORMATS, SSAA_MODES, render_one_camera, write_image,
 )
@@ -33,12 +43,13 @@ from raytracer_tpu_torch.utils.checkpoint import (
 )
 
 
-def accel_for(path, data, meta, dev):
+def accel_for(path, data, meta, dev, save: bool = True):
     """The scene's clusters: loaded from the accel cache ``path`` when it
     was saved for this scene (its ``scene_digest``), else built (and saved
-    to ``path`` when given).  A cache that cannot be read, is of another
-    version or was saved for other scene arrays is rebuilt and
-    overwritten, with a note."""
+    to ``path`` when given and ``save``: under torchrun rank 0 alone
+    writes it).  A cache that cannot be read, is of another version or was
+    saved for other scene arrays is rebuilt and overwritten, with a
+    note."""
     digest = scene_digest(data) if path else None
     if path and os.path.exists(path):
         try:
@@ -47,12 +58,12 @@ def accel_for(path, data, meta, dev):
             print(f"note: rebuilding the accel cache: {e}")
     bvh = build_bvh(data, meta)
     clusters = build_clusters(data, meta, bvh)
-    if path:
+    if path and save:
         save_accel(path, bvh, clusters, digest)
     return clusters
 
 
-def engine_accel(engine, cache, data, meta, dev):
+def engine_accel(engine, cache, data, meta, dev, save: bool = True):
     """The accelerator of ``engine``: the clusters (``accel_for``, with
     the accel cache) for cluster and auto, the BVH with its octant threads
     on ``dev`` for bvh, None for brute."""
@@ -63,7 +74,50 @@ def engine_accel(engine, cache, data, meta, dev):
             print("note: --accel-cache is read and written by the cluster "
                   "engine only")
         return device_bvh(build_bvh(data, meta, ordered=True), dev)
-    return accel_for(cache, data, meta, dev)
+    return accel_for(cache, data, meta, dev, save)
+
+
+def render_camera_cli(args, data, meta, cam, accel, engine, dev, mesh,
+                      rank) -> float:
+    """One camera of the CLI: render, print its timings (and the
+    ``--json-metrics`` line), write its image on rank 0; returns the
+    render's seconds."""
+    rcam = cam.scaled(args.ssaa) if args.ssaa > 1 else cam
+    if args.ssaa_mode == "adaptive":
+        rcam = cam  # adaptive samples at the final resolution
+    print(f"Rendering {cam.image_name} "
+          f"({rcam.width}x{rcam.height}, engine={engine})...")
+    t2 = time.perf_counter()
+    img, adaptive_stats = render_one_camera(
+        data, meta, cam, accel, ssaa=args.ssaa, engine=engine,
+        ssaa_mode=args.ssaa_mode, bfc=args.bfc, chunk=args.chunk,
+        tone=args.tone, hdr=args.format == "exr", seed=args.seed,
+        adaptive_frac=args.adaptive_frac,
+        adaptive_extra=args.adaptive_extra,
+        adaptive_rounds=args.adaptive_rounds,
+        relaxed=args.relaxed_parity, device=dev, mesh=mesh)
+    t3 = time.perf_counter()  # the image is on the host: synced
+    rays = rcam.width * rcam.height
+    print(f"  {t3 - t2:.3f} s, {rays / (t3 - t2) / 1e6:.2f} Mrays/s (primary)")
+    if args.json_metrics:
+        line = {
+            "camera": cam.image_name,
+            "width": rcam.width, "height": rcam.height,
+            "primary_rays": rays,
+            "render_s": round(t3 - t2, 4),
+            "mrays_per_s": round(rays / (t3 - t2) / 1e6, 3),
+            "engine": engine, "ssaa": args.ssaa,
+            "device": str(dev), "mesh": 1 if mesh is None else mesh.size,
+            "n_tris": meta.n_tris, "n_spheres": meta.n_spheres,
+            "max_depth": meta.max_depth, "lights": meta.n_lights,
+        }
+        if adaptive_stats is not None:
+            line["adaptive"] = adaptive_stats
+        print(json.dumps(line))
+    if rank == 0:
+        # one writer: every rank holds the whole image after the gather
+        write_image(args.out_dir, cam.image_name, img, args.format)
+    return t3 - t2
 
 
 def main(argv=None) -> None:
@@ -125,8 +179,22 @@ def main(argv=None) -> None:
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="cuda (default; the CUDA kernels) or cpu (the plain "
                          "PyTorch versions)")
+    ap.add_argument("--mesh", default="auto", metavar="auto|N",
+                    help="device mesh: auto (default) splits each band's rays "
+                         "over every card of the process; N over N shards of "
+                         "all processes (on the CPU, N logical shards); 1 = "
+                         "one device.  Under torchrun each process takes its "
+                         "card and rank 0 writes the images")
+    ap.add_argument("--profile", metavar="DIR", default=None,
+                    help="write a torch.profiler trace of the render loop "
+                         "into DIR (trace_rank<R>.json)")
     args = ap.parse_args(argv)
+    rank = initialize()
     dev = resolve_device(args.device)
+    mesh = mesh_from_arg(args.mesh, dev)
+    if mesh is not None:
+        dev = mesh.devices[0]
+        print(f"Rendering with {mesh.size} devices ({dev.type}).")
     os.makedirs(args.out_dir, exist_ok=True)
 
     def sync():
@@ -135,7 +203,8 @@ def main(argv=None) -> None:
 
     data, meta = load_scene(args.scene, device=dev)
     t0 = time.perf_counter()
-    accel = engine_accel(args.engine, args.accel_cache, data, meta, dev)
+    accel = engine_accel(args.engine, args.accel_cache, data, meta, dev,
+                         save=rank == 0)
     engine = resolve_engine(args.engine, accel, meta)
     sync()
     t1 = time.perf_counter()
@@ -147,42 +216,22 @@ def main(argv=None) -> None:
               "--ssaa 1 (supersampling is off)")
 
     t_render = 0.0
-    for _ in range(args.repeat):
-        for cam in meta.cameras:
-            rcam = cam.scaled(args.ssaa) if args.ssaa > 1 else cam
-            if args.ssaa_mode == "adaptive":
-                rcam = cam  # adaptive samples at the final resolution
-            print(f"Rendering {cam.image_name} "
-                  f"({rcam.width}x{rcam.height}, engine={engine})...")
-            t2 = time.perf_counter()
-            img, adaptive_stats = render_one_camera(
-                data, meta, cam, accel, ssaa=args.ssaa, engine=engine,
-                ssaa_mode=args.ssaa_mode, bfc=args.bfc, chunk=args.chunk,
-                tone=args.tone, hdr=args.format == "exr", seed=args.seed,
-                adaptive_frac=args.adaptive_frac,
-                adaptive_extra=args.adaptive_extra,
-                adaptive_rounds=args.adaptive_rounds,
-                relaxed=args.relaxed_parity, device=dev)
-            t3 = time.perf_counter()  # the image is on the host: synced
-            t_render += t3 - t2
-            rays = rcam.width * rcam.height
-            print(f"  {t3 - t2:.3f} s, {rays / (t3 - t2) / 1e6:.2f} Mrays/s (primary)")
-            if args.json_metrics:
-                line = {
-                    "camera": cam.image_name,
-                    "width": rcam.width, "height": rcam.height,
-                    "primary_rays": rays,
-                    "render_s": round(t3 - t2, 4),
-                    "mrays_per_s": round(rays / (t3 - t2) / 1e6, 3),
-                    "engine": engine, "ssaa": args.ssaa,
-                    "device": str(dev),
-                    "n_tris": meta.n_tris, "n_spheres": meta.n_spheres,
-                    "max_depth": meta.max_depth, "lights": meta.n_lights,
-                }
-                if adaptive_stats is not None:
-                    line["adaptive"] = adaptive_stats
-                print(json.dumps(line))
-            write_image(args.out_dir, cam.image_name, img, args.format)
+    profile = contextlib.nullcontext()
+    if args.profile:
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if dev.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        profile = torch.profiler.profile(activities=acts)
+    with profile as prof:
+        for _ in range(args.repeat):
+            for cam in meta.cameras:
+                t_render += render_camera_cli(args, data, meta, cam, accel,
+                                              engine, dev, mesh, rank)
+    if args.profile:
+        os.makedirs(args.profile, exist_ok=True)
+        path = os.path.join(args.profile, f"trace_rank{rank}.json")
+        prof.export_chrome_trace(path)
+        print(f"Wrote the profiler trace to {path}")
     print(f"Rendered in {t_render / args.repeat:.3f} seconds.")
     print(f"Total: {t_render / args.repeat + (t1 - t0):.3f} seconds.")
 

@@ -1,6 +1,6 @@
 """Inverse-rendering CLI: ``python -m raytracer_tpu_torch.train scene.xml
 --target img.ppm [--fields mat_diffuse,light_int] [--steps N]`` (port of
-``raytracer_tpu/train.py`` on one device).
+``raytracer_tpu/train.py``).
 
 Given a scene whose parameters are wrong and a target image of the true
 scene, recover the parameters by Adam on an L2 image loss through the
@@ -12,6 +12,15 @@ scale, clipped to it in the loss) or EXR (linear float).
 ``--checkpoint`` is a train-state npz in the JAX package's layout, so a
 run of either package resumes in the other.  Runs on the GPU unless
 ``--device cpu``.
+
+``--mesh auto|N`` splits each step's rays over a device mesh (every card
+of the process by default; ``parallel.mesh.mesh_from_arg``), after
+bringing up ``torch.distributed`` from torchrun's environment: the loss
+and gradients are the shards' means, so every rank keeps the same
+parameters, and rank 0 alone writes the checkpoint and ``--out``.  As in
+the JAX CLI, ``--batch`` is rounded down to a multiple of the mesh size
+(at least one ray a shard), and a whole frame that the mesh does not
+divide drops its last rays once.
 """
 
 from __future__ import annotations
@@ -80,11 +89,17 @@ def main(argv=None) -> None:
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="cuda (default; the CUDA kernels) or cpu (the plain "
                          "PyTorch versions)")
+    ap.add_argument("--mesh", default="auto", metavar="auto|N",
+                    help="device mesh (auto = every card of the process; N "
+                         "shards over all processes, on the CPU logical "
+                         "ones; 1 = one device)")
     args = ap.parse_args(argv)
 
     from raytracer_tpu_torch.backend import resolve_device
     from raytracer_tpu_torch.models.scene import load_scene
     from raytracer_tpu_torch.ops.camera import camera_vectors, eye_rays_from
+    from raytracer_tpu_torch.parallel.distributed import initialize
+    from raytracer_tpu_torch.parallel.mesh import mesh_from_arg
     from raytracer_tpu_torch.parallel.train import (
         apply_params, init_state, make_train_step,
     )
@@ -93,12 +108,17 @@ def main(argv=None) -> None:
         load_train_state, save_train_state,
     )
 
-    dev = resolve_device(args.device)
     fields = tuple(f.strip() for f in args.fields.split(",") if f.strip())
     bad = [f for f in fields if f not in PARAM_FIELDS]
     if bad:
         raise SystemExit(f"unknown fields {bad}; choose from {PARAM_FIELDS}")
-    print(f"Training on 1 device(s) ({dev}), fields={list(fields)}")
+    rank = initialize()
+    dev = resolve_device(args.device)
+    mesh = mesh_from_arg(args.mesh, dev)
+    size = 1 if mesh is None else mesh.size
+    if mesh is not None:
+        dev = mesh.devices[0]
+    print(f"Training on {size} device(s) ({dev}), fields={list(fields)}")
 
     data, meta = load_scene(args.scene, device=dev)
     accel = engine_accel(args.engine, None, data, meta, dev)
@@ -117,7 +137,18 @@ def main(argv=None) -> None:
     origin, dirs_all = eye_rays_from(vec, cam.width, cam.height)
     target_all = torch.from_numpy(target.reshape(-1, 3)).to(dev)
     r_total = dirs_all.shape[0]
-    batch = args.batch if 0 < args.batch < r_total else r_total
+    batch = (max(args.batch - args.batch % size, size) if args.batch > 0
+             else r_total)
+    if batch >= r_total:
+        # the whole frame (a batch clamped down to it too): its tail that
+        # the mesh does not divide is dropped once, not redrawn every step
+        drop = r_total % size
+        if drop:
+            print(f"note: dropping {drop} of {r_total} rays so the frame "
+                  f"divides the {size}-device mesh")
+            r_total -= drop
+            dirs_all, target_all = dirs_all[:r_total], target_all[:r_total]
+        batch = r_total
 
     state = init_state(data, fields=fields)
     if args.checkpoint and os.path.exists(args.checkpoint):
@@ -125,7 +156,7 @@ def main(argv=None) -> None:
         print(f"Resumed train state from {args.checkpoint}")
     ldr = not args.target.lower().endswith(".exr")
     step_fn = make_train_step(meta, lr=args.lr, engine=args.engine, ldr=ldr,
-                              device=dev)
+                              device=dev, mesh=mesh)
 
     rng = np.random.default_rng(args.seed)
     d_dev, t_dev = dirs_all, target_all
@@ -141,15 +172,16 @@ def main(argv=None) -> None:
             print(f"step {i + 1:5d}  loss {float(loss):.6f}  "
                   f"({(time.perf_counter() - t0) / (i + 1):.3f} s/step)",
                   flush=True)
-        if args.checkpoint and (i + 1) % args.checkpoint_every == 0:
+        if (rank == 0 and args.checkpoint
+                and (i + 1) % args.checkpoint_every == 0):
             save_train_state(args.checkpoint, state)
     print(f"Final loss: {float(loss):.6f} after {args.steps} steps "
           f"({time.perf_counter() - t0:.1f} s)")
-    if args.checkpoint:
+    if rank == 0 and args.checkpoint:
         save_train_state(args.checkpoint, state)
         print(f"Saved train state to {args.checkpoint}")
 
-    if args.out:
+    if rank == 0 and args.out:
         from raytracer_tpu_torch.models.whitted import render_camera
         from raytracer_tpu_torch.ops.image import quantize
         from raytracer_tpu_torch.utils.ppm import write_ppm

@@ -252,13 +252,6 @@ def test_hier_case_equals_plain_on_card(cuda):
         assert torch.equal(a, b)
 
 
-def _on(obj, dev):
-    """A scene or cluster set with every tensor moved to ``dev``."""
-    return dataclasses.replace(obj, **{
-        f.name: getattr(obj, f.name).to(dev) for f in dataclasses.fields(obj)
-        if isinstance(getattr(obj, f.name), torch.Tensor)})
-
-
 def _terrain_both(cuda):
     """(meta, camera, CPU (data, cset), CUDA (data, cset)) of one terrain."""
     from raytracer_tpu_torch.models.bvh import build_bvh
@@ -268,7 +261,7 @@ def _terrain_both(cuda):
     data, meta = synth.terrain_scene(cells=40, res=64, mirror_stripes=True,
                                      device="cpu")
     cset = build_clusters(data, meta, build_bvh(data, meta))
-    return meta, meta.cameras[0], (data, cset), (_on(data, cuda), _on(cset, cuda))
+    return meta, meta.cameras[0], (data, cset), (data.to(cuda), cset.to(cuda))
 
 
 @pytest.mark.parametrize("ssaa,mode", [(2, "parity"), (4, "parity"), (2, "jitter")])
@@ -344,8 +337,8 @@ def _train_step_both(cuda, engine, fields=("mat_diffuse", "light_int")):
                               light_int=data.light_int * 0.7)
     out = []
     for dev in (cuda, torch.device("cpu")):
-        d = _on(bad, dev)
-        acc = None if accel is None else _on(accel, dev)
+        d = bad.to(dev)
+        acc = None if accel is None else accel.to(dev)
         state = init_state(d, fields=fields)
         step = make_train_step(meta, engine=engine, device=dev)
         state, loss = step(state, d, origin.to(dev), dirs.to(dev),
@@ -446,3 +439,118 @@ def test_train_step_kernels_equal_plain_on_card(cuda):
         out_p = out_p if isinstance(out_p, tuple) else (out_p,)
         for a, b in zip(out_k, out_p):
             assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("height,ssaa", [(64, 2), (150, 1)])
+def test_mesh_frame_equals_single_device_on_card(cuda, height, ssaa):
+    """A 2-shard mesh of one card (logical shards) renders the terrain bit
+    for bit as one device does, at --ssaa 2 and at 150 rows (the last band
+    padded with virtual rows), launching the kernels on the card."""
+    import numpy as np
+
+    from raytracer_tpu_torch.models.bvh import build_bvh
+    from raytracer_tpu_torch.models.clusters import build_clusters
+    from raytracer_tpu_torch.ops import kernels as K
+    from raytracer_tpu_torch.parallel.mesh import make_mesh
+    from raytracer_tpu_torch.pipeline import render_one_camera
+    from raytracer_tpu_torch.utils import synth
+
+    data, meta = synth.terrain_scene(cells=40, res=64, mirror_stripes=True,
+                                     device=cuda)
+    cset = build_clusters(data, meta, build_bvh(data, meta))
+    cam = dataclasses.replace(meta.cameras[0], width=64 * (1 + (height > 64)),
+                              height=height)
+    single, _ = render_one_camera(data, meta, cam, cset, ssaa=ssaa, device=cuda)
+    K.reset_launches()
+    mesh = make_mesh(devices=[cuda, cuda])
+    sharded, _ = render_one_camera(data, meta, cam, cset, ssaa=ssaa,
+                                   device=cuda, mesh=mesh)
+    assert K.launches["closest_shared"] == 2 and K.launches["shadow"] > 0
+    np.testing.assert_array_equal(sharded, single)
+
+
+def test_mesh_train_step_equals_single_device_on_card(cuda):
+    """A training step on a 2-shard mesh of one card against one device:
+    the loss to rtol 1e-5, each gradient within 1e-3 of its max |g|."""
+    from raytracer_tpu_torch.models.bvh import build_bvh
+    from raytracer_tpu_torch.models.clusters import build_clusters
+    from raytracer_tpu_torch.models.whitted import render_rays
+    from raytracer_tpu_torch.ops.camera import camera_vectors, eye_rays_from
+    from raytracer_tpu_torch.parallel.mesh import make_mesh
+    from raytracer_tpu_torch.parallel.train import init_state, make_train_step
+    from raytracer_tpu_torch.utils import synth
+
+    data, meta = synth.terrain_scene(cells=12, res=32, mirror_stripes=True,
+                                     device=cuda)
+    cset = build_clusters(data, meta, build_bvh(data, meta))
+    cam = meta.cameras[0]
+    origin, dirs = eye_rays_from(torch.from_numpy(camera_vectors(cam)).to(cuda),
+                                 cam.width, cam.height)
+    with torch.no_grad():
+        target = render_rays(data, meta, origin, dirs, cset, engine="cluster")
+    bad = dataclasses.replace(data, mat_diffuse=data.mat_diffuse * 0.5,
+                              light_int=data.light_int * 0.7)
+    got = []
+    for mesh in (None, make_mesh(devices=[cuda, cuda])):
+        state = init_state(bad, fields=("mat_diffuse", "light_int", "vertices"))
+        step = make_train_step(meta, engine="cluster", device=cuda, mesh=mesh)
+        state, loss = step(state, bad, origin, dirs, target, accel=cset)
+        got.append((float(loss), {f: p.grad for f, p in state.params.items()}))
+    (l1, g1), (l2, g2) = got
+    assert abs(l2 - l1) <= 1e-5 * abs(l1)
+    for f, want in g1.items():
+        assert torch.isfinite(g2[f]).all(), f
+        assert float((g2[f] - want).abs().max()) <= 1e-3 * float(want.abs().max()), f
+
+
+def test_served_frame_kernels_equal_plain_on_card(cuda, tmp_path):
+    """A request to the render server on the card (the entry scene at
+    --ssaa 2): its image is render_one_camera's, and every kernel call it
+    makes equals its plain version."""
+    import os
+
+    import numpy as np
+
+    from raytracer_tpu_torch.models.bvh import build_bvh
+    from raytracer_tpu_torch.models.clusters import build_clusters
+    from raytracer_tpu_torch.models.scene import load_scene
+    from raytracer_tpu_torch.pipeline import render_one_camera
+    from raytracer_tpu_torch.serve import RenderServer
+    from raytracer_tpu_torch.utils.ppm import read_ppm
+
+    xml = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                       "entry_scene.xml")
+    from raytracer_tpu_torch.ops import kernels as K
+
+    server = RenderServer(device=cuda)
+    calls = []
+    names = ("ray_mask", "closest", "shadow")
+    wrapped = {n: getattr(K, n) for n in names}
+
+    def spy(name):
+        def f(*a):
+            calls.append((name, a))
+            return wrapped[name](*a)
+        return f
+
+    for n in names:
+        setattr(K, n, spy(n))
+    try:
+        r = server.handle({"scene": xml, "out_dir": str(tmp_path), "ssaa": 2})
+    finally:
+        for n, f in wrapped.items():
+            setattr(K, n, f)
+    assert r["ok"], r
+    assert {n for n, _ in calls} == set(names)
+    for name, args in calls:
+        out_k = wrapped[name](*args)
+        out_p = getattr(K, name + "_plain")(*args)
+        out_k = out_k if isinstance(out_k, tuple) else (out_k,)
+        out_p = out_p if isinstance(out_p, tuple) else (out_p,)
+        for a, b in zip(out_k, out_p):
+            assert torch.equal(a, b), name
+    data, meta = load_scene(xml, device=cuda)
+    cset = build_clusters(data, meta, build_bvh(data, meta))
+    want, _ = render_one_camera(data, meta, meta.cameras[0], cset, ssaa=2,
+                                device=cuda)
+    np.testing.assert_array_equal(read_ppm(r["images"][0]), want)

@@ -38,8 +38,9 @@ def test_render_loads_no_jax(tmp_path):
 def test_every_module_loads_no_jax(tmp_path):
     """In a fresh interpreter: import every module of the port (the
     adaptive sampler, the PNG/EXR writers, the accel cache, the diff CLI,
-    the brute and BVH engines and training among them) and run the CLI in
-    the adaptive mode to PNG and the diff CLI on its output."""
+    the brute and BVH engines, training, the mesh, the process group,
+    sharded rendering, scaling and the render server among them) and run
+    the CLI in the adaptive mode to PNG and the diff CLI on its output."""
     mods = sorted(
         os.path.relpath(p, REPO)[:-3].replace(os.sep, ".").removesuffix(".__init__")
         for p in _sources() if p.startswith(PKG))
@@ -47,7 +48,11 @@ def test_every_module_loads_no_jax(tmp_path):
             "raytracer_tpu_torch.utils.exr", "raytracer_tpu_torch.utils.checkpoint",
             "raytracer_tpu_torch.compare", "raytracer_tpu_torch.ops.intersect",
             "raytracer_tpu_torch.ops.traverse", "raytracer_tpu_torch.parallel.train",
-            "raytracer_tpu_torch.train"} <= set(mods)
+            "raytracer_tpu_torch.train", "raytracer_tpu_torch.serve",
+            "raytracer_tpu_torch.parallel.mesh",
+            "raytracer_tpu_torch.parallel.render",
+            "raytracer_tpu_torch.parallel.distributed",
+            "raytracer_tpu_torch.parallel.scaling"} <= set(mods)
     png = os.path.join(str(tmp_path), "entry_scene.png")
     code = (
         "import importlib, sys\n"
@@ -103,6 +108,12 @@ def test_default_device_raises_without_cuda(monkeypatch):
     for fn in (render_camera, render_one_camera):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             fn(None, None, None, None)
+    from raytracer_tpu_torch.parallel.mesh import mesh_from_arg
+    from raytracer_tpu_torch.serve import RenderServer
+
+    for fn in (mesh_from_arg, RenderServer):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn()
     assert backend.resolve_device("cpu") == torch.device("cpu")
 
 
