@@ -7,7 +7,8 @@ counterpart is easy to find; it never imports JAX or ``raytracer_tpu``.
 - ``models``: scene, BVH and cluster builds (host numpy -> device
   tensors), the Whitted wavefront integrator (forward and
   differentiable).
-- ``ops``: eye rays, tile order, the brute and BVH engines
+- ``ops``: eye rays and their jitter (``camera``; ``random``, the port's
+  copy of JAX's threefry key algebra), tile order, the brute and BVH engines
   (``traverse``, ``intersect``), the cluster engine's glue
   (``cluster_trace``) and its CUDA kernels with their plain PyTorch
   versions (``kernels``), shading and hit refinement, quantization and
@@ -29,6 +30,28 @@ Entry points (``render.main``, ``train.main``, ``serve.main`` and
 ``parallel.mesh.mesh_from_arg``, ``parallel.scaling.measure_scaling``)
 run on CUDA by default and raise without a GPU; ``device="cpu"`` selects
 the plain versions.
+
+The JAX package's library names are re-exported here, from ``ops`` and
+from ``parallel``.  Importing them loads no kernel library (it is built at
+the first launch) and no JAX.
 """
+
+from raytracer_tpu_torch.models.bvh import BVH, build_bvh
+from raytracer_tpu_torch.models.clusters import ClusterSet, build_clusters
+from raytracer_tpu_torch.models.scene import Camera, SceneData, SceneMeta, load_scene
+from raytracer_tpu_torch.models.whitted import render_camera, render_rays
+
+__all__ = [
+    "SceneData",
+    "SceneMeta",
+    "Camera",
+    "load_scene",
+    "BVH",
+    "build_bvh",
+    "ClusterSet",
+    "build_clusters",
+    "render_rays",
+    "render_camera",
+]
 
 __version__ = "0.1.0"

@@ -6,8 +6,12 @@ against every cluster box (``ops.cluster_trace``) and the surviving
 (tile, cluster) pairs are intersected densely by the kernels in
 ``ops.kernels``.  Triangles are stored in the Wald projection form
 (n = e1 x e2 and the dual edge basis w1, w2 with their products with
-vertex a); spheres as (center, radius).  Only the default contiguous
-(non-treelet) layout is ported.
+vertex a); spheres as (center, radius).  The default layout runs 128
+triangles a cluster in BVH preorder; ``treelet=True`` starts a cluster at
+every BVH subtree of at most 128 primitives, which leaves padded gaps
+among the triangle slots.  A padding slot is all zeros in ``tri_dat``
+(t = 0/0 = NaN: no test passes) and ``tri_verts`` (its shadow planes
+never occlude), so no consumer needs the valid slots to be a prefix.
 
 The build is host numpy (float64 where the JAX package uses it), so
 every array equals the JAX package's bit for bit; the result is moved
@@ -60,14 +64,47 @@ def _pad_to_multiple(n: int, m: int) -> int:
     return max(m, ((n + m - 1) // m) * m)
 
 
+def _treelet_slots(bvh: BVH, max_size: int) -> np.ndarray:
+    """Slot of each BVH preorder primitive position in the treelet layout:
+    top down, the largest subtrees of at most ``max_size`` primitives (and
+    leaves, cut into ``max_size`` runs) each start a new cluster, whose
+    preorder primitive range is contiguous; a cluster's unused slots stay
+    padding."""
+    counts = np.asarray(bvh.leaf_count, np.int64)
+    skip = np.asarray(bvh.skip, np.int64)
+    n = counts.shape[0]
+    cum = np.zeros(n + 1, np.int64)
+    np.cumsum(counts, out=cum[1:])  # cum[i] = prims before node i (preorder)
+    ranges = []  # (lo, hi) prim ranges, preorder-ascending
+    stack = [0]
+    while stack:
+        i = stack.pop()
+        lo, hi = cum[i], cum[skip[i]]
+        if hi <= lo:
+            continue
+        if hi - lo <= max_size or counts[i] > 0:
+            for s in range(lo, hi, max_size):
+                ranges.append((s, min(s + max_size, hi)))
+        else:  # inner node: left i + 1, right skip[i + 1], preorder kept
+            stack.append(skip[i + 1])
+            stack.append(i + 1)
+    slot = np.zeros(cum[n], np.int64)
+    base = 0
+    for lo, hi in ranges:
+        slot[lo:hi] = base + np.arange(hi - lo)
+        base += CLUSTER * (-(-(hi - lo) // CLUSTER))
+    return slot
+
+
 def cluster_arrays(data: SceneData, meta: SceneMeta,
-                   bvh: Optional[BVH] = None) -> dict:
+                   bvh: Optional[BVH] = None, treelet: bool = False) -> dict:
     """The ClusterSet fields as numpy arrays (plus ``n_tri``/``n_sph``)."""
     verts = data.vertices.cpu().numpy().astype(np.float32)
     tri_v = data.tri_v.cpu().numpy().astype(np.int64)
     t_pad = tri_v.shape[0]
     n_tri, n_sph = meta.n_tris, meta.n_spheres
 
+    tri_pos = np.arange(n_tri, dtype=np.int64)  # slot of each triangle
     if bvh is not None:
         order = np.asarray(bvh.prim_idx, np.int64)
         tri_order = order[order < t_pad][:n_tri]
@@ -76,13 +113,22 @@ def cluster_arrays(data: SceneData, meta: SceneMeta,
             tri_order = np.arange(n_tri, dtype=np.int64)
         if sph_order.shape[0] != n_sph:
             sph_order = np.arange(n_sph, dtype=np.int64)
+        if treelet and n_tri:
+            # the partition of the whole primitive sequence, projected on
+            # the triangles: spheres leave gaps (they keep their own runs)
+            slot_all = _treelet_slots(bvh, CLUSTER)
+            tri_pos = slot_all[np.nonzero(order < t_pad)[0][:n_tri]]
+            # clusters left without a triangle are dropped
+            used = np.zeros((int(tri_pos.max()) // CLUSTER + 1,), bool)
+            used[tri_pos // CLUSTER] = True
+            remap = np.cumsum(used) - 1
+            tri_pos = remap[tri_pos // CLUSTER] * CLUSTER + tri_pos % CLUSTER
     else:
         tri_order = np.arange(n_tri, dtype=np.int64)
         sph_order = np.arange(n_sph, dtype=np.int64)
 
-    # --- triangles in Wald projection form (contiguous slots)
-    tri_pos = np.arange(n_tri, dtype=np.int64)
-    Pt = _pad_to_multiple(n_tri, CLUSTER)
+    # --- triangles in Wald projection form
+    Pt = _pad_to_multiple(int(tri_pos.max()) + 1 if n_tri else 0, CLUSTER)
     tri_dat = np.zeros((12, Pt), np.float32)
     tri_slot = np.zeros((Pt,), np.int32)
     if n_tri:
@@ -177,10 +223,12 @@ def cluster_arrays(data: SceneData, meta: SceneMeta,
 
 
 def build_clusters(data: SceneData, meta: SceneMeta,
-                   bvh: Optional[BVH] = None) -> ClusterSet:
+                   bvh: Optional[BVH] = None, treelet: bool = False) -> ClusterSet:
     """Host-side build; the ClusterSet lands on the scene's device.  With
     a BVH its preorder primitive sequence gives the spatial clustering,
-    without one file order is used."""
+    without one file order is used.  ``treelet`` (with a BVH) aligns the
+    triangle clusters to BVH subtrees: tighter boxes, more clusters."""
     from raytracer_tpu_torch.convert import clusters_from_numpy
 
-    return clusters_from_numpy(cluster_arrays(data, meta, bvh), data.device)
+    return clusters_from_numpy(cluster_arrays(data, meta, bvh, treelet),
+                               data.device)

@@ -33,6 +33,7 @@ each band's rays into the mesh's shards (``parallel.render``).
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -66,6 +67,38 @@ from raytracer_tpu_torch.ops.tiling import (
 _COMPACT_FROM = 2
 _COMPACT_MIN_DEPTH = 3
 _COMPACT_SCATTER = 0.15
+
+
+# debug_nans(): every wave's radiance is checked after each bounce
+_debug = {"nans": False}
+
+
+@contextlib.contextmanager
+def debug_nans(on: bool = True):
+    """Inside the block (``--debug-nans``) the radiance of every wave is
+    checked after each bounce, one device sync a bounce, and a value that
+    is not finite raises FloatingPointError naming the bounce (and the
+    band or adaptive wave); the autograd anomaly mode is on too, so a
+    differentiable render's backward names the forward op behind a NaN.
+    The port's counterpart of the JAX package's ``jax_debug_nans``, not
+    the same switch: that one checks the output of every op."""
+    prev = _debug["nans"]
+    _debug["nans"] = on
+    try:
+        with torch.autograd.set_detect_anomaly(on):
+            yield
+    finally:
+        _debug["nans"] = prev
+
+
+@contextlib.contextmanager
+def nan_site(where: str):
+    """Prefix ``where`` to a FloatingPointError of ``debug_nans`` raised
+    inside the block."""
+    try:
+        yield
+    except FloatingPointError as e:
+        raise FloatingPointError(f"{where}: {e}") from None
 
 
 def _compact_carry(carry):
@@ -179,6 +212,9 @@ def render_rays(data: SceneData, meta: SceneMeta, origin, dirs, accel,
                             shadow_multi_fn=shadow_multi_fn,
                             occluded_fn=occluded_fn)
         color = color + throughput * torch.where(h.hit[:, None], local, 0.0)
+        if _debug["nans"] and not bool(torch.isfinite(color).all()):
+            raise FloatingPointError(
+                f"radiance not finite after bounce {depth}")
         refl_org, refl_dir, tint, is_mirror = reflection_rays(data, cur_dir, h)
         active = active & is_mirror
         throughput = torch.where(active[:, None], throughput * tint, 0.0)
@@ -367,10 +403,11 @@ def render_camera_streamed(data: SceneData, meta: SceneMeta, cam: Camera,
     (``render_band``).  Bands are ``max(lcm, (chunk // W*ssaa) // lcm *
     lcm)`` rows, lcm = lcm(16, ssaa), the last one shorter, as in the JAX
     package: a band holds whole SSAA pixels, and the jitter mode (ssaa >
-    1) draws each band's offsets keyed on (seed, its first row).
-    ``jitter``: optional callable ``(key, shape) -> array`` that supplies
-    those draws in place of ``ops.camera.jitter_offsets`` (key ``("band",
-    row0)``, shape (rows, W*ssaa, 2)).
+    1) draws each band's offsets keyed on (seed, its first row) as the JAX
+    package does (``ops.camera.draw_jitter``; the seed must lie in [0,
+    2**32)).  ``jitter``: optional callable ``(key, shape) -> array`` that
+    supplies those draws instead (key ``("band", row0)``, shape (rows,
+    W*ssaa, 2)).
 
     ``mesh`` (``parallel.mesh.Mesh`` of more than one shard, its first
     device ``device``): each band's rays are split over it.  The lcm then
@@ -408,9 +445,10 @@ def render_camera_streamed(data: SceneData, meta: SceneMeta, cam: Camera,
         offsets = None
         if ssaa_mode == "jitter" and ssaa > 1:
             offsets = draw_jitter(jitter, seed, ("band", row0), (bh, ws, 2), dev)
-        bands.append(render_band(
-            data, meta, accel, vec, hs, ws, row0, bh, ssaa=ssaa,
-            ssaa_mode=ssaa_mode, hdr=hdr, chunk=chunk, jitter=offsets,
-            bfc=bfc, relaxed=relaxed, engine=engine, mesh=mesh))
+        with nan_site(f"band of rows {row0}-{row0 + bh - 1}"):
+            bands.append(render_band(
+                data, meta, accel, vec, hs, ws, row0, bh, ssaa=ssaa,
+                ssaa_mode=ssaa_mode, hdr=hdr, chunk=chunk, jitter=offsets,
+                bfc=bfc, relaxed=relaxed, engine=engine, mesh=mesh))
     out = torch.cat(bands)
     return out[:cam.height] if out.shape[0] != cam.height else out

@@ -13,10 +13,10 @@ largest power-of-2 divisor of spp (at most 8), a run is a sub-block of
 128/g pixels x g consecutive samples, and the rays of a wave are laid out
 (block, sample group, sub-block, sample in group, pixel).
 
-The jitter comes from ``ops.camera.jitter_offsets`` (a counter hash drawn
-on the render's device, the same offsets on the CPU and CUDA), keyed
-``("base", 0)`` for the base wave and ``("round", r)`` for refinement round
-r, or from a caller's ``jitter(key, shape)``.  The top-k is a stable descending sort:
+The jitter is the JAX package's (``ops.camera.draw_jitter``: with ``kb,
+kr = split(PRNGKey(seed))`` the base wave ``("base", 0)`` draws from kb,
+refinement round r ``("round", r)`` from kr, or fold_in(kr, r) for r > 0),
+or comes from a caller's ``jitter(key, shape)``.  The top-k is a stable descending sort:
 the k highest scores in descending order, ties to the lower block, as
 ``jax.lax.top_k`` orders them (a refinement wave's jitter is indexed by
 that order).
@@ -29,7 +29,7 @@ import torch
 
 from raytracer_tpu_torch.models.scene import Camera, SceneData, SceneMeta
 from raytracer_tpu_torch.models.whitted import (
-    _cap_chunk_for_big_scenes, _render_device, _tile_block_shape,
+    _cap_chunk_for_big_scenes, _render_device, _tile_block_shape, nan_site,
     resolve_engine, trace,
 )
 from raytracer_tpu_torch.ops.camera import (
@@ -129,9 +129,10 @@ def render_camera_adaptive(data: SceneData, meta: SceneMeta, cam: Camera,
         cc = cols2.reshape(b, 1, sub, 1, p).expand(b, og, sub, g, p).reshape(-1)
         e, dirs = eye_rays_pixels(vec, w, h, rr, cc, jitter=offs.reshape(-1, 2))
         chunk = _cap_chunk_for_big_scenes(dirs.shape[0], accel)
-        color = trace(data, meta, e, dirs, accel, chunk, bfc=bfc,
-                      relaxed=relaxed, engine=engine,
-                      compact_mode="auto" if center_first else "deep")
+        with nan_site(f"adaptive {key[0]} wave {key[1]}"):
+            color = trace(data, meta, e, dirs, accel, chunk, bfc=bfc,
+                          relaxed=relaxed, engine=engine,
+                          compact_mode="auto" if center_first else "deep")
         color = color.reshape(b, og, sub, g, p, 3).permute(0, 1, 3, 2, 4, 5)
         return color.reshape(b, spp, npx, 3)
 

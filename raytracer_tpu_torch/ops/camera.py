@@ -7,22 +7,21 @@ left UNNORMALIZED (t along eye rays is in units of |s - e|).  Row 0 is
 the top image row.
 
 Sample jitter (the jitter and adaptive SSAA modes) comes from
-``jitter_offsets``: a counter-based hash of (seed, stream, index, element)
-in int64 tensor ops on the render's device.  Integer ops are exact, so a
-seed gives the same offsets bit for bit, and the same image, on the CPU
-and on CUDA, with no host draw or copy.  The JAX package draws with
-``jax.random``, which PyTorch cannot reproduce: a seed gives another
-(equally distributed) sample set there.
+``draw_jitter``: the JAX package's ``jax.random`` draws, keyed as it keys
+them, through ``ops.random`` (threefry2x32, the CUDA kernel
+``csrc/threefry.cu`` on the card).  Integer arithmetic is exact, so a seed
+gives the JAX package's sample set bit for bit, and the same image on the
+CPU and on CUDA.
 """
 
 from __future__ import annotations
 
-import math
-
 import numpy as np
 import torch
 
+from raytracer_tpu_torch.backend import resolve_device
 from raytracer_tpu_torch.models.scene import Camera
+from raytracer_tpu_torch.ops import random
 from raytracer_tpu_torch.ops.shade import cross
 
 
@@ -50,6 +49,21 @@ def camera_basis_from(vec: torch.Tensor, width: int, height: int):
     su_mult = (r - l) / vec.new_tensor(width)
     sv_mult = (t - b) / vec.new_tensor(height)
     return e, u, v, q, su_mult, sv_mult
+
+
+def camera_basis(cam: Camera, device="cuda"):
+    """(e, u, v, q, su_mult, sv_mult) of ``cam`` as f32 tensors on
+    ``device``."""
+    vec = torch.from_numpy(camera_vectors(cam)).to(resolve_device(device))
+    return camera_basis_from(vec, cam.width, cam.height)
+
+
+def eye_rays(cam: Camera, device="cuda"):
+    """Eye rays of the full pixel grid on ``device``: origin (3,), the
+    shared camera position, and dirs (H*W, 3), unnormalized, row-major,
+    row 0 the top row."""
+    vec = torch.from_numpy(camera_vectors(cam)).to(resolve_device(device))
+    return eye_rays_from(vec, cam.width, cam.height)
 
 
 def eye_rays_from(vec: torch.Tensor, width: int, height: int):
@@ -110,70 +124,52 @@ def eye_rays_pixels(vec: torch.Tensor, width: int, height: int, rows, cols,
     return e, s - e[None, :]
 
 
-# one stream of offsets per use, so equal indices draw independent sets
-JITTER_STREAMS = {"band": 0, "base": 1, "round": 2}
-
-_M32 = 0xFFFFFFFF
-
-
-def _mul32(x, m: int):
-    """x * m mod 2**32 for x in [0, 2**32) (a Python int or an int64
-    tensor) and a 32-bit constant m, in two 16-bit halves of m so that no
-    product overflows int64."""
-    return (x * (m & 0xFFFF) + (((x * (m >> 16)) & 0xFFFF) << 16)) & _M32
-
-
-def _mix32(x):
-    """The lowbias32 integer hash (C. Wellons) of x in [0, 2**32)."""
-    x = x ^ (x >> 16)
-    x = _mul32(x, 0x7FEB352D)
-    x = x ^ (x >> 15)
-    x = _mul32(x, 0x846CA68B)
-    return x ^ (x >> 16)
-
-
-def jitter_offsets(seed: int, key, shape, device="cpu") -> torch.Tensor:
-    """f32 tensor of ``shape`` on ``device``, uniform in [-0.5, 0.5) on a
-    2**-24 grid: element i is a hash of (``seed``, ``key``, i), with ``key
-    = (stream, index)``: a streamed band is ``("band", row0)``, adaptive
-    sampling's base wave ``("base", 0)`` and its refinement rounds
-    ``("round", r)``.  Bit-identical on every device."""
-    stream, index = key
-    seed = int(seed)
-    k = 0
-    for word in (seed & _M32, (seed >> 32) & _M32, JITTER_STREAMS[stream],
-                 int(index) & _M32):
-        k = _mix32(k ^ word)
-    k2 = _mix32(k ^ 0x9E3779B9)
-    i = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
-    x = _mix32(_mix32((i & _M32) ^ k) ^ (i >> 32) ^ k2)
-    # the top 24 bits, centred: exact in f32
-    return ((x >> 8) - (1 << 23)).to(torch.float32).mul_(2.0 ** -24).view(shape)
-
-
 def draw_jitter(jitter, seed: int, key, shape, device) -> torch.Tensor:
-    """The offsets of one draw on ``device``: ``jitter(key, shape)`` when the
-    caller supplies arrays (tests inject the JAX package's draws), else
-    ``jitter_offsets(seed, key, shape, device)``."""
+    """The offsets in [-0.5, 0.5) of one draw on ``device``, keyed as the
+    JAX package keys its ``jax.random`` draws: a streamed band ``("band",
+    row0)`` draws ``uniform(fold_in(PRNGKey(seed), row0))``, where the
+    seed must lie in [0, 2**32) (JAX's ``jnp.uint32(seed)``; OverflowError
+    else); with ``kb, kr = split(PRNGKey(seed))``, adaptive sampling's
+    base wave ``("base", 0)`` draws ``uniform(kb)`` and its refinement
+    round r ``("round", r)`` draws ``uniform(kr)`` for r = 0, else
+    ``uniform(fold_in(kr, r))``.  ``jitter(key, shape)``, when given,
+    supplies the arrays instead (a recorded draw replayed on another
+    device, or a test's own)."""
+    shape = tuple(shape)
     if jitter is None:
-        return jitter_offsets(seed, key, tuple(shape), device)
-    x = jitter(key, tuple(shape))
+        return random.uniform(jitter_key(seed, key), shape, -0.5, 0.5, device)
+    x = jitter(key, shape)
     if not isinstance(x, torch.Tensor):
         x = torch.from_numpy(np.array(x, dtype=np.float32))
-    if tuple(x.shape) != tuple(shape):
+    if tuple(x.shape) != shape:
         raise ValueError(f"jitter for {key}: shape {tuple(x.shape)}, "
-                         f"expected {tuple(shape)}")
+                         f"expected {shape}")
     return x.to(device=device, dtype=torch.float32)
 
 
+def jitter_key(seed: int, key) -> tuple:
+    """The threefry key of draw ``key`` under ``seed`` (``draw_jitter``)."""
+    stream, index = key
+    if stream == "band":
+        seed = int(seed)
+        if not 0 <= seed < 1 << 32:
+            raise OverflowError(f"seed {seed} out of bounds for uint32 (the "
+                                "streamed route's seed, as in the JAX package)")
+        return random.fold_in(random.prng_key(seed), index)
+    kb, kr = random.split(random.prng_key(seed))
+    if stream == "base":
+        return kb
+    return kr if index == 0 else random.fold_in(kr, index)   # "round"
+
+
 def recorded_jitter(seed: int, device="cpu"):
-    """(record, replay) ``jitter`` callables: ``record`` draws
-    ``jitter_offsets(seed, ..., device)`` and keeps each array, ``replay``
-    hands the kept arrays to a second render (the same samples on another
-    device)."""
+    """(record, replay) ``jitter`` callables: ``record`` draws each array
+    on ``device`` (``draw_jitter`` without injection) and keeps it,
+    ``replay`` hands the kept arrays to a second render (the same samples
+    on another device)."""
     drawn = {}
 
     def record(key, shape):
-        drawn[key] = jitter_offsets(seed, key, shape, device)
+        drawn[key] = draw_jitter(None, seed, key, shape, device)
         return drawn[key]
     return record, lambda key, shape: drawn[key]

@@ -66,15 +66,20 @@ def _interval_mul(alo, ahi, blo, bhi):
     return lo, hi
 
 
-def tile_cluster_mask(origin, dirs, active, cmin, cmax, t_hi, tile: int):
+def tile_cluster_mask(origin, dirs, active, cmin, cmax, t_hi, tile: int,
+                      subsplit: int = 1):
     """(hit (nt, C) bool, entry lower bound (nt, C) f32): could any ray of
     the tile hit the cluster box?  Interval arithmetic over the tile's
     origin and direction boxes (conservative; near-tight for the coherent
-    frusta of shared-origin eye tiles).  ``active``: (R,) or None; closest-
-    hit waves have no t window, so ``t_hi`` must be None."""
-    if t_hi is not None:
-        raise ValueError("tile_cluster_mask takes no t window")
+    frusta of shared-origin eye tiles).  ``active``: (R,) or None;
+    ``t_hi``: (R,) upper bound of the useful t per ray, or None (closest-
+    hit waves).  With ``subsplit`` > 1 each tile is tested as that many
+    sub-intervals of consecutive rays whose results are merged (hit: any;
+    entry: the least over the sub-intervals that hit), tighter for tiles
+    whose origins straddle depth discontinuities."""
     r = dirs.shape[0]
+    nt_out = r // tile
+    tile //= subsplit
     nt = r // tile
     o = origin.reshape(nt, tile, 3)
     d = dirs.reshape(nt, tile, 3)
@@ -82,6 +87,7 @@ def tile_cluster_mask(origin, dirs, active, cmin, cmax, t_hi, tile: int):
         o_lo, o_hi = o.amin(1), o.amax(1)
         d_lo, d_hi = d.amin(1), d.amax(1)
         none_active = None
+        cap = None if t_hi is None else t_hi.reshape(nt, tile).amax(1)
     else:
         act = active.reshape(nt, tile, 1)
         o_lo = torch.where(act, o, _INF).amin(1)
@@ -94,6 +100,11 @@ def tile_cluster_mask(origin, dirs, active, cmin, cmax, t_hi, tile: int):
         o_hi = torch.where(none_active, 0.0, o_hi)
         d_lo = torch.where(none_active, 1.0, d_lo)
         d_hi = torch.where(none_active, 1.0, d_hi)
+        cap = None
+        if t_hi is not None:
+            cap = torch.where(active.reshape(nt, tile), t_hi.reshape(nt, tile),
+                              -_INF).amax(1)
+            cap = torch.where(none_active[:, 0], 0.0, cap)
 
     crosses = (d_lo <= 0.0) & (d_hi >= 0.0)
     i_lo = torch.where(crosses, -_BIG, 1.0 / d_hi)
@@ -109,8 +120,16 @@ def tile_cluster_mask(origin, dirs, active, cmin, cmax, t_hi, tile: int):
     entry_lo = torch.minimum(t1_lo, t2_lo).amax(-1)   # (nt, C)
     exit_hi = torch.maximum(t1_hi, t2_hi).amin(-1)
     hit = (entry_lo <= exit_hi) & (exit_hi >= 0.0)
+    if cap is not None:
+        hit &= entry_lo <= cap[:, None]
     if none_active is not None:
         hit &= ~none_active
+    if subsplit > 1:
+        c = hit.shape[1]
+        hit_s = hit.reshape(nt_out, subsplit, c)
+        entry_s = entry_lo.reshape(nt_out, subsplit, c)
+        entry_lo = torch.where(hit_s, entry_s, _INF).amin(1)
+        hit = hit_s.any(1)
     return hit, entry_lo
 
 

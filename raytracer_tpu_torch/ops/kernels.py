@@ -1,5 +1,5 @@
-"""The cluster engine's hand-written CUDA kernels: wrappers, plain
-PyTorch versions and launch counts.
+"""The hand-written CUDA kernels (the cluster engine's and the jitter
+draw): wrappers, plain PyTorch versions and launch counts.
 
 =============  ===========================  ==============================
 wrapper        CUDA source                  replaces (raytracer_tpu/ops/
@@ -12,6 +12,9 @@ closest        csrc/closest.cu              _closest_kernel (:720), shared
 shadow         csrc/shadow.cu               _shadow_kernel (:982) and
                                             _shadow_kernel_ml (:1135)
 any_hit        csrc/any.cu                  _any_kernel (:837)
+threefry_      csrc/threefry.cu             no Pallas kernel: XLA's draw
+uniform                                     of jax.random.uniform
+                                            (models/whitted.py:369)
 =============  ===========================  ==============================
 
 Each wrapper dispatches on the device of its inputs: CPU tensors go to
@@ -48,7 +51,7 @@ MAX_SPH_LIST = 8
 DENSE_SPH_ROWS = 8   # scenes with <= this many sphere clusters visit all
 
 launches = {"ray_mask": 0, "ray_mask_hier": 0, "closest_shared": 0,
-            "closest": 0, "shadow": 0, "any": 0}
+            "closest": 0, "shadow": 0, "any": 0, "threefry": 0}
 
 # tiles per step of the plain versions: bounds their (tiles, 128, 128)
 # and (tiles, 128, C) temporaries
@@ -79,13 +82,13 @@ def _check(name: str, x: torch.Tensor, dtype, shape, device) -> None:
 
 def _launch(name: str, counter: str, device: torch.device, *args) -> None:
     """Call C entry ``rt_<name>`` on the current stream of ``device``
-    (tensors pass as data pointers), raise on its CUDA error code, and
-    count the launch under ``counter``."""
+    (tensors pass as data pointers, floats as floats), raise on its CUDA
+    error code, and count the launch under ``counter``."""
     lib = backend.kernels()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else int(a)
-                  for a in args]
+        c_args = [a.data_ptr() if isinstance(a, torch.Tensor)
+                  else a if isinstance(a, float) else int(a) for a in args]
         rc = getattr(lib, "rt_" + name)(*c_args, stream)
     backend.check(rc, name)
     launches[counter] += 1
@@ -516,3 +519,60 @@ def any_hit_plain(tw, tl, tc, sw, sl, sc, origin, dirs, t_max, tri_dat,
             fnd |= hit.any(-1) & (k >= 0)[:, None]
         found[a:e] = fnd.to(torch.int32)
     return found.reshape(r)
+
+
+# ---------------------------------------------------------------------------
+# threefry_uniform: JAX's threefry2x32 uniform draw
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def threefry2x32(key, x0, x1):
+    """Threefry-2x32 with 20 rounds (JAX's ``threefry2x32_p``) of the
+    counter words (x0, x1) under ``key`` = (k0, k1): Python ints, or int64
+    tensors holding values in [0, 2**32) (every step is masked to 32
+    bits).  Returns the two output words."""
+    k0, k1 = key
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & _M32
+    x1 = (x1 + ks[1]) & _M32
+    for g in range(5):
+        for r in _ROTATIONS[g % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = ((x1 << r) | (x1 >> (32 - r))) & _M32
+            x1 = x1 ^ x0
+        x0 = (x0 + ks[(g + 1) % 3]) & _M32
+        x1 = (x1 + ks[(g + 2) % 3] + g + 1) & _M32
+    return x0, x1
+
+
+def threefry_uniform(k0: int, k1: int, n: int, lo: float, hi: float,
+                     device) -> torch.Tensor:
+    """(n,) f32 on ``device``: element i is ``jax.random.uniform``'s draw i
+    under the key (k0, k1) in [lo, hi), bit for bit (see the plain
+    version).  A CPU device takes the plain version, CUDA the kernel."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return threefry_uniform_plain(k0, k1, n, lo, hi, device)
+    out = torch.empty((n,), dtype=torch.float32, device=device)
+    _launch("threefry_uniform", "threefry", out.device, k0 & _M32, k1 & _M32,
+            float(lo), float(hi), out, n)
+    return out
+
+
+def threefry_uniform_plain(k0: int, k1: int, n: int, lo: float, hi: float,
+                           device="cpu") -> torch.Tensor:
+    """Plain PyTorch version of :func:`threefry_uniform`: int64 tensor ops
+    masked to 32 bits.  The counter of element i is (i >> 32, i & M); its
+    bits are the xor of the two output words, their top 23 bits the
+    mantissa of a float in [1, 2), less 1, then scaled to [lo, hi) in f32
+    and clamped below at lo (``jax.random.uniform``'s steps)."""
+    i = torch.arange(n, dtype=torch.int64, device=device)
+    x0, x1 = threefry2x32((k0 & _M32, k1 & _M32), i >> 32, i & _M32)
+    bits = ((x0 ^ x1) >> 9) | 0x3F800000
+    f = bits.to(torch.int32).view(torch.float32) - 1.0
+    lo_t = torch.tensor(lo, dtype=torch.float32, device=device)
+    hi_t = torch.tensor(hi, dtype=torch.float32, device=device)
+    return torch.maximum(lo_t, f * (hi_t - lo_t) + lo_t)

@@ -14,7 +14,8 @@ golden-parity mode.  Runs on the GPU unless ``--device cpu``.
 after bringing up ``torch.distributed`` when torchrun's environment is
 set (``parallel.distributed.initialize``); every rank then holds the
 whole image and rank 0 alone writes it.  ``--profile DIR`` writes a
-``torch.profiler`` trace of the render loop into DIR.
+``torch.profiler`` trace of the render loop into DIR.  ``--debug-nans``
+checks every wave's radiance (``models.whitted.debug_nans``).
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from raytracer_tpu_torch.backend import resolve_device
 from raytracer_tpu_torch.models.bvh import build_bvh, device_bvh
 from raytracer_tpu_torch.models.clusters import build_clusters
 from raytracer_tpu_torch.models.scene import load_scene
-from raytracer_tpu_torch.models.whitted import resolve_engine
+from raytracer_tpu_torch.models.whitted import debug_nans, resolve_engine
 from raytracer_tpu_torch.ops.image import TONE_MODES
 from raytracer_tpu_torch.parallel.distributed import initialize
 from raytracer_tpu_torch.parallel.mesh import mesh_from_arg
@@ -143,8 +144,9 @@ def main(argv=None) -> None:
                     help="adaptive mode: refinement passes, each re-scoring "
                          "block variance from the samples so far")
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the jitter and adaptive sample offsets; "
-                         "same seed, same image (on the CPU and on CUDA)")
+                    help="seed of the jitter and adaptive sample offsets "
+                         "(jax.random's threefry draws, so the JAX package's "
+                         "image for the same seed; on the CPU and on CUDA)")
     ap.add_argument("--engine", choices=["auto", "brute", "bvh", "cluster"],
                     default="auto",
                     help="visibility engine: cluster (the CUDA kernels; "
@@ -188,6 +190,13 @@ def main(argv=None) -> None:
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="write a torch.profiler trace of the render loop "
                          "into DIR (trace_rank<R>.json)")
+    ap.add_argument("--debug-nans", action="store_true",
+                    help="check every wave's radiance after each bounce and "
+                         "raise FloatingPointError naming the band and bounce "
+                         "of the first value that is not finite (one device "
+                         "sync a bounce; autograd anomaly mode on).  The "
+                         "port's counterpart of the JAX CLI's jax_debug_nans, "
+                         "not the same switch: that one checks every op")
     args = ap.parse_args(argv)
     rank = initialize()
     dev = resolve_device(args.device)
@@ -222,7 +231,7 @@ def main(argv=None) -> None:
         if dev.type == "cuda":
             acts.append(torch.profiler.ProfilerActivity.CUDA)
         profile = torch.profiler.profile(activities=acts)
-    with profile as prof:
+    with profile as prof, debug_nans(args.debug_nans):
         for _ in range(args.repeat):
             for cam in meta.cameras:
                 t_render += render_camera_cli(args, data, meta, cam, accel,

@@ -1,6 +1,7 @@
 """The port's adaptive sampling (``ops/adaptive.py``) against the JAX
-package's ``render_camera_adaptive`` on the same clusters, with the JAX
-package's own draws injected into the port (base wave and every round).
+package's ``render_camera_adaptive`` on the same clusters and seed, with
+nothing injected: the port draws the JAX package's samples (base wave and
+every round).
 
 Both sides score blocks by luma variance in float32, but XLA contracts
 FMAs on the CPU, so two scores may differ in their last bits, and two
@@ -20,7 +21,7 @@ import pytest
 import torch
 
 from torch_port_util import (
-    bad_pixels, jax_accel, jax_adaptive_jitter, radiance_outside, shared_inputs,
+    bad_pixels, jax_accel, radiance_outside, shared_inputs,
 )
 
 RTOL = 1e-3
@@ -100,8 +101,7 @@ def test_adaptive_matches_jax(scene, size, rounds, base_spp, extra_spp, frac,
     monkeypatch.setattr(adaptive, "stable_topk",
                         lambda s, k: picked.append(topk(s, k)) or picked[-1])
     pimg, pstats = adaptive.render_camera_adaptive(
-        pdata, pmeta, pcam, pcs, device="cpu", jitter=jax_adaptive_jitter(seed),
-        **kw)
+        pdata, pmeta, pcam, pcs, device="cpu", **kw)
     assert pstats == jstats
     k, nsel = pstats["refined_blocks"], pstats["refine_units"]
     per_round = pstats["extra_spp_per_round"]

@@ -286,10 +286,10 @@ def _json_lines(out):
 @pytest.mark.parametrize("mode", ["jitter", "adaptive"])
 def test_cli_stochastic_modes(tmp_path, capsys, mode):
     """--ssaa-mode jitter|adaptive through the port CLI: the image's shape,
-    the same image under one --seed and another under another; adaptive
-    prints the JAX CLI's ``adaptive`` stats in its metrics line.  (The
-    samples themselves are held to the JAX package's at the function level,
-    with its draws injected: test_torch_streamed, test_torch_adaptive.)"""
+    the same image under one --seed and another under another, and the
+    JAX CLI's image under the same --seed at the image bar (the port draws
+    the JAX package's samples); adaptive prints the JAX CLI's
+    ``adaptive`` stats in its metrics line."""
     from raytracer_tpu_torch.utils.ppm import read_ppm
 
     base = [ENTRY_XML, "--ssaa", "2", "--ssaa-mode", mode, "--json-metrics"]
@@ -302,11 +302,12 @@ def test_cli_stochastic_modes(tmp_path, capsys, mode):
     assert imgs[0].shape == (64, 64, 3) and imgs[0].max() > 0
     np.testing.assert_array_equal(imgs[0], imgs[1])
     assert (imgs[0] != imgs[2]).any()
-    if mode == "adaptive":
-        from raytracer_tpu.render import main as jmain
+    from raytracer_tpu.render import main as jmain
 
-        jmain(base + ["--mesh", "1", "--out-dir", str(tmp_path / "j")])
-        (jline,) = _json_lines(capsys.readouterr().out)
+    jmain(base + ["--seed", "5", "--mesh", "1", "--out-dir", str(tmp_path / "j")])
+    (jline,) = _json_lines(capsys.readouterr().out)
+    assert bad_pixels(imgs[0], read_ppm(str(tmp_path / "j" / "entry_scene.ppm"))) <= 4
+    if mode == "adaptive":
         assert line["adaptive"] == jline["adaptive"]
         assert line["adaptive"]["mean_spp"] == 5.5
         assert (line["width"], line["height"]) == (64, 64)

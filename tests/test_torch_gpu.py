@@ -43,7 +43,15 @@ def test_big_scene_kernels_equal_plain_on_card(cuda, scene, kw, bfc, relaxed,
                         bfc=bfc, relaxed=relaxed)
 
 
-def _render_and_compare(cuda, scene, kw, names, **render_kw):
+@pytest.mark.parametrize("scene,kw", SCENES[:2])
+def test_treelet_kernels_equal_plain_on_card(cuda, scene, kw):
+    """Treelet clusters (padded gaps among the terrain's triangle slots):
+    every kernel call of the frame equals its plain version."""
+    _render_and_compare(cuda, scene, kw, ("ray_mask", "closest", "shadow"),
+                        treelet=True)
+
+
+def _render_and_compare(cuda, scene, kw, names, treelet=False, **render_kw):
     """Render at 64x64 on the card, keeping the inputs of every call of the
     wrappers ``names``; then each call's kernel equals its plain version."""
     from raytracer_tpu_torch.models.bvh import build_bvh
@@ -53,7 +61,7 @@ def _render_and_compare(cuda, scene, kw, names, **render_kw):
     from raytracer_tpu_torch.utils import synth
 
     data, meta = getattr(synth, scene)(res=64, device=cuda, **kw)
-    cset = build_clusters(data, meta, build_bvh(data, meta))
+    cset = build_clusters(data, meta, build_bvh(data, meta), treelet=treelet)
     calls = []
     wrapped = {n: getattr(K, n) for n in names}
 
@@ -301,15 +309,22 @@ def test_adaptive_cuda_equals_cpu(cuda, rounds):
 
 
 @pytest.mark.parametrize("seed,key,shape", [(7, ("band", 48), (48, 512, 2)),
-                                            (2**40 + 3, ("base", 0), (64, 4, 128, 2))])
+                                            (2**40 + 3, ("base", 0), (64, 4, 128, 2)),
+                                            (3, ("round", 1), (5, 7, 2))])
 def test_jitter_draws_on_card_equal_cpu(cuda, seed, key, shape):
-    """The jitter hash drawn on the card equals the CPU's bit for bit, so
-    one seed renders one image on either device."""
-    from raytracer_tpu_torch.ops.camera import jitter_offsets
+    """The threefry kernel's draw on the card equals the plain version's on
+    the CPU bit for bit (one launch), so one seed renders one image on
+    either device."""
+    from raytracer_tpu_torch.ops import kernels as K
+    from raytracer_tpu_torch.ops.camera import draw_jitter
 
-    got = jitter_offsets(seed, key, shape, cuda)
+    K.reset_launches()
+    got = draw_jitter(None, seed, key, shape, cuda)
+    torch.cuda.synchronize()
+    assert K.launches["threefry"] == 1
     assert got.device.type == "cuda" and got.shape == shape
-    assert torch.equal(got.cpu(), jitter_offsets(seed, key, shape))
+    want = draw_jitter(None, seed, key, shape, "cpu")
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
 
 
 def _train_step_both(cuda, engine, fields=("mat_diffuse", "light_int")):

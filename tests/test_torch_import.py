@@ -82,6 +82,7 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "examples", "inverse_rendering_torch.py")
 
 
 def test_sources_import_no_jax():
@@ -108,6 +109,10 @@ def test_default_device_raises_without_cuda(monkeypatch):
     for fn in (render_camera, render_one_camera):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             fn(None, None, None, None)
+    from raytracer_tpu_torch.ops.random import uniform
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        uniform((0, 3), (4, 2))
     from raytracer_tpu_torch.parallel.mesh import mesh_from_arg
     from raytracer_tpu_torch.serve import RenderServer
 
@@ -136,13 +141,15 @@ def test_wrappers_dispatch_on_tensor_device(monkeypatch):
                 torch.zeros((4, 128)))
     K.reset_launches()
     assert set(K.launches) == {"ray_mask", "ray_mask_hier", "closest_shared",
-                               "closest", "shadow", "any"}
+                               "closest", "shadow", "any", "threefry"}
     hit, ent = K.ray_mask(act, box, bundle)
     assert hit.shape == (1, 3) and ent.dtype == torch.float32
     hit, ent = K.ray_mask_hier(act, sup, box, bundle)
     assert hit.shape == (1, 3) and ent.dtype == torch.float32
     found = K.any_hit(*any_args)
     assert found.shape == (128,) and found.dtype == torch.int32
+    u = K.threefry_uniform(0, 3, 10, -0.5, 0.5, "cpu")
+    assert u.shape == (10,) and u.dtype == torch.float32
     assert sum(K.launches.values()) == 0
 
     def no_nvcc():
@@ -158,4 +165,6 @@ def test_wrappers_dispatch_on_tensor_device(monkeypatch):
         K.ray_mask_hier(meta[0], sup.to("meta"), *meta[1:])
     with pytest.raises(RuntimeError, match="nvcc"):
         K.any_hit(*[x.to("meta") for x in any_args])
+    with pytest.raises(RuntimeError, match="nvcc"):
+        K.threefry_uniform(0, 3, 10, -0.5, 0.5, "meta")
     assert sum(K.launches.values()) == 0

@@ -6,7 +6,7 @@ the JAX package's forced 8-device CPU platform).
 
 Bars: bit for bit against the port's own single-device paths; against
 the JAX package's 8-device mesh path the image bars (at most 4 pixels >
-1 LSB, fewer than 1%), with the JAX jitter draws injected in jitter mode;
+1 LSB, fewer than 1%), in jitter mode with the port's own draws (JAX's);
 the sharded step's loss to rtol 1e-5 and each field's gradient within
 1e-3 of its max against one device, and the bars of test_torch_train
 against the JAX ``pmean``'d step."""
@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from torch_port_util import (
-    ENTRY_XML, bad_pixels, jax_accel, jax_band_jitter, shared_inputs,
+    ENTRY_XML, bad_pixels, jax_accel, shared_inputs,
 )
 
 
@@ -213,17 +213,18 @@ def test_mesh_matches_jax_mesh_parity(scene):
 
 @pytest.mark.parametrize("scene", ["entry", "terrain16"])
 def test_mesh_matches_jax_mesh_jitter(scene):
-    """Jitter with the JAX draws injected, over bands of a chunk that
-    makes 16-row bands on one device: on the 8-shard mesh the port asks
-    for the draws of JAX's mesh bands (64 rows: rows 0 and 64) and meets
-    the image bars against the JAX mesh render."""
+    """Jitter under one seed, over bands of a chunk that makes 16-row
+    bands on one device: on the 8-shard mesh the port draws for JAX's mesh
+    bands (64 rows: rows 0 and 64), the JAX samples, and meets the image
+    bars against the JAX mesh render."""
     from raytracer_tpu_torch.models.whitted import render_camera_streamed
+    from raytracer_tpu_torch.ops.camera import recorded_jitter
 
     _, _, pdata, pmeta, pcs = shared_inputs(scene)
     cam = _cam(pmeta)
     chunk = cam.width * 2 * 16 + 5
     keys = []
-    draw = jax_band_jitter(3)
+    draw, _ = recorded_jitter(3)
     got = render_camera_streamed(
         pdata, pmeta, cam, pcs, chunk=chunk, ssaa=2, ssaa_mode="jitter",
         device="cpu", mesh=_mesh(),

@@ -98,20 +98,14 @@ def test_sphere_field_radiance_matches_jax(scene):
     assert bad.sum() <= 0.03 * n
 
 
-def _both_pipelines(monkeypatch, seed=0, **kw):
+def _both_pipelines(seed=0, **kw):
     """render_one_camera of both packages on the entry scene's clusters:
-    (port image, JAX image, port stats, JAX stats).  The port draws the
-    JAX package's jitter (streamed bands and adaptive waves alike)."""
+    (port image, JAX image, port stats, JAX stats).  Nothing is injected:
+    the port draws the JAX package's jitter itself (streamed bands and
+    adaptive waves alike)."""
     from raytracer_tpu.pipeline import render_one_camera as jrender
-    from raytracer_tpu_torch.ops import camera
     from raytracer_tpu_torch.pipeline import render_one_camera
-    from torch_port_util import jax_adaptive_jitter, jax_band_jitter
 
-    draws = {"band": jax_band_jitter(seed), "base": jax_adaptive_jitter(seed),
-             "round": jax_adaptive_jitter(seed)}
-    monkeypatch.setattr(camera, "jitter_offsets",
-                        lambda s, key, shape, device: torch.as_tensor(
-                            np.array(draws[key[0]](key, shape)), device=device))
     jdata, jcs, pdata, pmeta, pcs = shared_inputs("entry")
     _, meta, _, _ = jax_accel("entry")
     j, jstats = jrender(jdata, meta, meta.cameras[0], jcs, engine="cluster",
@@ -122,26 +116,27 @@ def _both_pipelines(monkeypatch, seed=0, **kw):
 
 
 @pytest.mark.parametrize("ssaa,chunk", [(1, 1024), (2, 4096)])
-def test_frame_beyond_chunk_raises(monkeypatch, ssaa, chunk):
+def test_frame_beyond_chunk_raises(ssaa, chunk):
     """No longer raises: a frame above ``chunk`` rays (after SSAA) streams
     row bands through render_one_camera, as the JAX package's does, and
     the images agree at the image bar.  render_camera itself renders such
     a frame in chunks (test_torch_bigscene)."""
-    p, j, pstats, jstats = _both_pipelines(monkeypatch, ssaa=ssaa, chunk=chunk)
+    p, j, pstats, jstats = _both_pipelines(ssaa=ssaa, chunk=chunk)
     assert p.shape == j.shape == (64, 64, 3) and p.dtype == np.uint8
     assert pstats is None and jstats is None
     assert _bad_pixels(p, j) <= 4
 
 
 @pytest.mark.parametrize("mode", ["jitter", "adaptive"])
-def test_unported_modes_raise(monkeypatch, mode):
+def test_unported_modes_raise(mode):
     """The modes that raised before this slice render through
     render_one_camera at --ssaa 2 and agree with the JAX package's at the
-    image bar (its draws injected); adaptive returns the same stats.  An
+    image bar (the same seed, nothing injected); adaptive returns the same
+    stats.  An
     unknown mode or tone still raises."""
     from raytracer_tpu_torch.pipeline import render_one_camera
 
-    p, j, pstats, jstats = _both_pipelines(monkeypatch, ssaa=2, ssaa_mode=mode)
+    p, j, pstats, jstats = _both_pipelines(ssaa=2, ssaa_mode=mode)
     assert p.shape == j.shape == (64, 64, 3) and p.dtype == np.uint8
     assert pstats == jstats
     assert _bad_pixels(p, j) <= 4

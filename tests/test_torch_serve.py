@@ -232,17 +232,21 @@ def test_tcp_port0_survives_dropped_client(tmp_path):
 
 def test_server_matches_jax_server(tmp_path):
     """The port's server against the JAX package's on the entry scene, at
-    --ssaa 1 and 2: the image bars (at most 4 pixels > 1 LSB)."""
+    --ssaa 1 and 2, and at 2 in the jitter and adaptive modes under one
+    ``"seed"`` (the port draws the JAX package's samples): the image bars
+    (at most 4 pixels > 1 LSB)."""
     from raytracer_tpu.serve import RenderServer as JaxServer
     from raytracer_tpu_torch.serve import RenderServer
     from raytracer_tpu_torch.utils.ppm import read_ppm
 
     port = RenderServer(mesh="1", device="cpu")
     ref = JaxServer(mesh="1")
-    for ssaa in (1, 2):
-        req = {"scene": ENTRY_XML, "ssaa": ssaa}
-        a = port.handle(dict(req, out_dir=str(tmp_path / f"port{ssaa}")))
-        b = ref.handle(dict(req, out_dir=str(tmp_path / f"jax{ssaa}")))
+    for i, extra in enumerate(({"ssaa": 1}, {"ssaa": 2},
+                               {"ssaa": 2, "ssaa_mode": "jitter", "seed": 3},
+                               {"ssaa": 2, "ssaa_mode": "adaptive", "seed": 3})):
+        req = {"scene": ENTRY_XML, **extra}
+        a = port.handle(dict(req, out_dir=str(tmp_path / f"port{i}")))
+        b = ref.handle(dict(req, out_dir=str(tmp_path / f"jax{i}")))
         assert a["ok"] and b["ok"], (a, b)
         ia, ib = read_ppm(a["images"][0]), read_ppm(b["images"][0])
         assert ia.shape == ib.shape == (64, 64, 3)

@@ -3,7 +3,7 @@ jittered sampling: against the port's own whole frame (bit for bit) and
 against the JAX package's ``render_camera_streamed`` on the same clusters
 (the image bars of test_torch_render: at most 4 pixels > 1 LSB; radiance
 within rtol 1e-4 / atol 1e-3 on all but 4 pixels).  Jitter is compared
-with the JAX package's own draws injected into the port."""
+with nothing injected: the port draws the JAX package's sample sets."""
 
 import dataclasses
 
@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from torch_port_util import (
-    bad_pixels, jax_accel, jax_band_jitter, radiance_outside, shared_inputs,
+    bad_pixels, jax_accel, radiance_outside, shared_inputs,
 )
 
 # (width, height): the scene's 64x64, and 24x20, which the 8x16 blocks do
@@ -131,7 +131,7 @@ def test_streamed_hdr_matches_jax(ssaa_mode):
     kw = dict(chunk=_band_chunk(pcam, 2), ssaa=2, ssaa_mode=ssaa_mode, hdr=True,
               seed=3)
     j = _jax_streamed("entry", jcam, **kw)
-    p = _port_streamed("entry", pcam, jitter=jax_band_jitter(3), **kw)
+    p = _port_streamed("entry", pcam, **kw)
     assert p.dtype == j.dtype == np.float32 and p.shape == j.shape == (20, 24, 3)
     assert np.isfinite(p).all()
     assert radiance_outside(p, j) <= 4
@@ -140,13 +140,13 @@ def test_streamed_hdr_matches_jax(ssaa_mode):
 @pytest.mark.parametrize("scene,ssaa,seed", [("entry", 2, 0), ("entry", 3, 7),
                                              ("terrain16", 2, 1)])
 def test_jitter_matches_jax(scene, ssaa, seed):
-    """The JAX package's jitter draws injected into the port: the same
-    samples give the same image at the image bars, over several bands."""
+    """One seed, nothing injected: the port draws the JAX package's
+    samples and gives its image at the image bars, over several bands."""
     jcam, pcam = _cams(scene, "64x64")
     kw = dict(chunk=_band_chunk(pcam, ssaa), ssaa=ssaa, ssaa_mode="jitter",
               seed=seed)
     j = _jax_streamed(scene, jcam, **kw)
-    p = _port_streamed(scene, pcam, jitter=jax_band_jitter(seed), **kw)
+    p = _port_streamed(scene, pcam, **kw)
     assert bad_pixels(p, j) <= 4
     # and the jitter does move samples: not the mean-mode image
     mean = _port_streamed(scene, pcam, chunk=kw["chunk"], ssaa=ssaa,
@@ -155,22 +155,38 @@ def test_jitter_matches_jax(scene, ssaa, seed):
 
 
 def test_jitter_seeded_draws():
-    """The port's own draws: reproducible per (seed, key), independent
-    across seeds, bands and streams, uniform in [-0.5, 0.5); a frame
+    """The port's own draws (JAX's threefry keys, ``draw_jitter`` without
+    injection): reproducible per (seed, key), independent across seeds,
+    bands and streams, uniform in [-0.5, 0.5) on a 2**-23 grid; a seed
+    outside [0, 2**32) raises on the band route (JAX's ``jnp.uint32``) and
+    wraps mod 2**32 on the adaptive route (JAX's ``PRNGKey``); a frame
     renders the same under one seed and differently under another."""
-    from raytracer_tpu_torch.ops.camera import jitter_offsets
+    from raytracer_tpu_torch.ops.camera import draw_jitter
 
-    a = jitter_offsets(5, ("band", 16), (16, 64, 2))
+    def draw(seed, key, shape):
+        return draw_jitter(None, seed, key, shape, "cpu")
+
+    a = draw(5, ("band", 16), (16, 64, 2))
     assert a.dtype == torch.float32 and a.shape == (16, 64, 2)
     assert float(a.min()) >= -0.5 and float(a.max()) < 0.5
-    assert torch.equal(a, jitter_offsets(5, ("band", 16), (16, 64, 2)))
+    assert torch.equal(a, draw(5, ("band", 16), (16, 64, 2)))
     for other in ((6, ("band", 16)), (5, ("band", 32)), (5, ("base", 16)),
-                  (5 + 2**32, ("band", 16))):
-        assert not torch.equal(a, jitter_offsets(*other, (16, 64, 2)))
-    # uniform on a 2**-24 grid: mean 0, variance 1/12, neighbours and the
+                  (5, ("round", 0)), (5, ("round", 1))):
+        assert not torch.equal(a, draw(*other, (16, 64, 2)))
+    assert not torch.equal(draw(5, ("base", 0), (64, 2)),
+                           draw(5, ("round", 0), (64, 2)))
+    with pytest.raises(OverflowError, match="uint32"):
+        draw(5 + 2**32, ("band", 16), (16, 64, 2))
+    with pytest.raises(OverflowError, match="uint32"):
+        draw(-1, ("band", 0), (16, 64, 2))
+    assert torch.equal(draw(5 + 2**32, ("base", 0), (64, 2)),
+                       draw(5, ("base", 0), (64, 2)))
+    assert torch.equal(draw(-1, ("round", 2), (64, 2)),
+                       draw(2**32 - 1, ("round", 2), (64, 2)))
+    # uniform on a 2**-23 grid: mean 0, variance 1/12, neighbours and the
     # x/y pair uncorrelated (bounds of about 5 standard errors)
-    big = jitter_offsets(9, ("base", 0), (1 << 17, 2)).double()
-    assert torch.equal(big * 2**24, torch.round(big * 2**24))
+    big = draw(9, ("base", 0), (1 << 17, 2)).double()
+    assert torch.equal(big * 2**23, torch.round(big * 2**23))
     assert abs(float(big.mean())) < 5e-3 and abs(float(big.var()) - 1 / 12) < 2e-3
     flat = big.flatten()
     for x, y in ((flat[:-1], flat[1:]), (big[:, 0], big[:, 1])):

@@ -205,12 +205,15 @@ def float32_ambiguous(cs, origin, dirs, slot_a, slot_b, t_a, t_b,
 
 
 def prim_slots(cs, prim):
-    """Kernel slot of each global primitive id (-1 stays -1)."""
+    """Kernel slot of each global primitive id (-1 stays -1).  The valid
+    triangle slots are those with vertices (a treelet layout leaves
+    padded gaps among them)."""
     tri_slot, sph_slot = np.asarray(cs.tri_slot), np.asarray(cs.sph_slot)
     pt = tri_slot.shape[0]
     inv = np.full(max(int(tri_slot.max()), int(sph_slot.max())) + 2, -1)
     inv[sph_slot[:cs.n_sph]] = pt + np.arange(cs.n_sph)
-    inv[tri_slot[:cs.n_tri]] = np.arange(cs.n_tri)
+    valid = np.nonzero((np.asarray(cs.tri_verts) != 0).any(0))[0]
+    inv[tri_slot[valid]] = valid
     prim = np.asarray(prim)
     return np.where(prim >= 0, inv[np.maximum(prim, 0)], -1)
 
