@@ -147,6 +147,22 @@ then:
    its launches and kernel calls against the plain versions;
    8e. measure_scaling over 1 and 2 logical shards of the card (the split,
    not a scaling result);
+9. the compiled programs (``models.programs``: the cluster engine's
+   frames as captured CUDA graphs, the default on the card) against the
+   same bodies run eagerly (``whitted.eager()``) on the full-width frame,
+   the big terrain, streamed --ssaa 4, the jitter frame and a warm served
+   terrain request: 0 differing pixels and equal launches (or the run
+   fails), ms/frame (median of 5 warm frames of each, in turns), device
+   busy ms and idle share of one profiled frame of each, top-level host
+   ops per frame, the first graph call's captures, their ms and the graph
+   pool's bytes, each frame's peak allocated outside the pool; and the
+   threefry draw's device events in 5 profiled jitter frames and 5
+   profiled draws alone, each with and without a tiny kernel first;
+
+Phases 3, 3b, 6, 6c and 8d count launches on the replayed programs (a
+replay adds the launch counts its capture recorded) and record kernel
+calls in the same frame run eagerly, which must give the same image and
+launches: a replayed graph calls no wrapper.
 
 and prints the kernels' JSON line, then ``{"ok": true, "device": ...}``
 as its last line.  Any failure exits non-zero without that line.  Images
@@ -256,7 +272,14 @@ def check(cond, msg):
         raise Failure(msg)
 
 
+_T0 = time.perf_counter()
+
+
 def log(*a):
+    """Print a line; a phase heading ("== ...") gets the seconds since the
+    script started."""
+    if a and str(a[0]).startswith("=="):
+        a = (*a, f"[{time.perf_counter() - _T0:.1f} s]")
     print(*a, flush=True)
 
 
@@ -314,12 +337,15 @@ class Capture:
         self.tag = ""
 
     def keep(self, name, a, score):
-        """Keep call ``a`` under ``name`` (and the tag) if score() is the
-        highest yet."""
+        """Keep a copy of call ``a`` under ``name`` (and the tag) if score()
+        is the highest yet: a wavefront's static buffers, some of the
+        call's inputs, are rewritten by its later bounces."""
         name += self.tag
         sc = score()
         if sc > self.score.get(name, -1):
-            self.calls[name], self.score[name] = a, sc
+            self.calls[name] = tuple(
+                x.clone() if hasattr(x, "clone") else x for x in a)
+            self.score[name] = sc
             return True
         return False
 
@@ -339,7 +365,8 @@ class Capture:
             shared = a[6].dim() == 1
             if (self.keep("closest_shared" if shared else "closest", a, lists(a))
                     and not shared and self.last_mask is not None):
-                self.calls["ray_mask" + self.tag] = self.last_mask
+                self.calls["ray_mask" + self.tag] = tuple(
+                    x.clone() for x in self.last_mask)
             return orig["closest"](*a)
 
         def shadow(*a):
@@ -1188,16 +1215,18 @@ def to_cpu(data, meta, cset):
 
 def drive_path(label, data, meta, cset, results, key, must, must_not=()):
     """The main path of one scene at --ssaa 2 through render_one_camera:
-    a warm-up frame, one frame with the launch counts reset just before
-    and read just after (every kernel of ``must`` launched, none of
-    ``must_not``) and the kernel inputs captured, 5 timed frames, a
-    finite-radiance and coverage check, the scene through a 64x64 camera
-    against the CPU render (captured too), and one profiled frame.
-    Returns (capture, 64x64 capture, launches)."""
+    a warm-up frame (the programs' captures), one replayed frame with the
+    launch counts reset just before and read just after (every kernel of
+    ``must`` launched, none of ``must_not``), the same frame eager
+    (``whitted.eager()``: equal image and launches) with the kernel inputs
+    captured, 5 timed frames, a finite-radiance and coverage check, the
+    scene through a 64x64 camera against the CPU render (eager, captured
+    too, and replayed), and one profiled frame.  Returns (capture, 64x64
+    capture, launches)."""
     import numpy as np
     import torch
 
-    from raytracer_tpu_torch.models.whitted import render_camera
+    from raytracer_tpu_torch.models.whitted import eager, render_camera
     from raytracer_tpu_torch.ops import kernels as K
     from raytracer_tpu_torch.utils.ppm import write_ppm
 
@@ -1205,21 +1234,31 @@ def drive_path(label, data, meta, cset, results, key, must, must_not=()):
     cam = meta.cameras[0]
     rays = cam.width * 2 * cam.height * 2
     check(rays == 4_194_304, f"{rays} rays")
-    render_scene(data, meta, cset, 2, dev)          # warm-up
+    render_scene(data, meta, cset, 2, dev)          # warm-up: the captures
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
-    with Capture(K) as cap:
-        img = render_scene(data, meta, cset, 2, dev)
+    img = render_scene(data, meta, cset, 2, dev)    # replays
     torch.cuda.synchronize()
     launches = dict(K.launches)
     peak = torch.cuda.max_memory_allocated()
     log(f"  launches in one frame: {launches}")
-    log(f"  peak device memory of the frame: {peak} bytes ({peak / 2**30:.3f} GiB)")
+    log(f"  peak device memory of the frame: {peak} bytes ({peak / 2**30:.3f} "
+        f"GiB) allocated outside the graphs' pool; reserved "
+        f"{torch.cuda.memory_reserved()} bytes")
     for name in must:
         check(launches[name] > 0, f"{name} was not launched on the path")
     for name in must_not:
         check(launches[name] == 0, f"{name} was launched on the path")
+    # the same frame eager, its kernel calls recorded: a replay calls no
+    # wrapper
+    K.reset_launches()
+    with Capture(K) as cap, eager():
+        eager_img = render_scene(data, meta, cset, 2, dev)
+    torch.cuda.synchronize()
+    check(dict(K.launches) == launches,
+          f"{label}: eager launches {dict(K.launches)}, replayed {launches}")
+    check(np.array_equal(eager_img, img), f"{label}: the eager frame differs")
     # each frame's wall time, with the process's CPU time and involuntary
     # context switches (the host descheduling it) over the same frame
     times, cpu, nivcsw = [], [], []
@@ -1251,9 +1290,11 @@ def drive_path(label, data, meta, cset, results, key, must, must_not=()):
     # the same scene through a 64x64 camera: wide tiles whose shortlists
     # overflow (the bitmask scan), checked against the CPU render
     cpu_img = render_scene(*to_cpu(data, meta, cset), 1, "cpu", res=64)
-    with Capture(K) as small_cap:
+    with Capture(K) as small_cap, eager():
         cuda_img = render_scene(data, meta, cset, 1, dev, res=64)
     compare_images(cuda_img, cpu_img, f"{label} at 64x64, cuda vs cpu")
+    compare_images(render_scene(data, meta, cset, 1, dev, res=64), cpu_img,
+                   f"{label} at 64x64 replayed, cuda vs cpu")
     profile_frame(lambda: render_scene(data, meta, cset, 2, dev), results,
                   key + "_profile")
     prof = results.get(key + "_profile")
@@ -1771,28 +1812,37 @@ def instrumented(cap):
 def drive_mode(label, frame, results, key, must, checked, must_not=()):
     """One render mode through ``frame`` (render_one_camera): a warm-up
     frame; one frame with the launch counts reset just before and read
-    just after (every kernel of ``must`` launched, none of ``must_not``),
-    its kernel inputs captured and each kernel held against its plain
-    version (``checked``), its bands and its jitter draws timed; 3 timed
-    frames (median) and their peak device memory; one profiled frame
-    (device busy, idle share against the median).  Returns (image,
-    adaptive stats, launches)."""
+    just after (every kernel of ``must`` launched, none of ``must_not``);
+    the same frame eager (equal image and launches), its kernel inputs
+    captured and each kernel held against its plain version
+    (``checked``), its bands and its jitter draws timed; 3 timed frames
+    (median) and their peak device memory; one profiled frame (device
+    busy, idle share against the median).  Returns (image, adaptive stats,
+    launches)."""
     import numpy as np
     import torch
 
+    from raytracer_tpu_torch.models.whitted import eager
     from raytracer_tpu_torch.ops import kernels as K
 
     frame()
     torch.cuda.synchronize()
     K.reset_launches()
-    with Capture(K) as cap, instrumented(cap) as seen:
-        img, stats = frame()
+    img, stats = frame()
     torch.cuda.synchronize()
     launches = dict(K.launches)
     for name in must:
         check(launches[name] > 0, f"{label}: {name} was not launched")
     for name in must_not:
         check(launches[name] == 0, f"{label}: {name} was launched")
+    # the same frame eager, its kernel calls, bands and draws recorded
+    K.reset_launches()
+    with Capture(K) as cap, instrumented(cap) as seen, eager():
+        eager_img, _ = frame()
+    torch.cuda.synchronize()
+    check(dict(K.launches) == launches,
+          f"{label}: eager launches {dict(K.launches)}, replayed {launches}")
+    check(np.array_equal(eager_img, img), f"{label}: the eager frame differs")
     bands = seen["bands"]
     draw_ms = sum(ms for _, ms in seen["draws"])
     n_draw = sum(n for n, _ in seen["draws"])
@@ -1843,9 +1893,11 @@ def render_modes(dev, results, full, big, big_res, checked):
     any-hit included, no shadow kernel) and bands (each within the
     big-scene cap), and once more for its peak memory and wall time, and
     checked at 64x64 against the CPU.  Returns {path: launches}."""
+    import numpy as np
     import torch
 
-    from raytracer_tpu_torch.models.whitted import _BIG_SCENE_CHUNK
+    from raytracer_tpu_torch.models import programs
+    from raytracer_tpu_torch.models.whitted import _BIG_SCENE_CHUNK, eager
     from raytracer_tpu_torch.ops import kernels as K
     from raytracer_tpu_torch.pipeline import render_one_camera
     from raytracer_tpu_torch.utils.ppm import write_ppm
@@ -1880,6 +1932,7 @@ def render_modes(dev, results, full, big, big_res, checked):
     small_vs_cpu("full-width terrain", data, meta, cset, "parity", 4, chunk=16384)
     small_vs_cpu("full-width terrain", data, meta, cset, "jitter", 2, chunk=2048)
     small_vs_cpu("full-width terrain", data, meta, cset, "adaptive", 2)
+    programs.drop(data)
     del data, cset
 
     data, meta, cset = build(terrain_scene, dev, mirror_stripes=True, **big)
@@ -1888,12 +1941,18 @@ def render_modes(dev, results, full, big, big_res, checked):
     def frame():
         return render_one_camera(data, meta, cam, cset, ssaa=2,
                                  ssaa_mode="jitter", device=dev)
+    frame()
     torch.cuda.synchronize()
     K.reset_launches()
-    with Capture(K) as cap, instrumented(cap) as seen:
-        img, _ = frame()
+    img, _ = frame()
     torch.cuda.synchronize()
     launches = dict(K.launches)
+    K.reset_launches()
+    with Capture(K) as cap, instrumented(cap) as seen, eager():
+        eager_img, _ = frame()
+    torch.cuda.synchronize()
+    check(dict(K.launches) == launches and np.array_equal(eager_img, img),
+          f"big terrain jitter: the eager frame differs ({dict(K.launches)})")
     bands = seen["bands"]
     path_launches["big_jitter"] = launches
     log(f"  big terrain at {big_res}x{big_res}, --ssaa 2 jitter: launches "
@@ -1915,12 +1974,13 @@ def render_modes(dev, results, full, big, big_res, checked):
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
     peak = torch.cuda.max_memory_allocated()
-    log(f"  big terrain at {big_res}x{big_res}, --ssaa 2 jitter, second frame: "
+    log(f"  big terrain at {big_res}x{big_res}, --ssaa 2 jitter, fourth frame: "
         f"peak {peak} bytes ({peak / 2**30:.3f} GiB); wall time {wall:.3f} ms "
         "(one frame, not a median)")
     results["big_jitter"] = {"launches": launches, "bands": bands,
                              "peak_bytes": peak, "wall_ms": wall}
     small_vs_cpu("big terrain", data, meta, cset, "jitter", 2)
+    programs.drop(data)
     return path_launches
 
 
@@ -1976,13 +2036,16 @@ def treelet_frame(dev, results, checked):
     (``build_clusters(..., treelet=True)``: padded gaps among the triangle
     slots) at --ssaa 2 through render_one_camera: a warm-up, one frame
     with the launch counts reset just before and read just after (the
-    whole frame's kernels launched) and its kernel calls held against the
-    plain versions, 3 timed frames (median); at 64x64 against the CPU.
-    Returns the frame's launches."""
+    whole frame's kernels launched), the same frame eager with its kernel
+    calls held against the plain versions, 3 timed frames (median); at
+    64x64 against the CPU.  Returns the frame's launches."""
+    import numpy as np
     import torch
 
+    from raytracer_tpu_torch.models import programs
     from raytracer_tpu_torch.models.bvh import build_bvh
     from raytracer_tpu_torch.models.clusters import build_clusters
+    from raytracer_tpu_torch.models.whitted import eager
     from raytracer_tpu_torch.ops import kernels as K
     from raytracer_tpu_torch.pipeline import render_one_camera
     from raytracer_tpu_torch.utils.synth import terrain_scene
@@ -2004,13 +2067,18 @@ def treelet_frame(dev, results, checked):
     frame()
     torch.cuda.synchronize()
     K.reset_launches()
-    with Capture(K) as cap:
-        img = frame()
+    img = frame()
     torch.cuda.synchronize()
     launches = dict(K.launches)
     for name in FRAME_MUST:
         check(launches[name] > 0, f"treelet terrain: {name} was not launched")
     check(img.max() > 0, "treelet terrain: empty image")
+    K.reset_launches()
+    with Capture(K) as cap, eager():
+        eager_img = frame()
+    torch.cuda.synchronize()
+    check(dict(K.launches) == launches and np.array_equal(eager_img, img),
+          f"treelet terrain: the eager frame differs ({dict(K.launches)})")
     checked("treelet terrain", cap.calls)
     del cap
     times = []
@@ -2027,6 +2095,7 @@ def treelet_frame(dev, results, checked):
     small_vs_cpu("treelet terrain", data, meta, cset, "parity", 2)
     results["treelet"] = {"clusters": pt // 128, "slots": pt, "build_s": build_s,
                           "launches": launches, "ms": ms, "runs_ms": times}
+    programs.drop(data)
     return launches
 
 
@@ -2521,14 +2590,17 @@ def serve_on_card(dev, results, checked):
     each request's render_s and Mrays/s.  Then over TCP (--port 0):
     render, a client dropping mid-request, reconnect, ping, shutdown.
     Then the terrain request through an in-process RenderServer with its
-    launches (counts reset just before, read just after) and kernel calls
-    held against the plain versions.  Returns those launches."""
+    launches (counts reset just before, read just after; the programs
+    replayed), and once more eager, its image and launches the same, with
+    its kernel calls held against the plain versions.  Returns those
+    launches."""
     import socket
 
     import numpy as np
     import torch
 
     from raytracer_tpu_torch.models.scene import load_scene
+    from raytracer_tpu_torch.models.whitted import eager
     from raytracer_tpu_torch.ops import kernels as K
     from raytracer_tpu_torch.pipeline import render_one_camera
     from raytracer_tpu_torch.render import engine_accel
@@ -2616,8 +2688,7 @@ def serve_on_card(dev, results, checked):
     server.handle(req)
     torch.cuda.synchronize()
     K.reset_launches()
-    with Capture(K) as cap:
-        r = server.handle(req)
+    r = server.handle(req)
     torch.cuda.synchronize()
     launches = dict(K.launches)
     check(r.get("ok"), f"in-process request: {r}")
@@ -2625,6 +2696,14 @@ def serve_on_card(dev, results, checked):
         check(launches[name] > 0, f"served frame: {name} was not launched")
     log(f"  in-process served terrain frame: launches {launches}, "
         f"render_s {r['render_s']}")
+    replayed = read_ppm(r["images"][0])
+    K.reset_launches()
+    with Capture(K) as cap, eager():
+        r = server.handle(req)
+    torch.cuda.synchronize()
+    check(r.get("ok") and dict(K.launches) == launches
+          and np.array_equal(read_ppm(r["images"][0]), replayed),
+          f"served frame: the eager request differs ({dict(K.launches)})")
     checked("served terrain frame", cap.calls)
     del cap
     ms, times, _ = timed_frames(lambda: server.handle(req))
@@ -2635,6 +2714,203 @@ def serve_on_card(dev, results, checked):
                             "ms": ms, "runs_ms": times, "idle_share": idle}
     results["serve"] = served
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the compiled programs, eager against replayed
+# ---------------------------------------------------------------------------
+
+def pool_bytes():
+    """Bytes of the device segments in the captured programs' memory pools
+    (``torch.cuda.memory_snapshot``), None where the snapshot does not
+    name a segment's pool."""
+    import torch
+
+    from raytracer_tpu_torch.models import programs
+
+    pools = {tuple(p.pool) for p in programs._scenes.values() if p.pool}
+    snap = torch.cuda.memory_snapshot()
+    if snap and "segment_pool_id" not in snap[0]:
+        return None
+    return sum(seg["total_size"] for seg in snap
+               if tuple(seg["segment_pool_id"]) in pools)
+
+
+def lean_profile(frame, lead=False):
+    """One run of ``frame`` under torch.profiler: (wall ms, device busy ms,
+    the CUDA kernels' device ms, top-level PyTorch ops, graph launches,
+    device events by kernel row).  ``lead``: a tiny kernel runs first
+    inside the window."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    frame()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        if lead:
+            torch.cuda._sleep(1000)
+        frame()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = mine = 0.0
+    rows = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            ms = ev.time_range.elapsed_us() / 1e3
+            busy += ms
+            name = kernel_of(ev.name)
+            if name is not None:
+                mine += ms
+                rows[name] = rows.get(name, 0) + 1
+    host = host_side(prof)
+    graphs = sum(v[0] for k, v in host["runtime"].items() if "GraphLaunch" in k)
+    return wall, busy, mine, host["top_level_ops"], graphs, rows
+
+
+def compare_programs(label, frame, image, results, key):
+    """One frame eager (``whitted.eager()``) against its captured programs
+    replayed: the first graph call after ``programs.clear()`` (its capture
+    ms and the pool's bytes), the launches of one frame each (equal), the
+    images (0 differing pixels), 5 warm synced frames of each in turns
+    (median ms), one profiled frame of each (device busy, idle share
+    against the median, top-level host ops).  ``image(out)``: the frame's
+    image as a numpy array."""
+    import numpy as np
+    import torch
+
+    from raytracer_tpu_torch.models import programs
+    from raytracer_tpu_torch.models.whitted import eager
+    from raytracer_tpu_torch.ops import kernels as K
+
+    def eager_frame():
+        with eager():
+            return frame()
+
+    programs.clear()
+    eager_frame()
+    torch.cuda.synchronize()
+    s0 = dict(programs.stats)
+    t0 = time.perf_counter()
+    frame()
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    captures = programs.stats["captures"] - s0["captures"]
+    capture_ms = (programs.stats["capture_s"] - s0["capture_s"]) * 1e3
+    pool = pool_bytes()
+    out = {}
+    for name, fn in (("eager", eager_frame), ("graph", frame)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        img = image(fn())
+        torch.cuda.synchronize()
+        out[name] = {"img": img, "launches": dict(K.launches), "runs_ms": [],
+                     "peak": torch.cuda.max_memory_allocated()}
+    diff = int((out["eager"]["img"] != out["graph"]["img"]).any(-1).sum())
+    check(diff == 0, f"{label}: {diff} pixels differ between eager and replayed")
+    check(out["eager"]["launches"] == out["graph"]["launches"],
+          f"{label}: launches {out['eager']['launches']} eager, "
+          f"{out['graph']['launches']} replayed")
+    for _ in range(5):
+        for name, fn in (("eager", eager_frame), ("graph", frame)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out[name]["runs_ms"].append((time.perf_counter() - t0) * 1e3)
+    row = {"differing_pixels": diff, "launches": out["graph"]["launches"],
+           "first_call_ms": first_ms, "captures": captures,
+           "capture_ms": capture_ms, "pool_bytes": pool}
+    for name, fn in (("eager", eager_frame), ("graph", frame)):
+        ms = statistics.median(out[name]["runs_ms"])
+        wall, busy, mine, ops, graphs, rows = lean_profile(fn)
+        row[name] = {"ms": ms, "runs_ms": out[name]["runs_ms"],
+                     "device_busy_ms": busy, "kernels_ms": mine,
+                     "idle_share": 1 - busy / ms, "host_ops": ops,
+                     "graph_launches": graphs, "profiled_wall_ms": wall,
+                     "kernel_events": rows, "peak_bytes": out[name]["peak"]}
+        log(f"  {label}, {name}: {ms:.3f} ms/frame (median of 5 "
+            f"{[round(t, 3) for t in out[name]['runs_ms']]}); device busy "
+            f"{busy:.3f} ms (the CUDA kernels {mine:.3f}), idle share "
+            f"{1 - busy / ms:.3f}; {ops} top-level host ops, {graphs} graph "
+            f"launches; kernel events {rows}; peak allocated "
+            f"{out[name]['peak']} bytes (outside the graph pool)")
+    log(f"  {label}: 0 differing pixels; launches equal {row['launches']}; "
+        f"first graph call {first_ms:.3f} ms with {captures} captures taking "
+        f"{capture_ms:.3f} ms; graph pool {pool} bytes")
+    results.setdefault("programs", {})[key] = row
+    return row
+
+
+def programs_on_card(dev, results):
+    """Phase 9: the compiled programs (``models.programs``) against the same
+    bodies run eagerly (``compare_programs``) on the full-width terrain at
+    --ssaa 2, streamed at --ssaa 4 and in jitter mode, the big terrain at
+    --ssaa 2, and a warm served terrain request in process; then how often
+    the profiler lists the threefry draw: 5 profiled jitter frames and 5
+    draws alone, each with and without a tiny kernel first."""
+    from raytracer_tpu_torch.models import programs
+    from raytracer_tpu_torch.pipeline import render_one_camera
+    from raytracer_tpu_torch.serve import RenderServer
+    from raytracer_tpu_torch.utils.ppm import read_ppm
+    from raytracer_tpu_torch.utils.synth import terrain_scene
+
+    data, meta, cset = build(terrain_scene, dev, cells=126, res=1024,
+                             mirror_stripes=True)
+    cam = meta.cameras[0]
+    first = lambda out: out[0]  # noqa: E731
+    for key, label, kw in (
+            ("full_width", "full-width terrain, --ssaa 2", dict(ssaa=2)),
+            ("streamed_ssaa4", "full-width terrain streamed, --ssaa 4",
+             dict(ssaa=4)),
+            ("jitter_ssaa2", "full-width terrain, --ssaa 2 jitter",
+             dict(ssaa=2, ssaa_mode="jitter"))):
+        compare_programs(label, lambda kw=kw: render_one_camera(
+            data, meta, cam, cset, device=dev, **kw), first, results, key)
+
+    def jitter_frame():
+        return render_one_camera(data, meta, cam, cset, device=dev, ssaa=2,
+                                 ssaa_mode="jitter")
+    from raytracer_tpu_torch.ops.camera import draw_jitter
+
+    def bare_draw():
+        return draw_jitter(None, 0, ("band", 0), (2048, 2048, 2), dev)
+    seen = {}
+    for what, fn, lead in (("frame", jitter_frame, False),
+                           ("frame after a lead kernel", jitter_frame, True),
+                           ("draw alone", bare_draw, False),
+                           ("draw after a lead kernel", bare_draw, True)):
+        seen[what] = [lean_profile(fn, lead=lead)[5].get("threefry", 0)
+                      for _ in range(5)]
+    log(f"  threefry device events in 5 profiled runs each (one draw a run): "
+        f"{seen}")
+    results.setdefault("programs", {})["draw_events"] = seen
+    programs.clear()
+    del data, cset
+
+    data, meta, cset = build(terrain_scene, dev, cells=512, res=1024,
+                             mirror_stripes=True)
+    compare_programs("big terrain, --ssaa 2", lambda: render_one_camera(
+        data, meta, meta.cameras[0], cset, device=dev, ssaa=2), first,
+        results, "big")
+    programs.clear()
+    del data, cset
+
+    xml = os.path.join(OUT, "terrain_1024.xml")
+    check(os.path.exists(xml), "phase 8d's terrain XML is missing")
+    server = RenderServer(device=dev)
+    req = {"scene": xml, "out_dir": os.path.join(OUT, "programs"), "ssaa": 2}
+    check(server.handle(req).get("ok"), "served terrain request")
+
+    def served():
+        r = server.handle(req)
+        check(r.get("ok"), f"served terrain request: {r}")
+        return r
+    compare_programs("served terrain request (warm), --ssaa 2", served,
+                     lambda r: read_ppm(r["images"][0]), results, "served")
+    programs.clear()
 
 
 def scaling_on_card(dev, results):
@@ -2678,6 +2954,8 @@ def run():
     import numpy as np
 
     from raytracer_tpu_torch import backend
+    from raytracer_tpu_torch.models import programs
+    from raytracer_tpu_torch.models.whitted import eager
     from raytracer_tpu_torch.ops import kernels as K
     from raytracer_tpu_torch.utils.synth import sphere_field, terrain_scene
 
@@ -2747,6 +3025,7 @@ def run():
     cap, small_cap, launches = drive_path(
         "terrain_1024", data, meta, cset, results, "frame",
         must=("ray_mask", "closest_shared", "closest", "shadow"))
+    programs.drop(data)
     del data, cset
 
     # -- phase 3b: big scene, plane tables over the budget
@@ -2772,6 +3051,7 @@ def run():
         "big_terrain_1024", data, meta, cset, results, "big_frame",
         must=("ray_mask", "ray_mask_hier", "closest_shared", "closest", "any"),
         must_not=("shadow",))
+    programs.drop(data)
     del data, cset
 
     # the single-light shadow call at main-path shapes: 80,000 triangles,
@@ -2785,7 +3065,7 @@ def run():
     check(pt * 64 <= ctr.SHADOW_PLANES_BYTES_MAX < 2 * pt * 64,
           "the mid terrain's plane tables do not take one launch per light")
     K.reset_launches()
-    with Capture(K) as mcap:
+    with Capture(K) as mcap, eager():
         render_scene(data, meta, cset, 2, dev)
     torch.cuda.synchronize()
     mid_launches = dict(K.launches)
@@ -2794,6 +3074,7 @@ def run():
         check(mid_launches[name] > 0, f"{name} was not launched on the mid terrain")
     log(f"  single-light shadow launches per frame: {mid_launches['shadow']}")
     check(mid_launches["any"] == 0, "the mid terrain took the any-hit kernel")
+    programs.drop(data)
     del data, cset
 
     # -- phase 4: kernel == plain on the card
@@ -2831,7 +3112,7 @@ def run():
         sd, sm, scs = build(sphere_field, dev, n_spheres=n_sph, res=512)
         log(f"  {label}: {sm.n_spheres} spheres, "
             f"{scs.sph_dat.shape[1] // 128} sphere clusters, {sm.n_lights} light(s)")
-        with Capture(K) as scap:
+        with Capture(K) as scap, eager():
             simg = render_scene(sd, sm, scs, 1, dev)
         check((simg != np.array([15, 20, 40], np.uint8)).any(-1).mean() > 0.1,
               f"{label}: image is background")
@@ -2847,12 +3128,13 @@ def run():
         budget = ctr.SHADOW_PLANES_BYTES_MAX
         ctr.SHADOW_PLANES_BYTES_MAX = 0
         try:
-            with Capture(K) as acap:
+            with Capture(K) as acap, eager():
                 aimg = render_scene(sd, sm, scs, 1, dev)
         finally:
             ctr.SHADOW_PLANES_BYTES_MAX = budget
         compare_images(aimg, simg, f"{label} through cluster_any vs the shadow kernel")
         checked(label + " through cluster_any", {"any": acap.calls["any"]})
+        programs.drop(sd)
 
     # the exact-tie case of the CPU tests (tests/torch_tie_case.py):
     # duplicated and edge-sharing triangles across clusters, sphere-triangle
@@ -2975,6 +3257,8 @@ def run():
     path_launches["served_frame"] = serve_on_card(dev, results, checked)
     log("== phase 8e: measure_scaling over 1 and 2 logical shards of one card")
     scaling_on_card(dev, results)
+    log("== phase 9: the compiled programs, eager against replayed")
+    programs_on_card(dev, results)
     # the draw kernel's row: its launches in the jitter frame of phase 6,
     # one band; JAX_DRAWS's checks were exact (max_abs_err 0); per frame,
     # the draws' device ms timed in the counted frames of phase 6

@@ -1,0 +1,215 @@
+"""Compiled render programs: the cluster engine's wavefront as CUDA graphs,
+the port's counterparts of the JAX package's jitted programs
+``_render_rays_jit``, ``_render_camera_jit`` and ``_render_band_jit``
+(``raytracer_tpu/models/whitted.py:306-398``).
+
+XLA runs each of those programs as one dispatch, with the bounce loop's
+control on the device.  Here a program is a set of *steps*: each step is
+a function of static tensors only (inputs are copied into fixed buffers
+before a run, results are written into fixed buffers in place), so that
+one CUDA graph of it serves every later run of the same shape.  The
+bodies live in ``models.whitted`` (``_Wavefront``, ``_Frame``); this
+module holds what they share:
+
+- ``Step``: one body.  Its first run is eager: it computes the result and
+  warms every kernel instance the body launches (the kernel library's
+  build, the SM count, the dynamic shared memory attribute are all set up
+  once, outside any capture).  Right after it the body is captured, which
+  runs nothing, and every later run replays the graph.  The launch counts
+  of ``ops.kernels`` count in Python, which runs only at capture: a step
+  records what its capture added, takes it back, and adds it again on
+  every replay, so ``kernels.launches`` stays the number of kernels the
+  card ran.
+- ``scene_programs(data, meta, accel, device)``: the programs of one
+  scene, keyed on the identity and version counters of its tensors (a
+  graph bakes in their pointers; an in-place edit makes a new entry), an
+  LRU of ``MAX_SCENES`` scenes; ``drop(data)`` forgets a scene's programs
+  (the server's LRU does so when it evicts the scene).  All the programs
+  of one scene share one graph memory pool: they run one after another.
+- ``eager()``: inside the block nothing is captured or replayed, the
+  counterpart of ``jax.disable_jit()``.  The checks that record kernel
+  calls and the tests run the same bodies this way; ``--debug-nans``
+  (``whitted.debug_nans``) does too.
+
+A capture that fails raises, naming the step; nothing falls back to
+eager.  On the CPU there is nothing to capture: the caller asked for the
+CPU, and the bodies run eagerly on every run, kept nowhere.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import gc
+import time
+from collections import OrderedDict
+
+import torch
+
+from raytracer_tpu_torch.ops import kernels
+
+# scenes whose programs are kept (least recently used first out)
+MAX_SCENES = 8
+
+_eager = [0]
+_scenes: "OrderedDict[tuple, Programs]" = OrderedDict()
+
+# captures made in this process and the seconds they took (timed on the
+# host around each capture, the device synchronised first by the capture)
+stats = {"captures": 0, "capture_s": 0.0}
+
+
+@contextlib.contextmanager
+def eager():
+    """Inside the block every render runs its bodies eagerly: no capture,
+    no replay (``jax.disable_jit()``'s counterpart)."""
+    _eager[0] += 1
+    try:
+        yield
+    finally:
+        _eager[0] -= 1
+
+
+class CudaGraph:
+    """One ``torch.cuda.CUDAGraph`` captured into the memory pool ``pool``
+    (``torch.cuda.graph`` captures on a side stream)."""
+
+    def __init__(self, pool):
+        self.graph = torch.cuda.CUDAGraph()
+        self.pool = pool
+
+    def capture(self, body) -> None:
+        with torch.cuda.graph(self.graph, pool=self.pool):
+            body()
+
+    def replay(self) -> None:
+        self.graph.replay()
+
+
+def graph_class(device):
+    """The graph type that captures on ``device``: ``CudaGraph`` on a CUDA
+    device, None (run eagerly) on the CPU and inside ``eager()``."""
+    if _eager[0] or torch.device(device).type != "cuda":
+        return None
+    return CudaGraph
+
+
+def enabled(device) -> bool:
+    """True when renders on ``device`` run as captured programs."""
+    return graph_class(device) is not None
+
+
+class Step:
+    """``body()`` as a program step: eager on its first run, then captured
+    into a graph from ``new_graph()`` and replayed (see the module
+    docstring)."""
+
+    def __init__(self, name: str, body, new_graph):
+        self.name = name
+        self.body = body
+        self.new_graph = new_graph
+        self.graph = None
+        self.launches = {}
+
+    def __call__(self) -> None:
+        if self.graph is not None:
+            self.graph.replay()
+            for k, n in self.launches.items():
+                kernels.launches[k] += n
+            return
+        self.body()
+        self._capture()
+
+    def _capture(self) -> None:
+        before = dict(kernels.launches)
+        graph = self.new_graph()
+        t0 = time.perf_counter()
+        try:
+            graph.capture(self.body)
+        except Exception as e:
+            raise RuntimeError(f"capture of the step {self.name!r} failed: "
+                               f"{type(e).__name__}: {e}") from e
+        finally:
+            added = {k: kernels.launches[k] - n for k, n in before.items()}
+            kernels.launches.update(before)      # the capture ran nothing
+        stats["captures"] += 1
+        stats["capture_s"] += time.perf_counter() - t0
+        self.launches = {k: n for k, n in added.items() if n}
+        self.graph = graph
+
+
+class Programs(dict):
+    """One scene's programs by key, sharing one graph memory pool.  Holds
+    the scene's objects, so that the ids it is keyed on stay theirs."""
+
+    def __init__(self, refs: tuple, versions: tuple, graph_type):
+        super().__init__()
+        self.refs = refs
+        self.versions = versions
+        self.graph_type = graph_type
+        self.pool = None
+
+    def _new_graph(self):
+        if self.pool is None and self.graph_type is CudaGraph:
+            self.pool = torch.cuda.graph_pool_handle()
+        return self.graph_type(self.pool)
+
+    def step(self, name: str, body) -> Step:
+        """A ``Step`` of ``body`` captured into this scene's pool."""
+        return Step(name, body, self._new_graph)
+
+    def program(self, key, make):
+        """The program under ``key``, made by ``make()`` on first use."""
+        prog = self.get(key)
+        if prog is None:
+            prog = self[key] = make()
+        return prog
+
+
+def _versions(*objs) -> tuple:
+    """The version counters of every tensor field of the dataclasses
+    ``objs`` (None is skipped): they change with any in-place edit."""
+    return tuple(
+        getattr(o, f.name)._version for o in objs if o is not None
+        for f in dataclasses.fields(o)
+        if isinstance(getattr(o, f.name), torch.Tensor))
+
+
+def scene_programs(data, meta, accel, device) -> Programs:
+    """The programs of the scene (``data``, ``meta``, ``accel``) on
+    ``device`` (where ``enabled``), made empty on first use."""
+    key = (id(data), id(meta), id(accel))
+    versions = _versions(data, accel)
+    progs = _scenes.get(key)
+    if progs is None or progs.versions != versions:
+        stale = progs is not None
+        progs = _scenes[key] = Programs((data, meta, accel), versions,
+                                        graph_class(device))
+        while len(_scenes) > MAX_SCENES:
+            _scenes.popitem(last=False)
+            stale = True
+        if stale:
+            gc.collect()            # see clear()
+    _scenes.move_to_end(key)
+    return progs
+
+
+def cached(data) -> int:
+    """The number of programs kept for scenes of ``data``."""
+    return sum(len(p) for p in _scenes.values() if p.refs[0] is data)
+
+
+def drop(data) -> None:
+    """Forget the programs of every scene of ``data`` (and so their graphs,
+    their pool and their hold on the scene's tensors)."""
+    for key in [k for k, p in _scenes.items() if p.refs[0] is data]:
+        del _scenes[key]
+    gc.collect()                    # see clear()
+
+
+def clear() -> None:
+    """Forget every scene's programs."""
+    _scenes.clear()
+    # a program's steps call its bound methods, a reference cycle: collect
+    # it now, so that its graphs, pool and buffers go with it
+    gc.collect()

@@ -29,6 +29,16 @@ reduces each band on the device (SSAA, quantization), so ray state stays
 about one chunk; it is the route of every render request but adaptive
 sampling, jittered sampling included, and over a device mesh it splits
 each band's rays into the mesh's shards (``parallel.render``).
+
+On a CUDA device the cluster engine's forward renders (``render_rays``,
+``trace``, ``render_camera``, ``render_camera_streamed`` without a mesh)
+replay captured CUDA graphs (``models.programs``): the bounce loop as
+steps on static buffers (``_Wavefront``), a band or camera as a program
+around it (``_Frame``), the counterparts of the JAX package's jitted
+``_render_rays_jit``, ``_render_band_jit`` and ``_render_camera_jit``.
+The same bodies run eagerly on the CPU, inside ``eager()`` and under
+``debug_nans()``; the other engines, the differentiable path, adaptive
+sampling and the mesh stay eager.
 """
 
 from __future__ import annotations
@@ -39,8 +49,10 @@ import math
 import torch
 
 from raytracer_tpu_torch.backend import resolve_device
+from raytracer_tpu_torch.models import programs
 from raytracer_tpu_torch.models.bvh import DeviceBVH
 from raytracer_tpu_torch.models.clusters import ClusterSet
+from raytracer_tpu_torch.models.programs import eager  # noqa: F401 (re-export)
 from raytracer_tpu_torch.models.scene import Camera, SceneData, SceneMeta
 from raytracer_tpu_torch.ops import cluster_trace as ctr
 from raytracer_tpu_torch.ops import traverse
@@ -131,31 +143,12 @@ def resolve_engine(engine: str, accel, meta: SceneMeta) -> str:
     return engine
 
 
-def render_rays(data: SceneData, meta: SceneMeta, origin, dirs, accel,
-                engine: str = "cluster", differentiable: bool = False,
-                bfc: bool = False, relaxed: bool = False,
-                compact_mode: str = "auto"):
-    """(R, 3) f32 radiance of a wavefront.  ``origin``: (3,) (a shared eye
-    point) or (R, 3); ``dirs``: (R, 3), unnormalized (the camera's).
-    ``accel``: the engine's accelerator (a ClusterSet, a DeviceBVH, None
-    for brute).
-
-    ``differentiable``: the hits are re-derived from the engine's
-    primitive ids by ``refine_hit`` (gradients flow into the scene
-    tensors), in exactly max_depth + 1 bounces: no early exit, no
-    compaction, no peeled eye bounce.  Otherwise the cluster engine takes
-    its hits from the kernel's slot table (the fast path), and brute and
-    bvh refine their ids the same way, stopping once no ray is active.
-    The cluster engine's shadow kernels (plane tables within
-    ``SHADOW_PLANES_BYTES_MAX``) serve both paths.
-    ``compact_mode`` (fast path only): ``auto`` gates the activity
-    compaction off below max depth _COMPACT_MIN_DEPTH; ``deep`` keeps only
-    the runtime scatter gate (adaptive refinement waves, scattered by
-    construction)."""
-    if compact_mode not in ("auto", "deep"):
-        raise ValueError(f"unknown compact_mode {compact_mode!r}")
-    r = dirs.shape[0]
-    fast_hits = engine == "cluster" and not differentiable
+def _occlusion(data: SceneData, meta: SceneMeta, accel, engine: str,
+               bfc: bool, relaxed: bool):
+    """(shadow_fn, shadow_multi_fn, occluded_fn) for ``shade_local``: on
+    the cluster engine per-light plane tables and the shadow kernel while
+    a table fits ``SHADOW_PLANES_BYTES_MAX`` (all lights in one launch
+    while every table fits together), else the engine's any-hit."""
     nl = meta.n_lights
     shadow_fn = shadow_multi_fn = None
 
@@ -180,49 +173,216 @@ def render_rays(data: SceneData, meta: SceneMeta, origin, dirs, accel,
                     return ctr.cluster_shadow_multi(
                         accel, planes, org, data.light_pos[:nl], masks,
                         relaxed=relaxed)
+    return shadow_fn, shadow_multi_fn, occluded_fn
 
-    compact = (fast_hits and (meta.max_depth >= _COMPACT_MIN_DEPTH
-                              or compact_mode == "deep")
-               and r % TILE == 0)
 
-    def bounce(carry, shared_eye: bool = False):
-        if compact and carry[0] >= _COMPACT_FROM:
-            act = carry[3]
-            act_f = act.to(torch.float32).mean()
-            live_f = act.reshape(-1, TILE).any(1).to(torch.float32).mean()
-            if bool(live_f - act_f > _COMPACT_SCATTER):
-                carry = _compact_carry(carry)
-        depth, color, throughput, active, cur_org, cur_dir, idx = carry
-        if fast_hits:
-            fhit, t, normal, mat, point, offset, _ = ctr.cluster_closest_hit(
-                accel, origin if shared_eye else cur_org, cur_dir,
-                meta.shadow_eps, active=active, bfc=bfc,
-                shared_origin=shared_eye)
-            h = Hit(hit=fhit & active, t=t, normal=normal, mat=mat,
-                    point=point, offset=offset)
-        else:
-            prim = traverse.closest_hit(data, cur_org, cur_dir, accel, engine,
-                                        active=active, bfc=bfc)
-            prim = torch.where(active, prim, traverse.MISS)
-            h = refine_hit(data, meta, cur_org, cur_dir, prim)
-        if depth == 0:
-            color = color + torch.where((~h.hit & active)[:, None],
-                                        data.background[None, :], 0.0)
-        local = shade_local(data, meta, cur_dir, h, shadow_fn=shadow_fn,
-                            shadow_multi_fn=shadow_multi_fn,
-                            occluded_fn=occluded_fn)
-        color = color + throughput * torch.where(h.hit[:, None], local, 0.0)
-        if _debug["nans"] and not bool(torch.isfinite(color).all()):
-            raise FloatingPointError(
-                f"radiance not finite after bounce {depth}")
-        refl_org, refl_dir, tint, is_mirror = reflection_rays(data, cur_dir, h)
-        active = active & is_mirror
-        throughput = torch.where(active[:, None], throughput * tint, 0.0)
-        cur_org = torch.where(active[:, None], refl_org, cur_org)
-        cur_dir = torch.where(active[:, None], refl_dir, cur_dir)
-        return depth + 1, color, throughput, active, cur_org, cur_dir, idx
+def _bounce(data: SceneData, meta: SceneMeta, accel, engine: str, bfc: bool,
+            fns, carry, origin=None, shared_eye: bool = False):
+    """One bounce of the carry (depth, color, throughput, active, cur_org,
+    cur_dir, idx); ``depth`` is a Python int.  The cluster engine's
+    forward path (``origin`` given: the wavefront's shared (3,) origin,
+    used by the peeled eye bounce, ``shared_eye``) takes its hits from the
+    kernel's slot table; otherwise the engine's primitive ids are refined
+    differentiably (``refine_hit``)."""
+    depth, color, throughput, active, cur_org, cur_dir, idx = carry
+    if origin is not None:
+        fhit, t, normal, mat, point, offset, _ = ctr.cluster_closest_hit(
+            accel, origin if shared_eye else cur_org, cur_dir,
+            meta.shadow_eps, active=active, bfc=bfc,
+            shared_origin=shared_eye)
+        h = Hit(hit=fhit & active, t=t, normal=normal, mat=mat,
+                point=point, offset=offset)
+    else:
+        prim = traverse.closest_hit(data, cur_org, cur_dir, accel, engine,
+                                    active=active, bfc=bfc)
+        prim = torch.where(active, prim, traverse.MISS)
+        h = refine_hit(data, meta, cur_org, cur_dir, prim)
+    if depth == 0:
+        color = color + torch.where((~h.hit & active)[:, None],
+                                    data.background[None, :], 0.0)
+    shadow_fn, shadow_multi_fn, occluded_fn = fns
+    local = shade_local(data, meta, cur_dir, h, shadow_fn=shadow_fn,
+                        shadow_multi_fn=shadow_multi_fn,
+                        occluded_fn=occluded_fn)
+    color = color + throughput * torch.where(h.hit[:, None], local, 0.0)
+    if _debug["nans"] and not bool(torch.isfinite(color).all()):
+        raise FloatingPointError(f"radiance not finite after bounce {depth}")
+    refl_org, refl_dir, tint, is_mirror = reflection_rays(data, cur_dir, h)
+    active = active & is_mirror
+    throughput = torch.where(active[:, None], throughput * tint, 0.0)
+    cur_org = torch.where(active[:, None], refl_org, cur_org)
+    cur_dir = torch.where(active[:, None], refl_dir, cur_dir)
+    return depth + 1, color, throughput, active, cur_org, cur_dir, idx
 
-    dev = dirs.device
+
+class _Wavefront:
+    """The cluster engine's forward bounce loop over ``r`` rays (the fast
+    path of ``render_rays``) as program steps on static buffers: the
+    inputs ``origin`` ((3,) shared, or (r, 3)) and ``dirs``; the carry
+    (``color``, ``throughput``, ``active``, ``cur_org``, ``cur_dir``,
+    ``idx``), which each bounce rewrites in place; and ``flags``, written
+    at the end of every bounce but the last: any ray still active, and the
+    compaction gate of the next bounce, in the float ops of the JAX
+    package's gate.  ``run`` reads the flags once between bounces, as
+    XLA's while_loop reads its predicate, so the early exit and both
+    branches of the gate stay: each bounce runs exactly the ops of the
+    eager loop.  Steps: bounce 0 (the shared-eye peel for a shared
+    origin), bounce d plain or compacting (from _COMPACT_FROM), and
+    ``uncompact`` after a run whose carry was permuted (the host knows
+    whether one was; idx is arange otherwise).  ``step(name, body)`` makes
+    each step, captured (``programs.Programs.step``); with ``step`` None
+    the bodies run eagerly and nothing is kept (a kept step refers back to
+    the wavefront: a cycle that would hold its buffers until the garbage
+    collector runs)."""
+
+    def __init__(self, data: SceneData, meta: SceneMeta, accel, r: int,
+                 shared: bool, bfc: bool, relaxed: bool, compact_mode: str,
+                 device, step):
+        self.data, self.meta, self.accel, self.bfc = data, meta, accel, bfc
+        self.r, self.shared = r, shared
+        self.compact = ((meta.max_depth >= _COMPACT_MIN_DEPTH
+                         or compact_mode == "deep") and r % TILE == 0)
+        self.fns = _occlusion(data, meta, accel, "cluster", bfc, relaxed)
+        f32 = dict(dtype=torch.float32, device=device)
+        self.origin = torch.zeros((3,) if shared else (r, 3), **f32)
+        self.dirs = torch.zeros((r, 3), **f32)
+        self.color = torch.zeros((r, 3), **f32)
+        self.throughput = torch.zeros((r, 3), **f32)
+        self.cur_org = torch.zeros((r, 3), **f32)
+        self.cur_dir = torch.zeros((r, 3), **f32)
+        self.active = torch.zeros((r,), dtype=torch.bool, device=device)
+        self.idx = torch.arange(r, device=device)
+        self.flags = torch.zeros((2,), dtype=torch.bool, device=device)
+        self.step = step
+        self.steps = {}
+
+    @torch.no_grad()
+    def load(self, origin, dirs) -> None:
+        self.origin.copy_(origin)
+        self.dirs.copy_(dirs)
+
+    @torch.no_grad()
+    def run(self) -> torch.Tensor:
+        """Trace the loaded rays; returns the ``color`` buffer (R, 3)."""
+        self._run(0, False)
+        compacted = False
+        for depth in range(1, self.meta.max_depth + 1):
+            alive, scattered = self.flags.tolist()
+            if not alive:
+                break
+            take = self.compact and depth >= _COMPACT_FROM and scattered
+            self._run(depth, take)
+            compacted |= take
+        if compacted:
+            self._run("uncompact", True)
+        return self.color
+
+    def _run(self, depth, compacted: bool) -> None:
+        step = self.steps.get((depth, compacted))
+        if step is None:
+            if depth == "uncompact":
+                name, body = "uncompact", self._uncompact
+            else:
+                name = f"bounce {depth}" + (", compacted" if compacted else "")
+                body = self._bounce_body(depth, compacted)
+            if self.step is None:
+                return body()
+            step = self.steps[(depth, compacted)] = self.step(name, body)
+        step()
+
+    def _bounce_body(self, depth: int, compacted: bool):
+        def body():
+            r, dev = self.r, self.dirs.device
+            if depth == 0:
+                carry = (0, torch.zeros((r, 3), dtype=torch.float32, device=dev),
+                         torch.ones((r, 3), dtype=torch.float32, device=dev),
+                         torch.ones((r,), dtype=torch.bool, device=dev),
+                         self.origin.expand(r, 3), self.dirs,
+                         torch.arange(r, device=dev) if self.compact
+                         else self.idx)
+            else:
+                carry = (depth, self.color, self.throughput, self.active,
+                         self.cur_org, self.cur_dir, self.idx)
+                if compacted:
+                    carry = _compact_carry(carry)
+            _, color, throughput, active, cur_org, cur_dir, idx = _bounce(
+                self.data, self.meta, self.accel, "cluster", self.bfc,
+                self.fns, carry, origin=self.origin,
+                shared_eye=depth == 0 and self.shared)
+            for buf, x in ((self.color, color), (self.throughput, throughput),
+                           (self.active, active), (self.cur_org, cur_org),
+                           (self.cur_dir, cur_dir), (self.idx, idx)):
+                if x is not buf:
+                    buf.copy_(x)
+            if depth < self.meta.max_depth:
+                alive = active.any()
+                if self.compact and depth + 1 >= _COMPACT_FROM:
+                    act_f = active.to(torch.float32).mean()
+                    live_f = active.reshape(-1, TILE).any(1).to(
+                        torch.float32).mean()
+                    scattered = live_f - act_f > _COMPACT_SCATTER
+                else:
+                    scattered = torch.zeros_like(alive)
+                self.flags.copy_(torch.stack([alive, scattered]))
+        return body
+
+    def _uncompact(self) -> None:
+        self.color.copy_(_uncompact_color(self.color, self.idx))
+
+
+def _programs_on(device, engine: str = "cluster") -> bool:
+    """True when a render on ``device`` through ``engine`` replays
+    captured programs: the cluster engine on a CUDA device, outside
+    ``eager()`` and ``debug_nans()``."""
+    return (engine == "cluster" and not _debug["nans"]
+            and programs.enabled(device))
+
+
+def _wavefront(progs, data, meta, accel, r: int, shared: bool, bfc: bool,
+               relaxed: bool, compact_mode: str, device) -> _Wavefront:
+    """The scene's cached wavefront program of this shape (``progs``:
+    ``programs.scene_programs``), or with ``progs`` None a new eager one."""
+    args = (data, meta, accel, r, shared, bfc, relaxed, compact_mode, device)
+    if progs is None:
+        return _Wavefront(*args, None)
+    return progs.program(("rays", r, shared, bfc, relaxed, compact_mode),
+                         lambda: _Wavefront(*args, progs.step))
+
+
+def render_rays(data: SceneData, meta: SceneMeta, origin, dirs, accel,
+                engine: str = "cluster", differentiable: bool = False,
+                bfc: bool = False, relaxed: bool = False,
+                compact_mode: str = "auto"):
+    """(R, 3) f32 radiance of a wavefront.  ``origin``: (3,) (a shared eye
+    point) or (R, 3); ``dirs``: (R, 3), unnormalized (the camera's).
+    ``accel``: the engine's accelerator (a ClusterSet, a DeviceBVH, None
+    for brute).
+
+    ``differentiable``: the hits are re-derived from the engine's
+    primitive ids by ``refine_hit`` (gradients flow into the scene
+    tensors), in exactly max_depth + 1 bounces: no early exit, no
+    compaction, no peeled eye bounce.  Otherwise the cluster engine takes
+    its hits from the kernel's slot table (the fast path, ``_Wavefront``:
+    on a CUDA device a captured program of this scene and shape, replayed,
+    ``programs``), and brute and bvh refine their ids the same way,
+    stopping once no ray is active.  The cluster engine's shadow kernels
+    (plane tables within ``SHADOW_PLANES_BYTES_MAX``) serve both paths.
+    ``compact_mode`` (fast path only): ``auto`` gates the activity
+    compaction off below max depth _COMPACT_MIN_DEPTH; ``deep`` keeps only
+    the runtime scatter gate (adaptive refinement waves, scattered by
+    construction)."""
+    if compact_mode not in ("auto", "deep"):
+        raise ValueError(f"unknown compact_mode {compact_mode!r}")
+    r, dev = dirs.shape[0], dirs.device
+    if engine == "cluster" and not differentiable:
+        progs = (programs.scene_programs(data, meta, accel, dev)
+                 if _programs_on(dev) else None)
+        wf = _wavefront(progs, data, meta, accel, r, origin.dim() == 1, bfc,
+                        relaxed, compact_mode, dev)
+        wf.load(origin, dirs)
+        color = wf.run()
+        return color if progs is None else color.clone()
+    fns = _occlusion(data, meta, accel, engine, bfc, relaxed)
     carry = (
         0,
         torch.zeros((r, 3), dtype=torch.float32, device=dev),
@@ -234,16 +394,11 @@ def render_rays(data: SceneData, meta: SceneMeta, origin, dirs, accel,
     )
     if differentiable:
         for _ in range(meta.max_depth + 1):
-            carry = bounce(carry)
+            carry = _bounce(data, meta, accel, engine, bfc, fns, carry)
         return carry[1]
-    if fast_hits and origin.dim() == 1:
-        carry = bounce(carry, shared_eye=True)
     while carry[0] <= meta.max_depth and bool(carry[3].any()):
-        carry = bounce(carry)
-    color, idx = carry[1], carry[6]
-    if compact and bool((idx != torch.arange(r, device=dev)).any()):
-        color = _uncompact_color(color, idx)
-    return color
+        carry = _bounce(data, meta, accel, engine, bfc, fns, carry)
+    return carry[1]
 
 
 def _tile_block_shape():
@@ -304,6 +459,17 @@ def _tile_order(h: int, w: int, dev, engine: str = "cluster"):
     return None, torch.from_numpy(p).to(dev), torch.from_numpy(i).to(dev)
 
 
+def _chunks(r: int, chunk: int):
+    """(rays a wavefront, wavefronts, pad rays) of ``trace`` over r rays:
+    one wavefront of r when r <= ``chunk``, else ``chunk`` rounded down to
+    whole tiles, the last padded."""
+    if r <= chunk:
+        return r, 1, 0
+    c = max(TILE, (chunk // TILE) * TILE)
+    pad = (-r) % c
+    return c, (r + pad) // c, pad
+
+
 def trace(data: SceneData, meta: SceneMeta, origin, dirs, accel,
           chunk: int, bfc: bool = False, relaxed: bool = False,
           compact_mode: str = "auto", engine: str = "cluster"):
@@ -316,8 +482,7 @@ def trace(data: SceneData, meta: SceneMeta, origin, dirs, accel,
               compact_mode=compact_mode)
     if r <= chunk:
         return render_rays(data, meta, origin, dirs, accel, **kw)
-    chunk = max(TILE, (chunk // TILE) * TILE)
-    pad = (-r) % chunk
+    chunk, _, pad = _chunks(r, chunk)
     dirs = torch.cat([dirs, dirs[-1:].expand(pad, 3)])
     per_ray = origin.dim() == 2
     if per_ray:
@@ -343,8 +508,12 @@ def render_camera(data: SceneData, meta: SceneMeta, cam: Camera, accel,
     h, w = cam.height, cam.width
     chunk = _cap_chunk_for_big_scenes(max(TILE, (chunk // TILE) * TILE),
                                       accel)
-    blocks, perm, inv = _tile_order(h, w, dev, engine)
     vec = torch.from_numpy(camera_vectors(cam)).to(dev)
+    if _programs_on(dev, engine):
+        progs = programs.scene_programs(data, meta, accel, dev)
+        return _frame(progs, data, meta, accel, "camera", h, w, h, chunk,
+                      1, "parity", True, False, bfc, relaxed)(vec).clone()
+    blocks, perm, inv = _tile_order(h, w, dev, engine)
     origin, dirs = eye_rays_from(vec, w, h)
     dirs = apply_tile_order(dirs, h, w, blocks, perm).contiguous()
     color = trace(data, meta, origin, dirs, accel, chunk, bfc=bfc,
@@ -380,6 +549,15 @@ def render_band(data: SceneData, meta: SceneMeta, accel, vec,
         color = gather_rows(render_rays_sharded(
             data, meta, origin, dirs, mesh, accel, engine, chunk=chunk,
             bfc=bfc, relaxed=relaxed), mesh)
+    return _band_image(color, bh, ws, blocks, inv, ssaa, ssaa_mode, hdr)
+
+
+def _band_image(color, bh: int, ws: int, blocks, inv, ssaa: int,
+                ssaa_mode: str, hdr: bool):
+    """A band's radiance (bh*ws, 3) in tile order -> its image: row order,
+    then ``hdr`` f32 radiance (SSAA as a float mean), else uint8 (SSAA
+    parity: quantize, then the truncating mean; otherwise the float mean,
+    then quantize)."""
     color = undo_tile_order(color, bh, ws, blocks, inv).reshape(bh, ws, 3)
     if hdr:
         return color if ssaa <= 1 else downsample_mean(color, ssaa)
@@ -388,6 +566,101 @@ def render_band(data: SceneData, meta: SceneMeta, accel, vec,
     if ssaa_mode == "parity":
         return downsample_parity(quantize(color), ssaa)
     return quantize(downsample_mean(color, ssaa))
+
+
+class _Frame:
+    """Rows [row0, row0 + bh) of the (h, w) frame (``kind`` "band":
+    ``render_band`` without a mesh) or the whole camera (``kind``
+    "camera": ``render_camera``'s radiance, bh = h) as a program, the
+    counterpart of ``_render_band_jit`` / ``_render_camera_jit``.  Its
+    static inputs ``vec`` (the (5, 3) camera vector), ``row0`` (f32) and
+    ``jitter`` ((bh, w, 2), jittered bands only) are copied in before each
+    run, so every band and camera of one shape shares one capture, as in
+    JAX, where they are traced.  Steps: a prologue (eye rays, tile order,
+    the wavefront's inputs: padded into ``dirs_all`` when ``trace`` would
+    cut the band into chunks), the wavefront's bounce steps for each chunk
+    (a chunk's rays copied in first), and an epilogue (``_band_image``)
+    into the static ``out``.  ``progs`` None: eager steps."""
+
+    def __init__(self, progs, data: SceneData, meta: SceneMeta, accel,
+                 kind: str, h: int, w: int, bh: int, chunk: int, ssaa: int,
+                 ssaa_mode: str, hdr: bool, jittered: bool, bfc: bool,
+                 relaxed: bool, device):
+        self.kind, self.h, self.w, self.bh = kind, h, w, bh
+        self.ssaa, self.ssaa_mode, self.hdr = ssaa, ssaa_mode, hdr
+        c, self.n, pad = _chunks(bh * w, chunk)
+        self.wf = _wavefront(progs, data, meta, accel, c, True, bfc, relaxed,
+                             "auto", device)
+        self.blocks, self.perm, self.inv = _tile_order(bh, w, device)
+        f32 = dict(dtype=torch.float32, device=device)
+        self.vec = torch.zeros((5, 3), **f32)
+        self.row0 = torch.zeros((), **f32)
+        self.jitter = torch.zeros((bh, w, 2), **f32) if jittered else None
+        self.whole = self.n == 1 and pad == 0
+        if not self.whole:
+            self.dirs_all = torch.zeros((self.n * c, 3), **f32)
+            self.color_all = torch.zeros((self.n * c, 3), **f32)
+        s = max(ssaa, 1)
+        self.out = torch.zeros((bh // s, w // s, 3), device=device,
+                               dtype=torch.float32 if hdr else torch.uint8)
+        if progs is None:
+            self.prologue, self.epilogue = self._prologue, self._epilogue
+        else:
+            self.prologue = progs.step(f"{kind} prologue", self._prologue)
+            self.epilogue = progs.step(f"{kind} epilogue", self._epilogue)
+
+    @torch.no_grad()
+    def __call__(self, vec, row0: int = 0, jitter=None) -> torch.Tensor:
+        """The band's image (the static ``out``: copy it before the next
+        run) for camera vector ``vec``, first row ``row0`` and offsets
+        ``jitter``."""
+        self.vec.copy_(vec)
+        self.row0.fill_(row0)
+        if self.jitter is not None:
+            self.jitter.copy_(jitter)
+        self.prologue()
+        wf = self.wf
+        if self.whole:
+            wf.run()
+        else:
+            for i in range(self.n):
+                wf.dirs.copy_(self.dirs_all[i * wf.r:(i + 1) * wf.r])
+                self.color_all[i * wf.r:(i + 1) * wf.r].copy_(wf.run())
+        self.epilogue()
+        return self.out
+
+    def _prologue(self) -> None:
+        if self.kind == "camera":
+            origin, dirs = eye_rays_from(self.vec, self.w, self.h)
+        else:
+            origin, dirs = eye_rays_band(self.vec, self.w, self.h, self.row0,
+                                         self.bh, jitter=self.jitter)
+        dirs = apply_tile_order(dirs, self.bh, self.w, self.blocks, self.perm)
+        self.wf.origin.copy_(origin)
+        if self.whole:
+            self.wf.dirs.copy_(dirs)
+        else:
+            r = dirs.shape[0]
+            self.dirs_all[:r].copy_(dirs)
+            self.dirs_all[r:].copy_(dirs[-1:].expand(self.dirs_all.shape[0] - r, 3))
+
+    def _epilogue(self) -> None:
+        color = (self.wf.color if self.whole
+                 else self.color_all[:self.bh * self.w])
+        self.out.copy_(_band_image(color, self.bh, self.w, self.blocks,
+                                   self.inv, self.ssaa, self.ssaa_mode,
+                                   self.hdr))
+
+
+def _frame(progs, data, meta, accel, kind: str, h: int, w: int, bh: int,
+           chunk: int, ssaa: int, ssaa_mode: str, hdr: bool, jittered: bool,
+           bfc: bool, relaxed: bool) -> _Frame:
+    """The scene's cached frame program of this shape (``_Frame``)."""
+    key = ("frame", kind, h, w, bh, chunk, ssaa, ssaa_mode, hdr, jittered,
+           bfc, relaxed)
+    return progs.program(key, lambda: _Frame(
+        progs, data, meta, accel, kind, h, w, bh, chunk, ssaa, ssaa_mode,
+        hdr, jittered, bfc, relaxed, data.device))
 
 
 def render_camera_streamed(data: SceneData, meta: SceneMeta, cam: Camera,
@@ -437,14 +710,22 @@ def render_camera_streamed(data: SceneData, meta: SceneMeta, cam: Camera,
     # change only which of two exactly equally near primitives wins (the
     # exact-t tie class).
     vec = torch.from_numpy(camera_vectors(cam)).to(dev)
+    jittered = ssaa_mode == "jitter" and ssaa > 1
+    progs = (programs.scene_programs(data, meta, accel, dev)
+             if mesh is None and _programs_on(dev, engine) else None)
     bands = []
     for row0 in range(0, hs, band_h):
         bh = min(band_h, hs - row0)
         if mesh is not None:
             bh = -(-bh // lcm) * lcm          # virtual rows below the frame
         offsets = None
-        if ssaa_mode == "jitter" and ssaa > 1:
+        if jittered:
             offsets = draw_jitter(jitter, seed, ("band", row0), (bh, ws, 2), dev)
+        if progs is not None:
+            bands.append(_frame(progs, data, meta, accel, "band", hs, ws, bh,
+                                chunk, ssaa, ssaa_mode, hdr, jittered, bfc,
+                                relaxed)(vec, row0, offsets).clone())
+            continue
         with nan_site(f"band of rows {row0}-{row0 + bh - 1}"):
             bands.append(render_band(
                 data, meta, accel, vec, hs, ws, row0, bh, ssaa=ssaa,

@@ -29,8 +29,8 @@ import torch
 
 from raytracer_tpu_torch.models.scene import Camera, SceneData, SceneMeta
 from raytracer_tpu_torch.models.whitted import (
-    _cap_chunk_for_big_scenes, _render_device, _tile_block_shape, nan_site,
-    resolve_engine, trace,
+    _cap_chunk_for_big_scenes, _render_device, _tile_block_shape, eager,
+    nan_site, resolve_engine, trace,
 )
 from raytracer_tpu_torch.ops.camera import (
     camera_vectors, draw_jitter, eye_rays_pixels,
@@ -129,7 +129,9 @@ def render_camera_adaptive(data: SceneData, meta: SceneMeta, cam: Camera,
         cc = cols2.reshape(b, 1, sub, 1, p).expand(b, og, sub, g, p).reshape(-1)
         e, dirs = eye_rays_pixels(vec, w, h, rr, cc, jitter=offs.reshape(-1, 2))
         chunk = _cap_chunk_for_big_scenes(dirs.shape[0], accel)
-        with nan_site(f"adaptive {key[0]} wave {key[1]}"):
+        # eager: the waves' sizes follow the data (its captured program is
+        # queued in ROADMAP.md)
+        with nan_site(f"adaptive {key[0]} wave {key[1]}"), eager():
             color = trace(data, meta, e, dirs, accel, chunk, bfc=bfc,
                           relaxed=relaxed, engine=engine,
                           compact_mode="auto" if center_first else "deep")

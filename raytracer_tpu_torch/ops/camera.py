@@ -45,9 +45,10 @@ def camera_basis_from(vec: torch.Tensor, width: int, height: int):
     m = e + gaze * near
     q = m + u * l + v * t
     # divisors as tensors on vec's device: PyTorch's CUDA kernels turn a
-    # division by a host scalar into a multiply by its reciprocal
-    su_mult = (r - l) / vec.new_tensor(width)
-    sv_mult = (t - b) / vec.new_tensor(height)
+    # division by a host scalar into a multiply by its reciprocal; filled
+    # on the device (no host copy), so a CUDA graph can capture them
+    su_mult = (r - l) / vec.new_full((), width)
+    sv_mult = (t - b) / vec.new_full((), height)
     return e, u, v, q, su_mult, sv_mult
 
 
@@ -85,7 +86,9 @@ def eye_rays_band(vec: torch.Tensor, width: int, height: int, row0: int,
                   band_h: int, jitter=None):
     """(origin (3,), dirs (band_h*W, 3)) for rows [row0, row0+band_h) of
     the (height, width) grid; without ``jitter`` equal bit for bit to
-    those rows of ``eye_rays_from``.  Rows past ``height`` (a mesh's
+    those rows of ``eye_rays_from``.  ``row0``: an int, or a 0-dim f32
+    tensor on ``vec``'s device holding it (the band program's input; the
+    same float32 sums).  Rows past ``height`` (a mesh's
     virtual pad rows) extrapolate the image plane.  ``jitter``: (band_h,
     W, 2) offsets in [-0.5, 0.5) of each sample from its pixel center (x,
     y)."""

@@ -151,8 +151,8 @@ def _super_boxes(cmin, cmax, cpad: int):
     smax = torch.where(torch.isnan(hi), -_INF, hi).amax(1)
     smin = torch.where(empty, float("nan"), smin)
     smax = torch.where(torch.isnan(hi).all(1), float("nan"), smax)
-    eps = torch.tensor(1e-5, dtype=torch.float32, device=cmin.device)
-    tiny = torch.tensor(1e-30, dtype=torch.float32, device=cmin.device)
+    eps = torch.full((), 1e-5, dtype=torch.float32, device=cmin.device)
+    tiny = torch.full((), 1e-30, dtype=torch.float32, device=cmin.device)
     smin = smin - (eps * torch.abs(smin) + tiny)
     smax = smax + (eps * torch.abs(smax) + tiny)
     return smin, smax
@@ -436,7 +436,8 @@ def cluster_closest_hit(cset: ClusterSet, origin, dirs, shadow_eps: float,
     t = torch.where(hit, t, 1.0)
     point = origin + t[:, None] * dirs
     sph_lane = hit & (sslot >= pt)
-    up = torch.tensor([0.0, 0.0, 1.0], device=dirs.device)
+    up = torch.zeros((3,), device=dirs.device)   # (0, 0, 1), no host copy
+    up[2:].fill_(1.0)
     safe_rad = torch.where(sph_lane, torch.clamp_min(rad, 1e-30), 1.0)
     n_raw = torch.where(sph_lane[:, None], (point - aux) / safe_rad[:, None], up)
     n_sphere = n_raw / torch.sqrt((n_raw * n_raw).sum(-1, keepdim=True))

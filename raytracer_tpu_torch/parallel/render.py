@@ -26,18 +26,20 @@ def render_rays_sharded(data: SceneData, meta: SceneMeta, origin, dirs,
     the mesh size, in tile order for the cluster engine), concatenated on
     the mesh's first device.  ``engine`` as ``models.whitted.render_rays``
     takes it (``auto`` resolved)."""
-    from raytracer_tpu_torch.models.whitted import resolve_engine, trace
+    from raytracer_tpu_torch.models.whitted import eager, resolve_engine, trace
 
     engine = resolve_engine(engine, accel, meta)
     per_ray = origin.dim() == 2
     origins = shard_rays(mesh, origin) if per_ray else [
         origin.to(d) for d in mesh.devices]
-    colors = [
-        trace(d_data, meta, org, dd, d_accel, chunk, bfc=bfc,
-              relaxed=relaxed, engine=engine).to(mesh.devices[0])
-        for d_data, d_accel, org, dd in zip(
-            replicate(mesh, data), replicate(mesh, accel), origins,
-            shard_rays(mesh, dirs))]
+    # eager: a captured mesh render is queued in ROADMAP.md
+    with eager():
+        colors = [
+            trace(d_data, meta, org, dd, d_accel, chunk, bfc=bfc,
+                  relaxed=relaxed, engine=engine).to(mesh.devices[0])
+            for d_data, d_accel, org, dd in zip(
+                replicate(mesh, data), replicate(mesh, accel), origins,
+                shard_rays(mesh, dirs))]
     return torch.cat(colors)
 
 

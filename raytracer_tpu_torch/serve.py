@@ -34,7 +34,9 @@ raised.
 The scene cache is an LRU keyed on (realpath, mtime, engine): editing a
 scene file invalidates its entry.  It holds the scene and its engine's
 accelerator on the server's device: the clusters for cluster and auto,
-the ``DeviceBVH`` for bvh, nothing for brute.  Renders are split over
+the ``DeviceBVH`` for bvh, nothing for brute; evicting a scene drops its
+captured render programs (``models.programs``), which replay on the card
+for every warm request of the cluster engine.  Renders are split over
 every card of the process by default (``--mesh auto``), bit for bit the
 single-device image.
 """
@@ -49,6 +51,7 @@ import time
 from collections import OrderedDict
 
 from raytracer_tpu_torch.backend import resolve_device
+from raytracer_tpu_torch.models import programs
 from raytracer_tpu_torch.parallel.mesh import mesh_from_arg
 
 
@@ -81,7 +84,8 @@ class RenderServer:
         accel = engine_accel(engine, None, data, meta, self.device)
         self._scenes[key] = (data, meta, accel)
         while len(self._scenes) > self.max_scenes:
-            self._scenes.popitem(last=False)
+            # the scene's captured programs go with it
+            programs.drop(self._scenes.popitem(last=False)[1][0])
         return data, meta, accel
 
     def handle(self, req: dict) -> dict:

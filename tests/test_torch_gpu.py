@@ -56,7 +56,7 @@ def _render_and_compare(cuda, scene, kw, names, treelet=False, **render_kw):
     wrappers ``names``; then each call's kernel equals its plain version."""
     from raytracer_tpu_torch.models.bvh import build_bvh
     from raytracer_tpu_torch.models.clusters import build_clusters
-    from raytracer_tpu_torch.models.whitted import render_camera
+    from raytracer_tpu_torch.models.whitted import eager, render_camera
     from raytracer_tpu_torch.ops import kernels as K
     from raytracer_tpu_torch.utils import synth
 
@@ -74,8 +74,10 @@ def _render_and_compare(cuda, scene, kw, names, treelet=False, **render_kw):
     for n in wrapped:
         setattr(K, n, spy(n))
     try:
-        render_camera(data, meta, dataclasses.replace(meta.cameras[0]), cset,
-                      device=cuda, **render_kw)
+        # eager: a replayed graph calls no wrapper
+        with eager():
+            render_camera(data, meta, dataclasses.replace(meta.cameras[0]),
+                          cset, device=cuda, **render_kw)
     finally:
         for n, f in wrapped.items():
             setattr(K, n, f)
@@ -529,6 +531,7 @@ def test_served_frame_kernels_equal_plain_on_card(cuda, tmp_path):
     from raytracer_tpu_torch.models.bvh import build_bvh
     from raytracer_tpu_torch.models.clusters import build_clusters
     from raytracer_tpu_torch.models.scene import load_scene
+    from raytracer_tpu_torch.models.whitted import eager
     from raytracer_tpu_torch.pipeline import render_one_camera
     from raytracer_tpu_torch.serve import RenderServer
     from raytracer_tpu_torch.utils.ppm import read_ppm
@@ -551,7 +554,9 @@ def test_served_frame_kernels_equal_plain_on_card(cuda, tmp_path):
     for n in names:
         setattr(K, n, spy(n))
     try:
-        r = server.handle({"scene": xml, "out_dir": str(tmp_path), "ssaa": 2})
+        with eager():             # a replayed graph calls no wrapper
+            r = server.handle({"scene": xml, "out_dir": str(tmp_path),
+                               "ssaa": 2})
     finally:
         for n, f in wrapped.items():
             setattr(K, n, f)
@@ -569,3 +574,67 @@ def test_served_frame_kernels_equal_plain_on_card(cuda, tmp_path):
     want, _ = render_one_camera(data, meta, meta.cameras[0], cset, ssaa=2,
                                 device=cuda)
     np.testing.assert_array_equal(read_ppm(r["images"][0]), want)
+
+
+@pytest.mark.parametrize("scene", ["entry", "terrain"])
+@pytest.mark.parametrize("ssaa,mode", [(1, "parity"), (2, "jitter")])
+def test_replayed_frames_equal_eager_on_card(cuda, scene, ssaa, mode):
+    """The compiled programs (CUDA graphs of the cluster engine's steps)
+    against the same bodies run eagerly, bit for bit: streamed frames of
+    several bands of one shape (one capture, then replays with row0, the
+    camera vector and the jitter copied in), render_camera, and the
+    launch counts of a replayed frame equal to the eager frame's."""
+    import contextlib
+    import os
+
+    import numpy as np
+
+    from raytracer_tpu_torch.models import programs
+    from raytracer_tpu_torch.models.bvh import build_bvh
+    from raytracer_tpu_torch.models.clusters import build_clusters
+    from raytracer_tpu_torch.models.scene import load_scene
+    from raytracer_tpu_torch.models.whitted import (
+        eager, render_camera, render_camera_streamed,
+    )
+    from raytracer_tpu_torch.ops import kernels as K
+    from raytracer_tpu_torch.utils import synth
+
+    if scene == "entry":
+        xml = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                           "entry_scene.xml")
+        data, meta = load_scene(xml, device=cuda)
+    else:
+        data, meta = synth.terrain_scene(cells=16, res=64, mirror_stripes=True,
+                                         device=cuda)
+    cset = build_clusters(data, meta, build_bvh(data, meta))
+    cam = meta.cameras[0]
+    kw = dict(ssaa=ssaa, ssaa_mode=mode, seed=4, device=cuda,
+              chunk=cam.width * ssaa * 16)
+    counts = []
+    frames = []
+    for graphs in (False, True, True, False):
+        with contextlib.nullcontext() if graphs else eager():
+            K.reset_launches()
+            frames.append(render_camera_streamed(data, meta, cam, cset, **kw))
+            torch.cuda.synchronize()
+            counts.append(dict(K.launches))
+            frames.append(render_camera(data, meta, cam, cset, device=cuda))
+    assert programs.cached(data) > 0
+    for k, f in enumerate(frames):
+        np.testing.assert_array_equal(f.cpu().numpy(), frames[k % 2].cpu().numpy())
+    assert counts[0] == counts[1] == counts[2] == counts[3]
+    assert counts[0]["closest_shared"] == -(-cam.height * ssaa // 16)
+    programs.drop(data)
+
+
+def test_capture_of_host_sync_raises(cuda):
+    """A step that reads a device value on the host cannot be captured: it
+    raises, naming the step, and nothing falls back to eager."""
+    from raytracer_tpu_torch.models import programs
+
+    x = torch.ones(4, device=cuda)
+    progs = programs.Programs((), (), programs.CudaGraph)
+    step = progs.step("host read", lambda: bool(x.sum() > 0))
+    with pytest.raises(RuntimeError, match="'host read' failed"):
+        step()
+    assert step.graph is None

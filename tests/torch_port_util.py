@@ -263,3 +263,144 @@ def jax_adaptive_jitter(seed: int):
         return np.asarray(jax.random.uniform(k, shape, jnp.float32,
                                              minval=-0.5, maxval=0.5))
     return draw
+
+
+# the depths at which pr9_render_rays took the compaction branch
+pr9_compactions = []
+
+
+def pr9_render_rays(data, meta, origin, dirs, accel, engine: str = "cluster",
+                    differentiable: bool = False, bfc: bool = False,
+                    relaxed: bool = False, compact_mode: str = "auto"):
+    """PR 9's ``models.whitted.render_rays``, frozen: the bounce loop with
+    its host reads (the compaction gate, the loop test, the un-compaction
+    test) inside, the reference the restructured loop is held to."""
+    from raytracer_tpu_torch.models.whitted import (
+        _COMPACT_FROM, _COMPACT_MIN_DEPTH, _COMPACT_SCATTER, _debug,
+    )
+    from raytracer_tpu_torch.ops import cluster_trace as ctr
+    from raytracer_tpu_torch.ops import traverse
+    from raytracer_tpu_torch.ops.kernels import TILE
+    from raytracer_tpu_torch.ops.shade import (
+        Hit, refine_hit, reflection_rays, shade_local,
+    )
+
+    def _compact_carry(carry):
+        depth, color, throughput, active, org, dirs, idx = carry
+        pr9_compactions.append(depth)
+        perm = torch.argsort((~active).to(torch.int32), stable=True)
+        return (depth, color[perm], throughput[perm], active[perm], org[perm],
+                dirs[perm], idx[perm])
+
+    def _uncompact_color(color, idx):
+        return color[torch.argsort(idx, stable=True)]
+
+    if compact_mode not in ("auto", "deep"):
+        raise ValueError(f"unknown compact_mode {compact_mode!r}")
+    r = dirs.shape[0]
+    fast_hits = engine == "cluster" and not differentiable
+    nl = meta.n_lights
+    shadow_fn = shadow_multi_fn = None
+
+    def occluded_fn(org, seg, t_max, mask):
+        return traverse.any_hit(data, org, seg, t_max, accel, engine,
+                                active=mask, bfc=bfc, relaxed=relaxed)
+
+    if engine == "cluster" and nl > 0:
+        pt = accel.tri_verts.shape[1]
+        if pt * 64 <= ctr.SHADOW_PLANES_BYTES_MAX:
+            planes = [ctr.build_shadow_planes(accel, data.light_pos[l], bfc=bfc)
+                      for l in range(nl)]
+
+            def shadow_fn(org, sdir, mask, l):
+                return ctr.cluster_shadow(accel, planes[l], org, sdir,
+                                          data.light_pos[l], active=mask,
+                                          relaxed=relaxed)
+
+            # all lights in ONE kernel launch while every table fits together
+            if nl >= 2 and nl * pt * 64 <= ctr.SHADOW_PLANES_BYTES_MAX:
+                def shadow_multi_fn(org, masks):
+                    return ctr.cluster_shadow_multi(
+                        accel, planes, org, data.light_pos[:nl], masks,
+                        relaxed=relaxed)
+
+    compact = (fast_hits and (meta.max_depth >= _COMPACT_MIN_DEPTH
+                              or compact_mode == "deep")
+               and r % TILE == 0)
+
+    def bounce(carry, shared_eye: bool = False):
+        if compact and carry[0] >= _COMPACT_FROM:
+            act = carry[3]
+            act_f = act.to(torch.float32).mean()
+            live_f = act.reshape(-1, TILE).any(1).to(torch.float32).mean()
+            if bool(live_f - act_f > _COMPACT_SCATTER):
+                carry = _compact_carry(carry)
+        depth, color, throughput, active, cur_org, cur_dir, idx = carry
+        if fast_hits:
+            fhit, t, normal, mat, point, offset, _ = ctr.cluster_closest_hit(
+                accel, origin if shared_eye else cur_org, cur_dir,
+                meta.shadow_eps, active=active, bfc=bfc,
+                shared_origin=shared_eye)
+            h = Hit(hit=fhit & active, t=t, normal=normal, mat=mat,
+                    point=point, offset=offset)
+        else:
+            prim = traverse.closest_hit(data, cur_org, cur_dir, accel, engine,
+                                        active=active, bfc=bfc)
+            prim = torch.where(active, prim, traverse.MISS)
+            h = refine_hit(data, meta, cur_org, cur_dir, prim)
+        if depth == 0:
+            color = color + torch.where((~h.hit & active)[:, None],
+                                        data.background[None, :], 0.0)
+        local = shade_local(data, meta, cur_dir, h, shadow_fn=shadow_fn,
+                            shadow_multi_fn=shadow_multi_fn,
+                            occluded_fn=occluded_fn)
+        color = color + throughput * torch.where(h.hit[:, None], local, 0.0)
+        if _debug["nans"] and not bool(torch.isfinite(color).all()):
+            raise FloatingPointError(
+                f"radiance not finite after bounce {depth}")
+        refl_org, refl_dir, tint, is_mirror = reflection_rays(data, cur_dir, h)
+        active = active & is_mirror
+        throughput = torch.where(active[:, None], throughput * tint, 0.0)
+        cur_org = torch.where(active[:, None], refl_org, cur_org)
+        cur_dir = torch.where(active[:, None], refl_dir, cur_dir)
+        return depth + 1, color, throughput, active, cur_org, cur_dir, idx
+
+    dev = dirs.device
+    carry = (
+        0,
+        torch.zeros((r, 3), dtype=torch.float32, device=dev),
+        torch.ones((r, 3), dtype=torch.float32, device=dev),
+        torch.ones((r,), dtype=torch.bool, device=dev),
+        origin.expand(r, 3),
+        dirs,
+        torch.arange(r, device=dev),
+    )
+    if differentiable:
+        for _ in range(meta.max_depth + 1):
+            carry = bounce(carry)
+        return carry[1]
+    if fast_hits and origin.dim() == 1:
+        carry = bounce(carry, shared_eye=True)
+    while carry[0] <= meta.max_depth and bool(carry[3].any()):
+        carry = bounce(carry)
+    color, idx = carry[1], carry[6]
+    if compact and bool((idx != torch.arange(r, device=dev)).any()):
+        color = _uncompact_color(color, idx)
+    return color
+
+
+class StubGraph:
+    """Stands in for a CUDA graph on the CPU (``models.programs``): the
+    capture keeps the body and runs nothing, as a capture does; each replay
+    runs the body again on the static buffers it closed over, so a program
+    whose inputs were not copied in, or whose steps read a temporary of an
+    earlier run, gives a wrong frame here too."""
+
+    def __init__(self, pool):
+        self.body = None
+
+    def capture(self, body):
+        self.body = body
+
+    def replay(self):
+        self.body()
