@@ -106,13 +106,15 @@ then:
    mat_diffuse and light_int, Adam at lr 3e-2) on the full-width terrain
    over its 1024x1024 camera's 1,048,576 eye rays (raster order) each
    step, the target the forward radiance of the true scene, the start
-   with mat_diffuse x 0.5 and light_int x 0.7: 5 steps, the loss falling
-   and every gradient finite; the first step's launch counts (the flat
-   mask, the per-ray-origin closest hit and the n-light shadow, no
-   shared-origin closest hit) and kernel calls, each held against its
-   plain version; s/step (median of steps 2-5), rays/s, peak device
-   memory, one profiled step (device busy, idle share); one step with
-   vertices trained too, its gradients finite;
+   with mat_diffuse x 0.5 and light_int x 0.7: 5 steps on the replayed
+   route (the first eager, then captured), the loss falling and every
+   gradient finite; the first step's launch counts (the flat mask, the
+   per-ray-origin closest hit and the n-light shadow, no shared-origin
+   closest hit); a sixth step eager with the same launches, its kernel
+   calls each held against its plain version; s/step (median of steps
+   2-5, replayed), rays/s, peak device memory, one profiled step (device
+   busy, idle share); one step with vertices trained too, its gradients
+   finite;
 7b. one training step on CUDA against the CPU, for brute, bvh and
    cluster, on the full-width terrain through a 64x64 camera and on the
    entry scene: the loss to rtol 1e-5, each field's gradient within 1e-3
@@ -133,10 +135,11 @@ then:
    the frame's ms and its gather's ms; 3 sharded training steps on a
    64x64 camera, the parameters equal on both ranks and the loss within
    1e-5 of the one-process step;
-   8c. phase 7's training on a 2-shard mesh: 5 steps, the loss falling,
-   every gradient finite, step 1 against phase 7's loss (rtol 1e-5) and a
-   one-device step's gradients and parameters (1e-3 of each field's max),
-   the step's kernel calls against the plain versions, s/step;
+   8c. phase 7's training on a 2-shard mesh (one process: replayed): 5
+   steps, the loss falling, every gradient finite, step 1 against phase
+   7's loss (rtol 1e-5) and a one-device step's gradients and parameters
+   (1e-3 of each field's max), an eager step's kernel calls against the
+   plain versions, s/step;
    8d. ``python -m raytracer_tpu_torch.serve`` on stdin: ping, the entry
    scene equal to phase 2's CLI image, the full-width terrain written to
    a scene XML and rendered at --ssaa 2 twice (the second from the cache)
@@ -148,21 +151,34 @@ then:
    8e. measure_scaling over 1 and 2 logical shards of the card (the split,
    not a scaling result);
 9. the compiled programs (``models.programs``: the cluster engine's
-   frames as captured CUDA graphs, the default on the card) against the
-   same bodies run eagerly (``whitted.eager()``) on the full-width frame,
-   the big terrain, streamed --ssaa 4, the jitter frame and a warm served
+   frames, the adaptive frame and the training step as captured CUDA
+   graphs, the default on the card) against the same bodies run eagerly
+   (``whitted.eager()``) on the full-width frame, streamed --ssaa 4, the
+   jitter frame, the adaptive frame (and through a 64x64 camera), the big
+   terrain and a warm served
    terrain request: 0 differing pixels and equal launches (or the run
    fails), ms/frame (median of 5 warm frames of each, in turns), device
    busy ms and idle share of one profiled frame of each, top-level host
    ops per frame, the first graph call's captures, their ms and the graph
-   pool's bytes, each frame's peak allocated outside the pool; and the
+   pool's bytes, each frame's peak allocated outside the pool; the
    threefry draw's device events in 5 profiled jitter frames and 5
-   profiled draws alone, each with and without a tiny kernel first;
+   profiled draws alone, each with and without a tiny kernel first; the
+   training step: at full width (phase 7's problem) 5 steps from one
+   start twice eager and once replayed, step 1's loss equal bit for bit;
+   then each step replayed from the eager run's state before it, its loss
+   and each field's gradient within ``SPREAD_FACTOR`` times the spread of
+   1 + ``SPREAD_RUNS`` eager steps from that state (both printed), its
+   params and Adam state equal bit for bit to eager Adam on its gradients;
+   on a 64x64 camera under ``torch.use_deterministic_algorithms(True)`` 3
+   steps eager and replayed equal bit for bit (a capture that fails there
+   fails the run); phase 7's step eager against replayed as the frames
+   are (equal launches, ms, device busy, idle, host ops, captures, pool);
 
-Phases 3, 3b, 6, 6c and 8d count launches on the replayed programs (a
-replay adds the launch counts its capture recorded) and record kernel
-calls in the same frame run eagerly, which must give the same image and
-launches: a replayed graph calls no wrapper.
+Phases 3, 3b, 6, 6c, 7, 8c and 8d count launches on the replayed programs
+(a replay adds the launch counts its capture recorded) and record kernel
+calls in the same frame, or one more step, run eagerly, which must give
+the same image (a frame) and launches: a replayed graph calls no
+wrapper.
 
 and prints the kernels' JSON line, then ``{"ok": true, "device": ...}``
 as its last line.  Any failure exits non-zero without that line.  Images
@@ -1538,18 +1554,38 @@ def training_setup(dev):
     return data, meta, cset, origin, dirs, target, bad
 
 
+def eager_step_calls(label, one, launches):
+    """One more training step ``one()`` under ``whitted.eager()`` with its
+    kernel calls recorded (a replayed graph calls no wrapper, and a
+    capture runs no Python that reads the device): its launches must equal
+    ``launches``, a replayed step's.  Returns the ``Capture``."""
+    import torch
+
+    from raytracer_tpu_torch.models.whitted import eager
+    from raytracer_tpu_torch.ops import kernels as K
+
+    K.reset_launches()
+    with Capture(K) as cap, eager():
+        one()
+    torch.cuda.synchronize()
+    check(dict(K.launches) == launches, f"{label}: eager step launches "
+          f"{dict(K.launches)}, replayed {launches}")
+    return cap
+
+
 def train_full_width(dev, results, checked):
     """Phase 7: make_train_step on the full-width terrain (cluster engine,
     fields mat_diffuse and light_int, lr 3e-2) over its 1024x1024 camera's
     1,048,576 eye rays in raster order every step, the target the port's
     forward radiance of the true scene, the start mat_diffuse x 0.5 and
-    light_int x 0.7: 5 steps (the first with the launch counts reset just
-    before and read just after and its kernel calls captured and held
-    against the plain versions), the loss falling and every gradient
-    finite; s/step (median of steps 2-5, synchronized), rays/s, peak device
-    memory of steps 2-5, one profiled step (device busy, idle share); one
-    step with vertices too, its gradients finite.  Returns the launches of
-    one step."""
+    light_int x 0.7: 5 steps on the replayed route (the first eager, then
+    captured, with the launch counts reset just before and read just
+    after), the loss falling and every gradient finite; a sixth step
+    eager (``eager_step_calls``: the same launches, its kernel calls held
+    against the plain versions); s/step (median of steps 2-5, replayed,
+    synchronized), rays/s, peak device memory of steps 2-5, one profiled
+    step (device busy, idle share); one step with vertices too, its
+    gradients finite.  Returns the launches of one step."""
     import torch
 
     from raytracer_tpu_torch.ops import kernels as K
@@ -1573,19 +1609,17 @@ def train_full_width(dev, results, checked):
         t0 = time.perf_counter()
         if i == 0:
             K.reset_launches()
-            with Capture(K) as cap:
-                loss = one()
-            torch.cuda.synchronize()
+        loss = one()
+        torch.cuda.synchronize()
+        if i == 0:
             launches = dict(K.launches)
-        else:
-            loss = one()
-            torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         losses.append(float(loss))
         for f, p in state.params.items():
             check(bool(torch.isfinite(p.grad).all()), f"step {i + 1}: {f} grad")
     peak = torch.cuda.max_memory_allocated()
     s_step = statistics.median(times[1:])
+    cap = eager_step_calls("training step", one, launches)
     log(f"  launches in one step: {launches}")
     for name in TRAIN_MUST:
         check(launches[name] > 0, f"training step: {name} was not launched")
@@ -1597,7 +1631,7 @@ def train_full_width(dev, results, checked):
           f"training step: {launches['shadow']} shadow launches over "
           f"{nl_call} lights, want {meta.max_depth + 1} over {meta.n_lights}")
     log(f"  losses {losses}; s/step {[round(t, 4) for t in times]} (first: "
-        f"launch counts and capture); median of steps 2-5 {s_step:.4f} s, "
+        f"eager, then the capture); median of steps 2-5 (replayed) {s_step:.4f} s, "
         f"{rays / s_step / 1e6:.3f} Mrays/s; peak {peak} bytes "
         f"({peak / 2**30:.3f} GiB)")
     check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
@@ -2417,9 +2451,10 @@ def two_ranks(results):
 
 
 def train_on_mesh(dev, results, checked):
-    """Phase 8c: phase 7's training problem on a 2-shard mesh of ``dev``:
-    5 steps (the first with its launches and kernel calls, held against
-    the plain versions), the loss falling, every gradient finite; step 1's
+    """Phase 8c: phase 7's training problem on a 2-shard mesh of ``dev``
+    (one process: the replayed route): 5 steps (the first with its
+    launches; a sixth eager with its kernel calls, held against the plain
+    versions), the loss falling, every gradient finite; step 1's
     loss within rtol 1e-5 of phase 7's first, its gradients and parameters
     within 1e-3 of each field's max against a one-device step; s/step
     (median of steps 2-5).  Returns the step's launches."""
@@ -2444,13 +2479,10 @@ def train_on_mesh(dev, results, checked):
         t0 = time.perf_counter()
         if i == 0:
             K.reset_launches()
-            with Capture(K) as cap:
-                state, loss = step(state, bad, origin, dirs, target, accel=cset)
-            torch.cuda.synchronize()
+        state, loss = step(state, bad, origin, dirs, target, accel=cset)
+        torch.cuda.synchronize()
+        if i == 0:
             launches = dict(K.launches)
-        else:
-            state, loss = step(state, bad, origin, dirs, target, accel=cset)
-            torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         losses.append(float(loss))
         for f, p in state.params.items():
@@ -2472,15 +2504,17 @@ def train_on_mesh(dev, results, checked):
     check(losses[-1] < losses[0], f"2-shard training losses {losses}")
     for name in TRAIN_MUST:
         check(launches[name] > 0, f"2-shard step: {name} was not launched")
-    checked("2-shard training step", cap.calls)
     s_step = statistics.median(times[1:])
-    log(f"  2-shard steps: launches {launches}; losses {losses} (phase 7's "
-        f"first {phase7}); s/step {[round(t, 4) for t in times]}; median of "
-        f"steps 2-5 {s_step:.4f} s (phase 7 {results['train']['s_per_step']:.4f})")
+
     def one_step():
         nonlocal state
         state, _ = step(state, bad, origin, dirs, target, accel=cset)
 
+    checked("2-shard training step",
+            eager_step_calls("2-shard training step", one_step, launches).calls)
+    log(f"  2-shard steps: launches {launches}; losses {losses} (phase 7's "
+        f"first {phase7}); s/step {[round(t, 4) for t in times]}; median of "
+        f"steps 2-5 {s_step:.4f} s (phase 7 {results['train']['s_per_step']:.4f})")
     idle = profiled(one_step, results, "mesh_train_profile", s_step * 1e3)
     results["mesh_train"] = {"losses": losses, "runs_s": times,
                              "s_per_step": s_step, "launches": launches,
@@ -2720,15 +2754,20 @@ def serve_on_card(dev, results, checked):
 # phase 9: the compiled programs, eager against replayed
 # ---------------------------------------------------------------------------
 
-def pool_bytes():
-    """Bytes of the device segments in the captured programs' memory pools
+def scene_pools():
+    """The graph memory pools of the scenes' programs."""
+    from raytracer_tpu_torch.models import programs
+
+    return [p.pool for p in programs._scenes.values() if p.pool]
+
+
+def pool_bytes(pools):
+    """Bytes of the device segments in the graph memory pools ``pools``
     (``torch.cuda.memory_snapshot``), None where the snapshot does not
     name a segment's pool."""
     import torch
 
-    from raytracer_tpu_torch.models import programs
-
-    pools = {tuple(p.pool) for p in programs._scenes.values() if p.pool}
+    pools = {tuple(p) for p in pools}
     snap = torch.cuda.memory_snapshot()
     if snap and "segment_pool_id" not in snap[0]:
         return None
@@ -2769,14 +2808,15 @@ def lean_profile(frame, lead=False):
     return wall, busy, mine, host["top_level_ops"], graphs, rows
 
 
-def compare_programs(label, frame, image, results, key):
+def compare_programs(label, frame, image, results, key, pools=scene_pools):
     """One frame eager (``whitted.eager()``) against its captured programs
     replayed: the first graph call after ``programs.clear()`` (its capture
-    ms and the pool's bytes), the launches of one frame each (equal), the
-    images (0 differing pixels), 5 warm synced frames of each in turns
-    (median ms), one profiled frame of each (device busy, idle share
-    against the median, top-level host ops).  ``image(out)``: the frame's
-    image as a numpy array."""
+    ms and the bytes of the pools ``pools()``), the launches of one frame
+    each (equal), the images (0 differing pixels), 5 warm synced frames of
+    each in turns (median ms), one profiled frame of each (device busy,
+    idle share against the median, top-level host ops).  ``image(out)``:
+    the frame's image as a numpy array; None for a training step, whose
+    state each run moves on (its results are checked apart)."""
     import numpy as np
     import torch
 
@@ -2798,17 +2838,19 @@ def compare_programs(label, frame, image, results, key):
     first_ms = (time.perf_counter() - t0) * 1e3
     captures = programs.stats["captures"] - s0["captures"]
     capture_ms = (programs.stats["capture_s"] - s0["capture_s"]) * 1e3
-    pool = pool_bytes()
+    pool = pool_bytes(pools())
     out = {}
     for name, fn in (("eager", eager_frame), ("graph", frame)):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         K.reset_launches()
-        img = image(fn())
+        res = fn()
+        img = None if image is None else image(res)
         torch.cuda.synchronize()
         out[name] = {"img": img, "launches": dict(K.launches), "runs_ms": [],
                      "peak": torch.cuda.max_memory_allocated()}
-    diff = int((out["eager"]["img"] != out["graph"]["img"]).any(-1).sum())
+    diff = 0 if image is None else int(
+        (out["eager"]["img"] != out["graph"]["img"]).any(-1).sum())
     check(diff == 0, f"{label}: {diff} pixels differ between eager and replayed")
     check(out["eager"]["launches"] == out["graph"]["launches"],
           f"{label}: launches {out['eager']['launches']} eager, "
@@ -2837,11 +2879,253 @@ def compare_programs(label, frame, image, results, key):
             f"{1 - busy / ms:.3f}; {ops} top-level host ops, {graphs} graph "
             f"launches; kernel events {rows}; peak allocated "
             f"{out[name]['peak']} bytes (outside the graph pool)")
-    log(f"  {label}: 0 differing pixels; launches equal {row['launches']}; "
+    log(f"  {label}: {'0 differing pixels; ' if image is not None else ''}"
+        f"launches equal {row['launches']}; "
         f"first graph call {first_ms:.3f} ms with {captures} captures taking "
         f"{capture_ms:.3f} ms; graph pool {pool} bytes")
     results.setdefault("programs", {})[key] = row
     return row
+
+
+# the replayed step's distance from eager may be at most this many times
+# the largest distance between two of 1 + SPREAD_RUNS eager steps from the
+# same state (L2 over a field): from one state only the order of
+# index_add_'s float atomics differs between two steps, so a field that no
+# atomic reaches is equal bit for bit in every eager step and the bar there
+# is equality; a stale input or a missed update moves a field by orders of
+# magnitude more.  The few materials make the distances heavy-tailed (a
+# replayed distance up to 2.6 times the largest of 3 eager ones on the
+# H100): the largest of 15 pairs bounds the noise more surely
+SPREAD_FACTOR = 4.0
+SPREAD_RUNS = 5
+
+
+def train_spread(dev, results):
+    """Phase 9, training at full width (phase 7's problem), replayed against
+    eager.  Eager run A takes 5 steps from the start, its state (params,
+    Adam's moments and step count) kept before each; the program R takes
+    its first 5 steps (the first eager, then captured) from the same start,
+    step 1's loss equal to A's bit for bit.  Then, for each step n, R's
+    state is loaded with A's state before step n and R replays step n once,
+    and an eager state B loaded the same way takes step n ``SPREAD_RUNS``
+    times: R's loss and each field's gradient within ``SPREAD_FACTOR``
+    times the eager spread (the largest distance between two of A, B_1,
+    ..., B_SPREAD_RUNS) of ||R - A|| (equal bit for bit where the eager
+    steps are), and R's params, moments and step count
+    equal bit for bit what eager Adam makes of R's gradients from that
+    state.  Both spreads are printed, and those of a second 5-step eager
+    run B against A and of R against A (the atomics' differences carried
+    through the later steps).  Loading a state makes no new capture."""
+    import contextlib
+
+    import torch
+
+    from raytracer_tpu_torch.models import programs
+    from raytracer_tpu_torch.models.whitted import eager
+    from raytracer_tpu_torch.parallel.train import init_state, make_train_step
+
+    _, meta, cset, origin, dirs, target, bad = training_setup(dev)
+    fields = ("mat_diffuse", "light_int")
+    moments = ("step", "exp_avg", "exp_avg_sq")
+
+    def new_run():
+        return (make_train_step(meta, lr=3e-2, engine="cluster", device=dev),
+                init_state(bad, fields=fields))
+
+    def one(run, graphs):
+        step, state = run
+        with contextlib.nullcontext() if graphs else eager():
+            loss = step(state, bad, origin, dirs, target, accel=cset)[1]
+        return loss.detach().clone(), {
+            (f, w): x.detach().clone() for f, p in state.params.items()
+            for w, x in (("grad", p.grad), ("param", p))}
+
+    def snapshot(state):
+        return ({f: p.detach().clone() for f, p in state.params.items()},
+                {f: {m: state.opt.state[p][m].clone() for m in moments}
+                 for f, p in state.params.items()})
+
+    def load(state, snap):
+        """``snap``'s params and Adam state into ``state`` (which has taken
+        a step), in place: a program's graph reads these tensors."""
+        params, opt = snap
+        with torch.no_grad():
+            for f, p in state.params.items():
+                p.copy_(params[f])
+                for m in moments:
+                    state.opt.state[p][m].copy_(opt[f][m])
+
+    def dist(x, y):
+        return float(torch.linalg.vector_norm((x - y).double()))
+
+    a_run, b_run, r_run = new_run(), new_run(), new_run()
+    a, b, r, before = [], [], [], []
+    for _ in range(5):
+        before.append(snapshot(a_run[1]) if a else None)
+        a.append(one(a_run, False))
+        b.append(one(b_run, False))
+        r.append(one(r_run, True))
+    # the start: Adam's lazy state is zeros of the kinds step 1 made
+    before[0] = ({f: getattr(bad, f).detach().clone() for f in fields},
+                 {f: {m: torch.zeros_like(x) for m, x in st.items()}
+                  for f, st in snapshot(a_run[1])[1].items()})
+    check(torch.equal(r[0][0], a[0][0]), f"full-width training: step 1 loss "
+          f"{float(r[0][0])!r} replayed, {float(a[0][0])!r} eager")
+    trajectory = {f"step {n} {k[0]} {k[1]}": {
+        "eager_spread": dist(b[n - 1][1][k], a[n - 1][1][k]),
+        "replayed_distance": dist(r[n - 1][1][k], a[n - 1][1][k])}
+        for n in (1, 5) for k in a[0][1]}
+
+    captures = programs.stats["captures"]
+    adam = new_run()
+    one(adam, False)              # its Adam state made, lr written
+    rows = {}
+    for n in range(1, 6):
+        snap = before[n - 1]
+        load(r_run[1], snap)
+        loss_r, got_r = one(r_run, True)
+        eager_runs = []
+        for _ in range(SPREAD_RUNS):
+            load(b_run[1], snap)
+            eager_runs.append(one(b_run, False))
+        loss_a, got_a = a[n - 1]
+        keys = [("loss", loss_r, loss_a, [e[0] for e in eager_runs])] + [
+            (f"{f} grad", got_r[(f, "grad")], got_a[(f, "grad")],
+             [e[1][(f, "grad")] for e in eager_runs]) for f in fields]
+        for name, x_r, x_a, x_b in keys:
+            xs = [x_a, *x_b]
+            spread = max(dist(x, y) for i, x in enumerate(xs)
+                         for y in xs[i + 1:])
+            d = dist(x_r, x_a)
+            rows[f"step {n} {name}"] = {"eager_spread": spread,
+                                        "replayed_distance": d}
+            check(d <= SPREAD_FACTOR * spread, f"full-width training step "
+                  f"{n} from eager's state: {name} replayed {d!r} from "
+                  f"eager, {1 + SPREAD_RUNS} eager steps up to {spread!r} "
+                  f"apart")
+        # eager Adam on R's own gradients from the same state
+        load(adam[1], snap)
+        for f, p in adam[1].params.items():
+            p.grad = got_r[(f, "grad")].clone()
+        adam[1].opt.step()
+        for f, p in r_run[1].params.items():
+            q = adam[1].params[f]
+            check(torch.equal(p.detach(), q.detach()), f"full-width training "
+                  f"step {n}: {f} params replayed differ from eager Adam on "
+                  f"the replayed gradients")
+            for m in moments:
+                check(torch.equal(r_run[1].opt.state[p][m],
+                                  adam[1].opt.state[q][m]),
+                      f"full-width training step {n}: {f} Adam {m} replayed "
+                      f"differs from eager Adam on the replayed gradients")
+    check(programs.stats["captures"] == captures, "full-width training: a "
+          "loaded state captured the step anew")
+    log("  full-width training from eager's state before each step, the "
+        f"largest distance between {1 + SPREAD_RUNS} eager steps and "
+        "||R - A||: " + "; ".join(
+            f"{k} {v['eager_spread']:.6g} / {v['replayed_distance']:.6g}"
+            for k, v in rows.items())
+        + "; params, moments and step count equal to eager Adam on the "
+        "replayed gradients")
+    log("  full-width training over 5 free steps, ||B - A|| (two eager runs) "
+        "and ||R - A|| (replayed): " + "; ".join(
+            f"{k} {v['eager_spread']:.6g} / {v['replayed_distance']:.6g}"
+            for k, v in trajectory.items()))
+    log(f"  losses eager A {[float(x[0]) for x in a]}, B "
+        f"{[float(x[0]) for x in b]}, replayed {[float(x[0]) for x in r]}")
+    results.setdefault("programs", {})["train_spread"] = {
+        "same_state": rows, "trajectory": trajectory}
+
+
+def train_deterministic(dev, results):
+    """Phase 9, training on a 64x64 camera of the full-width terrain under
+    ``torch.use_deterministic_algorithms(True)``: 3 steps eager and 3
+    replayed from the same start (mat_diffuse, light_int, light_pos and
+    vertices), loss, gradients and parameters equal bit for bit, the
+    launches of each step equal."""
+    import contextlib
+
+    import torch
+
+    from raytracer_tpu_torch.models import programs
+    from raytracer_tpu_torch.models.whitted import eager, render_rays
+    from raytracer_tpu_torch.ops import kernels as K
+    from raytracer_tpu_torch.ops.camera import camera_vectors, eye_rays_from
+    from raytracer_tpu_torch.parallel.train import init_state, make_train_step
+    from raytracer_tpu_torch.utils.synth import terrain_scene
+
+    data, meta, cset = build(terrain_scene, dev, cells=126, res=64,
+                             mirror_stripes=True)
+    cam = meta.cameras[0]
+    origin, dirs = eye_rays_from(torch.from_numpy(camera_vectors(cam)).to(dev),
+                                 cam.width, cam.height)
+    with torch.no_grad():
+        target = render_rays(data, meta, origin, dirs, cset, engine="cluster")
+    bad = dataclasses.replace(data, mat_diffuse=data.mat_diffuse * 0.5,
+                              light_int=data.light_int * 0.7)
+    fields = ("mat_diffuse", "light_int", "light_pos", "vertices")
+    runs = {}
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        for graphs in (False, True):
+            step = make_train_step(meta, engine="cluster", device=dev)
+            state = init_state(bad, fields=fields)
+            c0 = programs.stats["captures"]
+            got = []
+            with contextlib.nullcontext() if graphs else eager():
+                for _ in range(3):
+                    K.reset_launches()
+                    try:
+                        state, loss = step(state, bad, origin, dirs, target,
+                                           accel=cset)
+                    except RuntimeError as e:
+                        check(False, f"64x64 training step under deterministic "
+                              f"algorithms: {e}")
+                    torch.cuda.synchronize()
+                    got.append((loss, {(f, w): x.detach().clone()
+                                       for f, p in state.params.items()
+                                       for w, x in (("grad", p.grad),
+                                                    ("param", p))},
+                                dict(K.launches)))
+            check(programs.stats["captures"] == c0 + graphs,
+                  "64x64 deterministic training: captures")
+            runs[graphs] = got
+    finally:
+        torch.use_deterministic_algorithms(was)
+    for i, (e, g) in enumerate(zip(runs[False], runs[True])):
+        check(torch.equal(e[0], g[0]), f"64x64 deterministic step {i + 1}: "
+              f"loss {float(e[0])!r} eager, {float(g[0])!r} replayed")
+        for k in e[1]:
+            check(torch.equal(e[1][k], g[1][k]),
+                  f"64x64 deterministic step {i + 1}: {k} differs")
+        check(e[2] == g[2], f"64x64 deterministic step {i + 1}: launches "
+              f"{e[2]} eager, {g[2]} replayed")
+    log(f"  64x64 training under deterministic algorithms: 3 steps eager and "
+        f"replayed equal bit for bit (losses {[float(x[0]) for x in runs[True]]}; "
+        f"launches a step {runs[True][0][2]})")
+    results.setdefault("programs", {})["train_deterministic"] = {
+        "losses": [float(x[0]) for x in runs[True]],
+        "launches": runs[True][0][2]}
+
+
+def train_programs(dev, results):
+    """Phase 9's training step: ``train_spread`` and ``train_deterministic``,
+    then phase 7's step eager against replayed (``compare_programs`` on
+    one state, the runs alternating; the step's own graph pool)."""
+    from raytracer_tpu_torch.parallel.train import init_state, make_train_step
+
+    train_spread(dev, results)
+    train_deterministic(dev, results)
+    _, meta, cset, origin, dirs, target, bad = training_setup(dev)
+    step = make_train_step(meta, lr=3e-2, engine="cluster", device=dev)
+    state = init_state(bad, fields=("mat_diffuse", "light_int"))
+
+    def one():
+        return step(state, bad, origin, dirs, target, accel=cset)[1]
+    compare_programs("full-width training step (1,048,576 rays)", one, None,
+                     results, "train_step", pools=lambda: [
+                         p.progs.pool for p in step.programs.values()])
 
 
 def programs_on_card(dev, results):
@@ -2873,6 +3157,16 @@ def programs_on_card(dev, results):
     def jitter_frame():
         return render_one_camera(data, meta, cam, cset, device=dev, ssaa=2,
                                  ssaa_mode="jitter")
+    compare_programs("full-width terrain, adaptive (base 4 spp, 12.5% of "
+                     "blocks get 12 more)", lambda: render_one_camera(
+                         data, meta, cam, cset, device=dev, ssaa=2,
+                         ssaa_mode="adaptive"), first, results, "adaptive")
+    small = dataclasses.replace(cam, width=64, height=64)
+    compare_programs("full-width terrain through a 64x64 camera, adaptive",
+                     lambda: render_one_camera(data, meta, small, cset,
+                                               device=dev, ssaa=2,
+                                               ssaa_mode="adaptive"),
+                     first, results, "adaptive_64")
     from raytracer_tpu_torch.ops.camera import draw_jitter
 
     def bare_draw():
@@ -2889,6 +3183,7 @@ def programs_on_card(dev, results):
     results.setdefault("programs", {})["draw_events"] = seen
     programs.clear()
     del data, cset
+    train_programs(dev, results)
 
     data, meta, cset = build(terrain_scene, dev, cells=512, res=1024,
                              mirror_stripes=True)

@@ -50,8 +50,9 @@ def train_state_from_numpy(params: Mapping, count, mu: Mapping, nu: Mapping,
                            device="cuda"):
     """The port's TrainState on ``device`` from numpy arrays: ``params``,
     ``mu`` and ``nu`` keyed by field name, ``count`` the optax step count
-    (shape ``()``)."""
-    from raytracer_tpu_torch.parallel.train import TrainState
+    (shape ``()``); its Adam is ``init_state``'s kind (capturable on a
+    CUDA device)."""
+    from raytracer_tpu_torch.parallel.train import TrainState, _adam
 
     dev = resolve_device(device)
 
@@ -59,10 +60,14 @@ def train_state_from_numpy(params: Mapping, count, mu: Mapping, nu: Mapping,
         return torch.from_numpy(np.array(x, np.float32)).to(dev)
 
     leaves = {f: tensor(v).requires_grad_(True) for f, v in params.items()}
-    opt = torch.optim.Adam(list(leaves.values()))
+    opt = _adam(list(leaves.values()))
+    # capturable Adam (on the card) keeps its step count on the params'
+    # device, plain Adam on the CPU
+    step_dev = dev if opt.param_groups[0]["capturable"] else "cpu"
     for f, p in leaves.items():
         opt.state[p] = {"step": torch.tensor(float(np.asarray(count)),
-                                             dtype=torch.float32),
+                                             dtype=torch.float32,
+                                             device=step_dev),
                         "exp_avg": tensor(mu[f]), "exp_avg_sq": tensor(nu[f])}
     return TrainState(leaves, opt)
 

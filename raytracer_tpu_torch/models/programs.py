@@ -1,15 +1,19 @@
-"""Compiled render programs: the cluster engine's wavefront as CUDA graphs,
-the port's counterparts of the JAX package's jitted programs
-``_render_rays_jit``, ``_render_camera_jit`` and ``_render_band_jit``
-(``raytracer_tpu/models/whitted.py:306-398``).
+"""Compiled programs: the cluster engine's wavefront, its frames, the
+adaptive frame and the training step as CUDA graphs, the port's
+counterparts of the JAX package's jitted programs ``_render_rays_jit``,
+``_render_camera_jit`` and ``_render_band_jit``
+(``raytracer_tpu/models/whitted.py:306-398``), ``_adaptive_jit``
+(``raytracer_tpu/ops/adaptive.py:82``) and the jitted train step
+(``raytracer_tpu/parallel/train.py:118``).
 
 XLA runs each of those programs as one dispatch, with the bounce loop's
 control on the device.  Here a program is a set of *steps*: each step is
 a function of static tensors only (inputs are copied into fixed buffers
 before a run, results are written into fixed buffers in place), so that
 one CUDA graph of it serves every later run of the same shape.  The
-bodies live in ``models.whitted`` (``_Wavefront``, ``_Frame``); this
-module holds what they share:
+bodies live in ``models.whitted`` (``_Wavefront``, ``_Rays``, ``_Frame``),
+``ops.adaptive`` (``_Adaptive``) and ``parallel.train``
+(``_TrainProgram``); this module holds what they share:
 
 - ``Step``: one body.  Its first run is eager: it computes the result and
   warms every kernel instance the body launches (the kernel library's
@@ -166,13 +170,14 @@ class Programs(dict):
         return prog
 
 
-def _versions(*objs) -> tuple:
+def _versions(*objs, skip=()) -> tuple:
     """The version counters of every tensor field of the dataclasses
-    ``objs`` (None is skipped): they change with any in-place edit."""
+    ``objs`` (None is skipped) but the fields named in ``skip``: they
+    change with any in-place edit."""
     return tuple(
         getattr(o, f.name)._version for o in objs if o is not None
         for f in dataclasses.fields(o)
-        if isinstance(getattr(o, f.name), torch.Tensor))
+        if f.name not in skip and isinstance(getattr(o, f.name), torch.Tensor))
 
 
 def scene_programs(data, meta, accel, device) -> Programs:

@@ -33,12 +33,14 @@ each band's rays into the mesh's shards (``parallel.render``).
 On a CUDA device the cluster engine's forward renders (``render_rays``,
 ``trace``, ``render_camera``, ``render_camera_streamed`` without a mesh)
 replay captured CUDA graphs (``models.programs``): the bounce loop as
-steps on static buffers (``_Wavefront``), a band or camera as a program
-around it (``_Frame``), the counterparts of the JAX package's jitted
-``_render_rays_jit``, ``_render_band_jit`` and ``_render_camera_jit``.
-The same bodies run eagerly on the CPU, inside ``eager()`` and under
-``debug_nans()``; the other engines, the differentiable path, adaptive
-sampling and the mesh stay eager.
+steps on static buffers (``_Wavefront``, cut into chunks by ``_Rays``), a
+band or camera as a program around it (``_Frame``), the counterparts of
+the JAX package's jitted ``_render_rays_jit``, ``_render_band_jit`` and
+``_render_camera_jit``; the adaptive frame (``ops.adaptive``) and the
+training step through the differentiable path (``parallel.train``)
+replay programs of their own.  The same bodies run eagerly on the CPU,
+inside ``eager()`` and under ``debug_nans()``; the other engines and
+the mesh render stay eager.
 """
 
 from __future__ import annotations
@@ -568,6 +570,51 @@ def _band_image(color, bh: int, ws: int, blocks, inv, ssaa: int,
     return quantize(downsample_mean(color, ssaa))
 
 
+class _Rays:
+    """A wavefront program over ``r`` rays with a shared (3,) origin, cut
+    into chunks as ``trace`` cuts them (``_chunks``): one ``_Wavefront`` of
+    r rays, or of ``chunk`` rays rounded down to whole tiles run chunk by
+    chunk over ``dirs_all``, the rays padded with copies of the last one,
+    into ``color_all``.  ``load`` (inside a step's body) copies the rays
+    in, ``run`` traces them, ``color`` is the (r, 3) radiance buffer."""
+
+    def __init__(self, progs, data: SceneData, meta: SceneMeta, accel, r: int,
+                 chunk: int, bfc: bool, relaxed: bool, compact_mode: str,
+                 device):
+        self.r = r
+        c, self.n, pad = _chunks(r, chunk)
+        self.wf = _wavefront(progs, data, meta, accel, c, True, bfc, relaxed,
+                             compact_mode, device)
+        self.whole = self.n == 1 and pad == 0
+        if not self.whole:
+            f32 = dict(dtype=torch.float32, device=device)
+            self.dirs_all = torch.zeros((self.n * c, 3), **f32)
+            self.color_all = torch.zeros((self.n * c, 3), **f32)
+
+    def load(self, origin, dirs) -> None:
+        self.wf.origin.copy_(origin)
+        if self.whole:
+            self.wf.dirs.copy_(dirs)
+        else:
+            self.dirs_all[:self.r].copy_(dirs)
+            self.dirs_all[self.r:].copy_(
+                dirs[-1:].expand(self.dirs_all.shape[0] - self.r, 3))
+
+    @torch.no_grad()
+    def run(self) -> None:
+        wf = self.wf
+        if self.whole:
+            wf.run()
+            return
+        for i in range(self.n):
+            wf.dirs.copy_(self.dirs_all[i * wf.r:(i + 1) * wf.r])
+            self.color_all[i * wf.r:(i + 1) * wf.r].copy_(wf.run())
+
+    @property
+    def color(self) -> torch.Tensor:
+        return self.wf.color if self.whole else self.color_all[:self.r]
+
+
 class _Frame:
     """Rows [row0, row0 + bh) of the (h, w) frame (``kind`` "band":
     ``render_band`` without a mesh) or the whole camera (``kind``
@@ -577,10 +624,9 @@ class _Frame:
     ``jitter`` ((bh, w, 2), jittered bands only) are copied in before each
     run, so every band and camera of one shape shares one capture, as in
     JAX, where they are traced.  Steps: a prologue (eye rays, tile order,
-    the wavefront's inputs: padded into ``dirs_all`` when ``trace`` would
-    cut the band into chunks), the wavefront's bounce steps for each chunk
-    (a chunk's rays copied in first), and an epilogue (``_band_image``)
-    into the static ``out``.  ``progs`` None: eager steps."""
+    the rays' ``load``), the bounce steps of ``_Rays`` (chunk by chunk when
+    ``trace`` would cut the band), and an epilogue (``_band_image``) into
+    the static ``out``.  ``progs`` None: eager steps."""
 
     def __init__(self, progs, data: SceneData, meta: SceneMeta, accel,
                  kind: str, h: int, w: int, bh: int, chunk: int, ssaa: int,
@@ -588,18 +634,13 @@ class _Frame:
                  relaxed: bool, device):
         self.kind, self.h, self.w, self.bh = kind, h, w, bh
         self.ssaa, self.ssaa_mode, self.hdr = ssaa, ssaa_mode, hdr
-        c, self.n, pad = _chunks(bh * w, chunk)
-        self.wf = _wavefront(progs, data, meta, accel, c, True, bfc, relaxed,
-                             "auto", device)
+        self.rays = _Rays(progs, data, meta, accel, bh * w, chunk, bfc,
+                          relaxed, "auto", device)
         self.blocks, self.perm, self.inv = _tile_order(bh, w, device)
         f32 = dict(dtype=torch.float32, device=device)
         self.vec = torch.zeros((5, 3), **f32)
         self.row0 = torch.zeros((), **f32)
         self.jitter = torch.zeros((bh, w, 2), **f32) if jittered else None
-        self.whole = self.n == 1 and pad == 0
-        if not self.whole:
-            self.dirs_all = torch.zeros((self.n * c, 3), **f32)
-            self.color_all = torch.zeros((self.n * c, 3), **f32)
         s = max(ssaa, 1)
         self.out = torch.zeros((bh // s, w // s, 3), device=device,
                                dtype=torch.float32 if hdr else torch.uint8)
@@ -619,13 +660,7 @@ class _Frame:
         if self.jitter is not None:
             self.jitter.copy_(jitter)
         self.prologue()
-        wf = self.wf
-        if self.whole:
-            wf.run()
-        else:
-            for i in range(self.n):
-                wf.dirs.copy_(self.dirs_all[i * wf.r:(i + 1) * wf.r])
-                self.color_all[i * wf.r:(i + 1) * wf.r].copy_(wf.run())
+        self.rays.run()
         self.epilogue()
         return self.out
 
@@ -635,21 +670,13 @@ class _Frame:
         else:
             origin, dirs = eye_rays_band(self.vec, self.w, self.h, self.row0,
                                          self.bh, jitter=self.jitter)
-        dirs = apply_tile_order(dirs, self.bh, self.w, self.blocks, self.perm)
-        self.wf.origin.copy_(origin)
-        if self.whole:
-            self.wf.dirs.copy_(dirs)
-        else:
-            r = dirs.shape[0]
-            self.dirs_all[:r].copy_(dirs)
-            self.dirs_all[r:].copy_(dirs[-1:].expand(self.dirs_all.shape[0] - r, 3))
+        self.rays.load(origin, apply_tile_order(dirs, self.bh, self.w,
+                                                self.blocks, self.perm))
 
     def _epilogue(self) -> None:
-        color = (self.wf.color if self.whole
-                 else self.color_all[:self.bh * self.w])
-        self.out.copy_(_band_image(color, self.bh, self.w, self.blocks,
-                                   self.inv, self.ssaa, self.ssaa_mode,
-                                   self.hdr))
+        self.out.copy_(_band_image(self.rays.color, self.bh, self.w,
+                                   self.blocks, self.inv, self.ssaa,
+                                   self.ssaa_mode, self.hdr))
 
 
 def _frame(progs, data, meta, accel, kind: str, h: int, w: int, bh: int,

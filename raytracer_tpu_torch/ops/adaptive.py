@@ -20,6 +20,14 @@ or comes from a caller's ``jitter(key, shape)``.  The top-k is a stable descendi
 the k highest scores in descending order, ties to the lower block, as
 ``jax.lax.top_k`` orders them (a refinement wave's jitter is indexed by
 that order).
+
+Every shape is fixed by the arguments (the base wave is (blocks,
+base_spp), round r (k, its share of extra_spp), the selection a device
+tensor), so on a CUDA device the cluster engine's frame is a captured
+program (``_Adaptive``, the counterpart of the JAX package's
+``_adaptive_jit``); the eager route (``_adaptive_eager``) serves the CPU,
+brute, bvh, ``eager()`` and ``debug_nans()``.  Both run the same helpers
+on the same float operations.
 """
 
 from __future__ import annotations
@@ -27,10 +35,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from raytracer_tpu_torch.models import programs
 from raytracer_tpu_torch.models.scene import Camera, SceneData, SceneMeta
 from raytracer_tpu_torch.models.whitted import (
-    _cap_chunk_for_big_scenes, _render_device, _tile_block_shape, eager,
-    nan_site, resolve_engine, trace,
+    _cap_chunk_for_big_scenes, _programs_on, _Rays, _render_device,
+    _tile_block_shape, nan_site, resolve_engine, trace,
 )
 from raytracer_tpu_torch.ops.camera import (
     camera_vectors, draw_jitter, eye_rays_pixels,
@@ -72,6 +81,172 @@ def _luma(color: torch.Tensor) -> torch.Tensor:
     return color[..., 0] * LUMA[0] + color[..., 1] * LUMA[1] + color[..., 2] * LUMA[2]
 
 
+def _wave_rays(vec, w: int, h: int, rows2, cols2, offs, tile: int,
+               center_first: bool):
+    """(origin (3,), dirs) of a wave over the (B, np) pixel coordinates
+    ``rows2``, ``cols2`` with the offsets ``offs`` (B, spp, np, 2), laid
+    out (block, sample group, sub-block, sample in group, pixel).  With
+    ``center_first`` (the base wave) sample 0 is the pixel center."""
+    b, spp, npx = offs.shape[:3]
+    g = sample_group(spp)
+    og, p = spp // g, tile // g
+    sub = npx // p
+    if center_first:
+        offs = torch.cat([torch.zeros_like(offs[:, :1]), offs[:, 1:]], 1)
+    offs = offs.reshape(b, og, g, sub, p, 2).permute(0, 1, 3, 2, 4, 5)
+    rr = rows2.reshape(b, 1, sub, 1, p).expand(b, og, sub, g, p).reshape(-1)
+    cc = cols2.reshape(b, 1, sub, 1, p).expand(b, og, sub, g, p).reshape(-1)
+    return eye_rays_pixels(vec, w, h, rr, cc, jitter=offs.reshape(-1, 2))
+
+
+def _wave_color(color, b: int, spp: int, npx: int, tile: int):
+    """A wave's (B * spp * np, 3) radiance in ``_wave_rays``' layout ->
+    (B, spp, np, 3)."""
+    g = sample_group(spp)
+    og, p = spp // g, tile // g
+    color = color.reshape(b, og, npx // p, g, p, 3).permute(0, 1, 3, 2, 4, 5)
+    return color.reshape(b, spp, npx, 3)
+
+
+def _base_stats(base):
+    """(color sum, luma sum, luma sum of squares) per pixel of the base
+    wave's (nblk, spp, tile, 3) samples, in tile order."""
+    lum = _luma(base)
+    return base.sum(1), lum.sum(1), (lum * lum).sum(1)
+
+
+def _score(lsum, lsq, counts):
+    """Each block's mean luma variance from the running statistics."""
+    c = counts[:, :, 0]
+    var = lsq / c - torch.square(lsum / c)
+    return torch.clamp_min(var, 0.0).mean(1)
+
+
+def _add_samples(sum1, lsum, lsq, counts, sel, extra, spp: int) -> None:
+    """Add a refinement wave's (k, spp, tile, 3) samples of the blocks
+    ``sel`` to the running statistics (in place)."""
+    lum_e = _luma(extra)
+    sum1.index_add_(0, sel, extra.sum(1))
+    lsum.index_add_(0, sel, lum_e.sum(1))
+    lsq.index_add_(0, sel, (lum_e * lum_e).sum(1))
+    counts[sel] += float(spp)
+
+
+def _mean_image(sum1, counts, h: int, w: int, inv):
+    """The (h, w, 3) mean radiance in row order: the blocks reshaped, or
+    gathered by ``inv``, which drops the pad lanes too."""
+    mean = (sum1 / counts).reshape(-1, 3)
+    if inv is None:
+        return from_blocks(mean, h, w, *_tile_block_shape()).reshape(h, w, 3)
+    return mean[inv].reshape(h, w, 3)
+
+
+class _Adaptive:
+    """The adaptive frame of an (h, w) camera as a program
+    (``models.programs``), the counterpart of the JAX package's
+    ``_adaptive_jit``.  Made once per scene and shape: the tile-ordered
+    pixel coordinates and ``inv`` are uploaded then; the camera vector and
+    each wave's jitter (drawn just before the wave, one threefry launch)
+    are copied into static buffers before each run.  Steps: the base
+    prologue (eye rays into the base wave), the base wave's bounce steps
+    (``_Rays``, ``compact_mode="auto"``), the base epilogue (the running
+    statistics); per round a prologue (score, ``stable_topk``, the chosen
+    blocks' rays), the round wave's bounce steps (``"deep"``) and an
+    epilogue (``_add_samples``); a final step (the mean, back to row order)
+    into the static ``out``.  Every wave keeps its flags read between
+    bounces, so the early exit and the compaction gate stay as eager."""
+
+    def __init__(self, progs, data: SceneData, meta: SceneMeta, accel, h: int,
+                 w: int, base_spp: int, per_round: tuple, k: int, bfc: bool,
+                 relaxed: bool, device):
+        bh, bw = _tile_block_shape()
+        self.tile = tile = bh * bw
+        self.h, self.w, self.base_spp, self.per_round = h, w, base_spp, per_round
+        rows, cols, inv = _tile_pixel_coords(h, w, bh, bw)
+        self.nblk = nblk = len(rows) // tile
+        self.rows = torch.from_numpy(rows.astype(np.float32)).to(device).view(
+            nblk, tile)
+        self.cols = torch.from_numpy(cols.astype(np.float32)).to(device).view(
+            nblk, tile)
+        self.inv = None if inv is None else torch.from_numpy(inv).to(device)
+        f32 = dict(dtype=torch.float32, device=device)
+        self.vec = torch.zeros((5, 3), **f32)
+        self.jitter = {("base", 0): torch.zeros((nblk, base_spp, tile, 2), **f32)}
+        for rnd, spp in enumerate(per_round):
+            self.jitter[("round", rnd)] = torch.zeros((k, spp, tile, 2), **f32)
+        self.sum1 = torch.zeros((nblk, tile, 3), **f32)
+        self.lsum = torch.zeros((nblk, tile), **f32)
+        self.lsq = torch.zeros((nblk, tile), **f32)
+        self.counts = torch.zeros((nblk, 1, 1), **f32)
+        self.sel = torch.zeros((k,), dtype=torch.long, device=device)
+        self.out = torch.zeros((h, w, 3), **f32)
+
+        def rays(r, compact_mode):
+            return _Rays(progs, data, meta, accel, r,
+                         _cap_chunk_for_big_scenes(r, accel), bfc, relaxed,
+                         compact_mode, device)
+        self.base = rays(nblk * base_spp * tile, "auto")
+        self.waves = {spp: rays(k * spp * tile, "deep") for spp in set(per_round)}
+        # the steps of each wave, drawn into its jitter buffer first
+        self.waves_steps = [(("base", 0), [
+            progs.step("adaptive base prologue", self._base_prologue),
+            self.base.run,
+            progs.step("adaptive base epilogue", self._base_epilogue)])]
+        for rnd, spp in enumerate(per_round):
+            self.waves_steps.append((("round", rnd), [
+                progs.step(f"adaptive round {rnd} prologue",
+                           lambda rnd=rnd: self._round_prologue(rnd)),
+                self.waves[spp].run,
+                progs.step(f"adaptive round {rnd} epilogue",
+                           lambda rnd=rnd: self._round_epilogue(rnd))]))
+        self.final = progs.step("adaptive final", self._final)
+
+    @torch.no_grad()
+    def __call__(self, vec, jitter, seed: int) -> torch.Tensor:
+        """The frame's (h, w, 3) mean radiance (the static ``out``: copy
+        it before the next run) for camera vector ``vec``, each wave's
+        jitter drawn just before it as ``draw_jitter`` draws it."""
+        self.vec.copy_(vec)
+        for key, steps in self.waves_steps:
+            buf = self.jitter[key]
+            buf.copy_(draw_jitter(jitter, seed, key, buf.shape, buf.device))
+            for step in steps:
+                step()
+        self.final()
+        return self.out
+
+    def _base_prologue(self) -> None:
+        self.base.load(*_wave_rays(self.vec, self.w, self.h, self.rows,
+                                   self.cols, self.jitter[("base", 0)],
+                                   self.tile, True))
+
+    def _base_epilogue(self) -> None:
+        base = _wave_color(self.base.color, self.nblk, self.base_spp,
+                           self.tile, self.tile)
+        for buf, x in zip((self.sum1, self.lsum, self.lsq), _base_stats(base)):
+            buf.copy_(x)
+        self.counts.fill_(float(self.base_spp))
+
+    def _round_prologue(self, rnd: int) -> None:
+        sel = stable_topk(_score(self.lsum, self.lsq, self.counts),
+                          self.sel.shape[0])
+        self.sel.copy_(sel)
+        self.waves[self.per_round[rnd]].load(*_wave_rays(
+            self.vec, self.w, self.h, self.rows[sel], self.cols[sel],
+            self.jitter[("round", rnd)], self.tile, False))
+
+    def _round_epilogue(self, rnd: int) -> None:
+        spp = self.per_round[rnd]
+        extra = _wave_color(self.waves[spp].color, self.sel.shape[0], spp,
+                            self.tile, self.tile)
+        _add_samples(self.sum1, self.lsum, self.lsq, self.counts, self.sel,
+                     extra, spp)
+
+    def _final(self) -> None:
+        self.out.copy_(_mean_image(self.sum1, self.counts, self.h, self.w,
+                                   self.inv))
+
+
 def render_camera_adaptive(data: SceneData, meta: SceneMeta, cam: Camera,
                            accel, base_spp: int = 4,
                            extra_spp: int = 12, refine_frac: float = 0.125,
@@ -84,7 +259,11 @@ def render_camera_adaptive(data: SceneData, meta: SceneMeta, cam: Camera,
     passes each give the ``refine_frac`` noisiest blocks their exact share
     of ``extra_spp`` (earlier rounds take the remainder).  ``stats``
     records the budget spent.  ``jitter``: optional callable ``(key,
-    shape) -> array`` supplying the draws (see the module docstring)."""
+    shape) -> array`` supplying the draws (see the module docstring).
+
+    On a CUDA device the cluster engine's frame replays a captured
+    program of this scene and shape (``_Adaptive``); brute and bvh, the
+    CPU, ``eager()`` and ``debug_nans()`` run it eagerly."""
     if base_spp < 2:
         raise ValueError("adaptive sampling needs base_spp >= 2 "
                          "(variance of one sample is identically zero)")
@@ -99,77 +278,28 @@ def render_camera_adaptive(data: SceneData, meta: SceneMeta, cam: Camera,
     h, w = cam.height, cam.width
     bh, bw = _tile_block_shape()
     tile = bh * bw
-    rows, cols, inv = _tile_pixel_coords(h, w, bh, bw)
-    nblk = len(rows) // tile
+    nblk = -(-(h * w) // tile)
     p_sel = tile                       # refinement unit: whole blocks
-    nsel = len(rows) // p_sel
+    nsel = nblk * tile // p_sel
     k = min(nsel, max(1, round(refine_frac * nsel))) if extra_spp > 0 else 0
     per_round = tuple(
         extra_spp // rounds + (1 if i < extra_spp % rounds else 0)
         for i in range(rounds)) if extra_spp > 0 else ()
     per_round = tuple(x for x in per_round if x > 0)
     vec = torch.from_numpy(camera_vectors(cam)).to(dev)
-    rows_t = torch.from_numpy(rows.astype(np.float32)).to(dev)
-    cols_t = torch.from_numpy(cols.astype(np.float32)).to(dev)
-
-    def wave(rows2, cols2, spp, key, center_first):
-        """(B, np) pixel coords -> (B, spp, np, 3) per-sample radiance.
-        With ``center_first`` (the base wave) sample 0 is the pixel
-        center; refinement waves are fully jittered and compact with
-        ``compact_mode="deep"``."""
-        b, npx = rows2.shape
-        g = sample_group(spp)
-        og, p = spp // g, tile // g
-        sub = npx // p
-        offs = draw_jitter(jitter, seed, key, (b, spp, npx, 2), dev)
-        if center_first:
-            offs = torch.cat([torch.zeros_like(offs[:, :1]), offs[:, 1:]], 1)
-        offs = offs.reshape(b, og, g, sub, p, 2).permute(0, 1, 3, 2, 4, 5)
-        rr = rows2.reshape(b, 1, sub, 1, p).expand(b, og, sub, g, p).reshape(-1)
-        cc = cols2.reshape(b, 1, sub, 1, p).expand(b, og, sub, g, p).reshape(-1)
-        e, dirs = eye_rays_pixels(vec, w, h, rr, cc, jitter=offs.reshape(-1, 2))
-        chunk = _cap_chunk_for_big_scenes(dirs.shape[0], accel)
-        # eager: the waves' sizes follow the data (its captured program is
-        # queued in ROADMAP.md)
-        with nan_site(f"adaptive {key[0]} wave {key[1]}"), eager():
-            color = trace(data, meta, e, dirs, accel, chunk, bfc=bfc,
-                          relaxed=relaxed, engine=engine,
-                          compact_mode="auto" if center_first else "deep")
-        color = color.reshape(b, og, sub, g, p, 3).permute(0, 1, 3, 2, 4, 5)
-        return color.reshape(b, spp, npx, 3)
-
-    base = wave(rows_t.view(nblk, tile), cols_t.view(nblk, tile), base_spp,
-                ("base", 0), True)
-    lum = _luma(base)                                  # (nblk, spp, tile)
-    # running per-pixel statistics in tile order: color sum, luma sum and
-    # sum of squares, sample counts per refinement unit
-    sum1 = base.sum(1).reshape(nsel, p_sel, 3)
-    lsum = lum.sum(1).reshape(nsel, p_sel)
-    lsq = (lum * lum).sum(1).reshape(nsel, p_sel)
-    counts = torch.full((nsel, 1, 1), float(base_spp), device=dev)
-    rows_u, cols_u = rows_t.view(nsel, p_sel), cols_t.view(nsel, p_sel)
-
-    def score():
-        c = counts[:, :, 0]
-        var = lsq / c - torch.square(lsum / c)
-        return torch.clamp_min(var, 0.0).mean(1)
-
-    for rnd in range(len(per_round) if k > 0 else 0):
-        sel = stable_topk(score(), k)
-        extra = wave(rows_u[sel], cols_u[sel], per_round[rnd], ("round", rnd),
-                     False)
-        lum_e = _luma(extra)                           # (k, spp, p_sel)
-        sum1.index_add_(0, sel, extra.sum(1))
-        lsum.index_add_(0, sel, lum_e.sum(1))
-        lsq.index_add_(0, sel, (lum_e * lum_e).sum(1))
-        counts[sel] += float(per_round[rnd])
-    mean = (sum1 / counts).reshape(-1, 3)              # tile order, padded
-    if inv is None:
-        img = from_blocks(mean, h, w, bh, bw)
+    if _programs_on(dev, engine):
+        progs = programs.scene_programs(data, meta, accel, dev)
+        prog = progs.program(
+            ("adaptive", h, w, base_spp, per_round, k, bfc, relaxed),
+            lambda: _Adaptive(progs, data, meta, accel, h, w, base_spp,
+                              per_round, k, bfc, relaxed, dev))
+        img = prog(vec, jitter, seed).clone()
     else:
-        img = mean[torch.from_numpy(inv).to(dev)]      # drops pad lanes too
+        img = _adaptive_eager(data, meta, accel, vec, h, w, base_spp,
+                              per_round, k, seed, bfc, relaxed, jitter,
+                              engine)
     extra_total = k * p_sel * sum(per_round)
-    total = len(rows) * base_spp + extra_total
+    total = nblk * tile * base_spp + extra_total
     stats = {
         "blocks": nblk,
         "refine_units": nsel,
@@ -181,4 +311,43 @@ def render_camera_adaptive(data: SceneData, meta: SceneMeta, cam: Camera,
         "total_samples": total,
         "mean_spp": total / (h * w),
     }
-    return img.reshape(h, w, 3), stats
+    return img, stats
+
+
+def _adaptive_eager(data, meta, accel, vec, h: int, w: int, base_spp: int,
+                    per_round: tuple, k: int, seed: int, bfc: bool,
+                    relaxed: bool, jitter, engine: str):
+    """``render_camera_adaptive``'s (h, w, 3) image, eagerly, through
+    ``engine``: the waves trace through ``trace``."""
+    dev = vec.device
+    bh, bw = _tile_block_shape()
+    tile = bh * bw
+    rows, cols, inv = _tile_pixel_coords(h, w, bh, bw)
+    nblk = len(rows) // tile
+    rows_t = torch.from_numpy(rows.astype(np.float32)).to(dev).view(nblk, tile)
+    cols_t = torch.from_numpy(cols.astype(np.float32)).to(dev).view(nblk, tile)
+
+    def wave(rows2, cols2, spp, key, center_first):
+        """(B, np) pixel coords -> (B, spp, np, 3) per-sample radiance;
+        refinement waves compact with ``compact_mode="deep"``."""
+        b, npx = rows2.shape
+        offs = draw_jitter(jitter, seed, key, (b, spp, npx, 2), dev)
+        e, dirs = _wave_rays(vec, w, h, rows2, cols2, offs, tile, center_first)
+        chunk = _cap_chunk_for_big_scenes(dirs.shape[0], accel)
+        with nan_site(f"adaptive {key[0]} wave {key[1]}"):
+            color = trace(data, meta, e, dirs, accel, chunk, bfc=bfc,
+                          relaxed=relaxed, engine=engine,
+                          compact_mode="auto" if center_first else "deep")
+        return _wave_color(color, b, spp, npx, tile)
+
+    # running per-pixel statistics in tile order: color sum, luma sum and
+    # sum of squares, sample counts per refinement unit (block)
+    sum1, lsum, lsq = _base_stats(wave(rows_t, cols_t, base_spp, ("base", 0),
+                                       True))
+    counts = torch.full((nblk, 1, 1), float(base_spp), device=dev)
+    for rnd, spp in enumerate(per_round):
+        sel = stable_topk(_score(lsum, lsq, counts), k)
+        extra = wave(rows_t[sel], cols_t[sel], spp, ("round", rnd), False)
+        _add_samples(sum1, lsum, lsq, counts, sel, extra, spp)
+    return _mean_image(sum1, counts, h, w,
+                       None if inv is None else torch.from_numpy(inv).to(dev))

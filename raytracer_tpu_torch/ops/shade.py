@@ -78,7 +78,8 @@ def refine_hit(data: SceneData, meta: SceneMeta, origin, dirs, prim) -> Hit:
     tri_lane = hit & is_tri
     sph_lane = hit & ~is_tri
     origin = origin.expand(dirs.shape)
-    up = torch.tensor([0.0, 0.0, 1.0], device=dirs.device)
+    up = torch.zeros((3,), device=dirs.device)   # (0, 0, 1), no host copy
+    up[2:].fill_(1.0)
 
     # triangle branch
     ti = torch.clamp(p, 0, t_pad - 1)

@@ -25,13 +25,16 @@ keeps the same parameters bit for bit.
 from __future__ import annotations
 
 import dataclasses
+import gc
+from collections import OrderedDict
 from typing import NamedTuple
 
 import torch
 
 from raytracer_tpu_torch.backend import resolve_device
+from raytracer_tpu_torch.models import programs
 from raytracer_tpu_torch.models.scene import SceneData, SceneMeta
-from raytracer_tpu_torch.models.whitted import render_rays
+from raytracer_tpu_torch.models.whitted import _programs_on, render_rays
 from raytracer_tpu_torch.parallel.distributed import all_mean
 from raytracer_tpu_torch.parallel.mesh import replicate, shard_rays
 
@@ -75,6 +78,90 @@ def image_loss(params, data, meta, origin, dirs, target, accel, engine,
     return torch.mean((color - target) ** 2)
 
 
+def _loss_and_grads(state: TrainState, data, meta, origin, dirs, target,
+                    accel, engine: str, ldr: bool, mesh, dev):
+    """The loss at ``state``'s params, its gradients accumulated into their
+    ``.grad`` (zeroed in place first, so that the buffers stay put): on one
+    device, or as the shards' means, then the processes' (``all_mean``;
+    the identity with one process, whose ``.grad`` is left as it is)."""
+    state.opt.zero_grad(set_to_none=False)
+    if mesh is None:
+        loss = image_loss(state.params, data, meta, origin, dirs, target,
+                          accel, engine, ldr)
+        loss.backward()
+        return loss.detach()
+    n = len(mesh.devices)
+    origins = (shard_rays(mesh, origin) if origin.dim() == 2
+               else [origin.to(d) for d in mesh.devices])
+    loss = torch.zeros((), device=dev)
+    for d, d_data, d_accel, org, dd, tt in zip(
+            mesh.devices, replicate(mesh, data), replicate(mesh, accel),
+            origins, shard_rays(mesh, dirs), shard_rays(mesh, target)):
+        params = {f: p.to(d) for f, p in state.params.items()}
+        shard = image_loss(params, d_data, meta, org, dd, tt, d_accel,
+                           engine, ldr) / n
+        shard.backward()
+        loss = loss + shard.detach().to(dev)
+    if mesh.world > 1:
+        for p in state.params.values():
+            if p.grad is not None:
+                p.grad = all_mean(p.grad, mesh)
+    return all_mean(loss, mesh)
+
+
+class _TrainProgram:
+    """One training step as a captured program (``programs.Step``), the
+    counterpart of the JAX package's ``jax.jit(shard_map(local_step))``:
+    forward, backward and the Adam update in one graph.  Its static inputs
+    ``origin``, ``dirs`` and ``target`` are copied in before each run; the
+    body writes the loss into the static ``loss``.  The first run is eager
+    (Adam's lazy state, every kernel instance warmed), the capture follows
+    and later runs replay: the gradients stay in the ``.grad`` buffers the
+    first run made, the parameters and Adam's moments and step count
+    (``capturable``, on the card) are updated in place, and ``lr`` is the
+    one written before the first run (a graph bakes it in).  The graph has
+    a memory pool of its own, freed with the program."""
+
+    def __init__(self, state: TrainState, data, meta, origin, dirs, target,
+                 accel, run, versions, graph_type):
+        self.progs = programs.Programs(
+            (tuple(state.params.values()), state.opt, data, meta, accel),
+            versions, graph_type)
+        self.state, self.data, self.accel, self.run = state, data, accel, run
+        self.origin = torch.zeros_like(origin)
+        self.dirs = torch.zeros_like(dirs)
+        self.target = torch.zeros_like(target)
+        self.loss = torch.zeros((), device=dirs.device)
+        self.grads = None
+        self.step = self.progs.step("train step", self._body)
+
+    def _body(self) -> None:
+        self.loss.copy_(self.run(self.state, self.data, self.origin,
+                                 self.dirs, self.target, self.accel))
+
+    def __call__(self, origin, dirs, target) -> torch.Tensor:
+        params = self.state.params.values()
+        with torch.no_grad():
+            self.origin.copy_(origin)
+            self.dirs.copy_(dirs)
+            self.target.copy_(target)
+        if self.grads is not None:
+            # the graph writes the gradient buffers of its first run: kept
+            # here, and handed back to a parameter whose .grad was dropped
+            for p, g in zip(params, self.grads):
+                if p.grad is not g:
+                    p.grad = g
+        self.step()
+        if self.grads is None:
+            self.grads = tuple(p.grad for p in params)
+        return self.loss.clone()
+
+
+# training programs kept per make_train_step (least recently used first
+# out): a new state (a resumed checkpoint) or shape takes a new one
+MAX_TRAIN_PROGRAMS = 2
+
+
 def make_train_step(meta: SceneMeta, lr: float = 3e-2, engine: str = "brute",
                     ldr: bool = False, device="cuda", mesh=None):
     """The step ``(state, data, origin, dirs, target, accel=None) ->
@@ -84,10 +171,54 @@ def make_train_step(meta: SceneMeta, lr: float = 3e-2, engine: str = "brute",
     and the state.  ``mesh``: ``dirs`` and ``target`` (and a per-ray
     ``origin``) are the whole batch, whose rows the mesh size divides;
     each shard traces its slice (``shard_rays``) and the loss and the
-    gradients are the shards' means; ``device`` is the mesh's first."""
+    gradients are the shards' means; ``device`` is the mesh's first.
+
+    On a CUDA device the cluster engine's step replays a captured program
+    (``_TrainProgram``; ``state`` needs ``Adam(capturable=True)``, which
+    ``init_state`` makes there) without a mesh and on a mesh of one
+    process whose shards all sit on ``device``, outside ``eager()`` and
+    ``debug_nans()``: one program per state, scene and shape, at most
+    ``MAX_TRAIN_PROGRAMS``.  The eager step remains for the brute and bvh
+    engines, a mesh over several processes (its all-reduce is a host
+    step) or several cards, and on the CPU."""
     dev = resolve_device(device)
     if mesh is not None and mesh.devices[0] != dev:
         raise ValueError(f"mesh on {mesh.devices[0]}, training on {dev}")
+    one_device = mesh is None or (mesh.world == 1 and all(
+        d == dev for d in mesh.devices))
+    kept: "OrderedDict[tuple, _TrainProgram]" = OrderedDict()
+
+    def run(state, data, origin, dirs, target, accel):
+        loss = _loss_and_grads(state, data, meta, origin, dirs, target,
+                               accel, engine, ldr, mesh, dev)
+        state.opt.step()
+        return loss
+
+    def program(state, data, origin, dirs, target, accel) -> _TrainProgram:
+        if dev.type == "cuda" and not all(
+                g.get("capturable") for g in state.opt.param_groups):
+            raise ValueError("a captured training step needs "
+                             "torch.optim.Adam(capturable=True) (init_state "
+                             "makes it on a CUDA device)")
+        key = (tuple(map(id, state.params.values())), id(state.opt),
+               id(data), id(meta), id(accel), tuple(origin.shape),
+               tuple(dirs.shape), tuple(target.shape))
+        versions = programs._versions(data, accel, skip=state.params)
+        prog = kept.get(key)
+        if prog is None or prog.progs.versions != versions:
+            stale = prog is not None
+            for group in state.opt.param_groups:
+                group["lr"] = lr
+            prog = kept[key] = _TrainProgram(
+                state, data, meta, origin, dirs, target, accel, run, versions,
+                programs.graph_class(dev))
+            if len(kept) > MAX_TRAIN_PROGRAMS:
+                kept.popitem(last=False)
+                stale = True
+            if stale:
+                gc.collect()        # a program's step calls back into it
+        kept.move_to_end(key)
+        return prog
 
     def step(state: TrainState, data, origin, dirs, target, accel=None):
         for name, x in (("scene", data.vertices), ("rays", dirs),
@@ -95,40 +226,28 @@ def make_train_step(meta: SceneMeta, lr: float = 3e-2, engine: str = "brute",
                         *((f, p) for f, p in state.params.items())):
             if x.device != dev:
                 raise ValueError(f"{name} on {x.device}, training on {dev}")
+        if one_device and _programs_on(dev, engine):
+            prog = program(state, data, origin, dirs, target, accel)
+            return state, prog(origin, dirs, target)
         for group in state.opt.param_groups:
             group["lr"] = lr
-        state.opt.zero_grad(set_to_none=True)
-        if mesh is None:
-            loss = image_loss(state.params, data, meta, origin, dirs, target,
-                              accel, engine, ldr)
-            loss.backward()
-            state.opt.step()
-            return state, loss.detach()
-        n = len(mesh.devices)
-        origins = (shard_rays(mesh, origin) if origin.dim() == 2
-                   else [origin.to(d) for d in mesh.devices])
-        loss = torch.zeros((), device=dev)
-        for d, d_data, d_accel, org, dd, tt in zip(
-                mesh.devices, replicate(mesh, data), replicate(mesh, accel),
-                origins, shard_rays(mesh, dirs), shard_rays(mesh, target)):
-            params = {f: p.to(d) for f, p in state.params.items()}
-            shard = image_loss(params, d_data, meta, org, dd, tt, d_accel,
-                               engine, ldr) / n
-            shard.backward()
-            loss = loss + shard.detach().to(dev)
-        for p in state.params.values():
-            if p.grad is not None:
-                p.grad = all_mean(p.grad, mesh)
-        state.opt.step()
-        return state, all_mean(loss, mesh)
+        return state, run(state, data, origin, dirs, target, accel)
 
+    step.programs = kept          # the kept programs, for measurement
     return step
 
 
 def init_state(data: SceneData, fields=PARAM_FIELDS) -> TrainState:
     """A fresh state training ``fields`` of ``data`` (copies, on its
     device); the other fields stay as they are.  The learning rate is
-    ``make_train_step``'s."""
+    ``make_train_step``'s.  On a CUDA device Adam is ``capturable`` (its
+    step count on the card), as a captured step needs."""
     params = {f: getattr(data, f).detach().clone().requires_grad_(True)
               for f in fields}
-    return TrainState(params, torch.optim.Adam(list(params.values())))
+    return TrainState(params, _adam(list(params.values())))
+
+
+def _adam(params: list) -> torch.optim.Adam:
+    """``torch.optim.Adam`` over ``params``: ``capturable`` on a CUDA
+    device, plain elsewhere (capturable Adam refuses CPU tensors)."""
+    return torch.optim.Adam(params, capturable=params[0].device.type == "cuda")

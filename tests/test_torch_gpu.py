@@ -2,6 +2,7 @@
 the card (run with ``python -m pytest tests/test_torch_gpu.py -m gpu``;
 ``chip_smoke.py`` does the same at full size).  Skips without a card."""
 
+import contextlib
 import dataclasses
 
 import pytest
@@ -422,7 +423,9 @@ def test_train_step_kernels_equal_plain_on_card(cuda):
     """The cluster engine's training step on the card: every kernel call
     it makes (the flat mask, the per-ray-origin closest hit, the 2-light
     shadow, once a bounce; no shared-origin closest) equals its plain
-    version."""
+    version.  The step runs under eager(): a replayed step calls no
+    wrapper, and its capture calls them on tensors it does not compute."""
+    from raytracer_tpu_torch.models.whitted import eager
     from raytracer_tpu_torch.ops import kernels as K
 
     calls = []
@@ -438,7 +441,8 @@ def test_train_step_kernels_equal_plain_on_card(cuda):
     for n in names:
         setattr(K, n, spy(n))
     try:
-        _train_step_both(cuda, "cluster")
+        with eager():
+            _train_step_both(cuda, "cluster")
     finally:
         for n, f in wrapped.items():
             setattr(K, n, f)
@@ -638,3 +642,106 @@ def test_capture_of_host_sync_raises(cuda):
     with pytest.raises(RuntimeError, match="'host read' failed"):
         step()
     assert step.graph is None
+
+
+def _train_problem(cuda, res=64):
+    """(perturbed data, meta, clusters, origin, dirs, target) of the terrain
+    through a res x res camera on the card, the target the true radiance."""
+    from raytracer_tpu_torch.models.bvh import build_bvh
+    from raytracer_tpu_torch.models.clusters import build_clusters
+    from raytracer_tpu_torch.models.whitted import render_rays
+    from raytracer_tpu_torch.ops.camera import camera_vectors, eye_rays_from
+    from raytracer_tpu_torch.utils import synth
+
+    data, meta = synth.terrain_scene(cells=16, res=res, mirror_stripes=True,
+                                     device=cuda)
+    cset = build_clusters(data, meta, build_bvh(data, meta))
+    cam = meta.cameras[0]
+    origin, dirs = eye_rays_from(torch.from_numpy(camera_vectors(cam)).to(cuda),
+                                 cam.width, cam.height)
+    with torch.no_grad():
+        target = render_rays(data, meta, origin, dirs, cset, engine="cluster")
+    bad = dataclasses.replace(data, mat_diffuse=data.mat_diffuse * 0.5,
+                              light_int=data.light_int * 0.7)
+    return bad, meta, cset, origin, dirs, target
+
+
+def test_replayed_train_step_equals_eager_on_card(cuda):
+    """The training step replayed (one capture, then CUDA graph replays)
+    against the eager step on a 64x64 camera, under
+    torch.use_deterministic_algorithms(True) (index_add_, the backward of
+    the gathers, otherwise sums with float atomics): loss, gradients and
+    parameters equal bit for bit after each of 3 steps, and the launch
+    counts of each step equal (the flat mask, the per-ray-origin closest
+    hit and the n-light shadow; no shared-origin closest hit)."""
+    from raytracer_tpu_torch.models import programs
+    from raytracer_tpu_torch.models.whitted import eager
+    from raytracer_tpu_torch.ops import kernels as K
+    from raytracer_tpu_torch.parallel.train import init_state, make_train_step
+
+    bad, meta, cset, origin, dirs, target = _train_problem(cuda)
+    fields = ("mat_diffuse", "light_int", "light_pos", "vertices")
+    runs = []
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        for graphs in (True, False):
+            state = init_state(bad, fields=fields)
+            step = make_train_step(meta, engine="cluster", device=cuda)
+            c0 = programs.stats["captures"]
+            got = []
+            for _ in range(3):
+                K.reset_launches()
+                with contextlib.nullcontext() if graphs else eager():
+                    state, loss = step(state, bad, origin, dirs, target,
+                                       accel=cset)
+                torch.cuda.synchronize()
+                got.append((loss, {f: p.grad.clone() for f, p in
+                                   state.params.items()},
+                            {f: p.detach().clone() for f, p in
+                             state.params.items()}, dict(K.launches)))
+            assert programs.stats["captures"] == c0 + graphs
+            runs.append(got)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    for i, (a, b) in enumerate(zip(*runs)):
+        assert torch.equal(a[0], b[0]), f"step {i + 1} loss"
+        for f in fields:
+            assert torch.equal(a[1][f], b[1][f]), f"step {i + 1} {f} grad"
+            assert torch.equal(a[2][f], b[2][f]), f"step {i + 1} {f} param"
+        assert a[3] == b[3], f"step {i + 1} launches {a[3]} vs {b[3]}"
+        assert a[3]["closest_shared"] == 0 and all(
+            a[3][k] > 0 for k in ("ray_mask", "closest", "shadow"))
+
+
+def test_replayed_adaptive_equals_eager_on_card(cuda):
+    """The adaptive frame replayed (its program's CUDA graphs) against
+    eager() on a 64x64 camera, 1 and 3 rounds: 0 differing pixels, equal
+    stats and launches (the threefry draw included)."""
+    from raytracer_tpu_torch.models import programs
+    from raytracer_tpu_torch.models.bvh import build_bvh
+    from raytracer_tpu_torch.models.clusters import build_clusters
+    from raytracer_tpu_torch.models.whitted import eager
+    from raytracer_tpu_torch.ops import kernels as K
+    from raytracer_tpu_torch.ops.adaptive import render_camera_adaptive
+    from raytracer_tpu_torch.utils import synth
+
+    data, meta = synth.terrain_scene(cells=16, res=64, mirror_stripes=True,
+                                     device=cuda)
+    cset = build_clusters(data, meta, build_bvh(data, meta))
+    cam = meta.cameras[0]
+    for rounds in (1, 3):
+        out = []
+        for graphs in (False, True, True, False):
+            with contextlib.nullcontext() if graphs else eager():
+                K.reset_launches()
+                img, stats = render_camera_adaptive(
+                    data, meta, cam, cset, rounds=rounds, seed=2, device=cuda)
+                torch.cuda.synchronize()
+                out.append((img.cpu(), stats, dict(K.launches)))
+        assert programs.cached(data) > 0
+        for img, stats, launches in out[1:]:
+            assert torch.equal(img, out[0][0]) and stats == out[0][1]
+            assert launches == out[0][2]
+        assert out[0][2]["threefry"] == 1 + rounds
+    programs.drop(data)

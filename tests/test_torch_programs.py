@@ -210,7 +210,7 @@ def test_band_program_equals_render_band(case, mode, ssaa, hdr):
     frame = whitted._Frame(None, data, meta, cset, "band", hs, ws, bh, chunk,
                            ssaa, mode, hdr, offsets is not None, False, False,
                            "cpu")
-    assert frame.whole == (case != "chunked")
+    assert frame.rays.whole == (case != "chunked")
     got = frame(vec, row0, offsets)
     assert got.dtype == want.dtype and torch.equal(got, want)
 
