@@ -123,18 +123,25 @@ then:
    steps on the card, the loss falling below a tenth of its start;
 8. the mesh, processes and the server (``parallel``, ``serve``):
    8a. the full-width terrain at --ssaa 2 through render_one_camera on a
-   2-shard mesh of cuda:0 (two logical shards of 2,097,152 rays): equal
-   bit for bit to phase 3's image, every kernel of phase 3 launched, its
-   kernel calls held against the plain versions, warm ms/frame (median of
-   3) and peak; the terrain and the entry scene at 64x64 on it against
-   the CPU's 2-shard render in parity and jitter mode; 128x150, whose last
-   band takes virtual rows, bit for bit against one device;
+   2-shard mesh of cuda:0 (two logical shards of 2,097,152 rays), its
+   band replayed as one program: equal bit for bit to phase 3's image and
+   to the same frame eager (equal launches; its kernel calls held against
+   the plain versions), every kernel of phase 3 launched, warm ms/frame
+   (median of 3) and peak, eager against replayed as in phase 9; the
+   terrain and the entry scene at 64x64 on it against the CPU's 2-shard
+   render in parity and jitter mode; 128x150, whose last band takes
+   virtual rows, eager and replayed, bit for bit against one device;
    8b. two processes (``chip_smoke.py --worker RANK STORE``), gloo over a
    file store in smoke_out/, both on cuda:0: each renders its half of the
-   full-width frame, which must equal phase 3's image on both ranks, with
-   the frame's ms and its gather's ms; 3 sharded training steps on a
-   64x64 camera, the parameters equal on both ranks and the loss within
-   1e-5 of the one-process step;
+   full-width frame, replayed, which must equal phase 3's image and the
+   eager frame on both ranks, with the frame's ms and its gather's ms and
+   eager against replayed as in phase 9; 3 sharded training steps on a
+   64x64 camera, the loss within 1e-5 of the one-process step; the
+   two-step training program (the all-reduce between its graphs) against
+   the eager multi-process step: 3 steps bit for bit at 64x64 under
+   deterministic algorithms, phase 9's spread bar on phase 7's problem
+   (524,288 rays a rank), 5 timed steps (median of steps 2-5) and eager
+   against replayed; the parameters equal on both ranks;
    8c. phase 7's training on a 2-shard mesh (one process: replayed): 5
    steps, the loss falling, every gradient finite, step 1 against phase
    7's loss (rtol 1e-5) and a one-device step's gradients and parameters
@@ -149,7 +156,7 @@ then:
    reconnect, ping and shutdown; the served terrain frame in process with
    its launches and kernel calls against the plain versions;
    8e. measure_scaling over 1 and 2 logical shards of the card (the split,
-   not a scaling result);
+   not a scaling result), replayed: its second run captures nothing;
 9. the compiled programs (``models.programs``: the cluster engine's
    frames, the adaptive frame and the training step as captured CUDA
    graphs, the default on the card) against the same bodies run eagerly
@@ -174,7 +181,7 @@ then:
    fails the run); phase 7's step eager against replayed as the frames
    are (equal launches, ms, device busy, idle, host ops, captures, pool);
 
-Phases 3, 3b, 6, 6c, 7, 8c and 8d count launches on the replayed programs
+Phases 3, 3b, 6, 6c, 7, 8a-8d count launches on the replayed programs
 (a replay adds the launch counts its capture recorded) and record kernel
 calls in the same frame, or one more step, run eagerly, which must give
 the same image (a frame) and launches: a replayed graph calls no
@@ -2214,18 +2221,24 @@ def timed_frames(fn, n=3):
 
 def mesh_on_card(dev, results, checked):
     """Phase 8a: the full-width terrain at --ssaa 2 (4,194,304 rays, one
-    band) through render_one_camera on a 2-shard mesh of ``dev``: equal
-    bit for bit to phase 3's single-device image, every kernel of phase 3
-    launched (counts reset just before the frame, read just after), its
-    kernel calls held against the plain versions, warm ms/frame (median of
-    3) and peak; at 64x64 the terrain and the entry scene on the 2-shard
-    mesh against the CPU's 2-shard render (parity and jitter at --ssaa 2);
-    the 128x150 terrain, whose last band takes virtual rows, against the
-    single-device render bit for bit.  Returns the frame's launches."""
+    band) through render_one_camera on a 2-shard mesh of ``dev``, replayed
+    (the mesh band's program, ``whitted._MeshFrame``): a warm-up frame
+    (the captures), one frame with the launch counts reset just before and
+    read just after (every kernel of phase 3 launched), the same frame
+    eager (``whitted.eager()``: equal image and launches, two wavefronts
+    of 2,097,152 rays traced, its kernel calls held against the plain
+    versions), equal bit for bit to phase 3's single-device image; warm
+    ms/frame (median of 3), peak and one profiled frame; eager against
+    replayed (``compare_programs``); at 64x64 the terrain and the entry
+    scene on the 2-shard mesh against the CPU's 2-shard render (parity and
+    jitter at --ssaa 2); the 128x150 terrain, whose last band takes
+    virtual rows, replayed twice and eager, against the single-device
+    render bit for bit.  Returns the frame's launches."""
     import numpy as np
     import torch
 
     from raytracer_tpu_torch.models.scene import load_scene
+    from raytracer_tpu_torch.models.whitted import eager
     from raytracer_tpu_torch.ops import kernels as K
     from raytracer_tpu_torch.parallel.mesh import make_mesh
     from raytracer_tpu_torch.pipeline import render_one_camera
@@ -2242,14 +2255,24 @@ def mesh_on_card(dev, results, checked):
         return render_one_camera(data, meta, cam, cset, ssaa=2, device=dev,
                                  mesh=mesh)[0]
 
-    frame()
+    frame()                                  # warm-up: the captures
     torch.cuda.synchronize()
     K.reset_launches()
-    with Capture(K) as cap:
-        img, traced = frame_rays(frame)
+    img = frame()                            # replays
     torch.cuda.synchronize()
     launches = dict(K.launches)
-    log(f"  2-shard frame: launches {launches}; wavefronts traced {traced}")
+    # the same frame eager: a replay calls no wrapper and traces no
+    # wavefront
+    K.reset_launches()
+    with Capture(K) as cap, eager():
+        eager_img, traced = frame_rays(frame)
+    torch.cuda.synchronize()
+    log(f"  2-shard frame: launches {launches}; wavefronts traced eagerly "
+        f"{traced}")
+    check(dict(K.launches) == launches, f"2-shard frame: eager launches "
+          f"{dict(K.launches)}, replayed {launches}")
+    check(np.array_equal(eager_img, img), "2-shard frame: the eager frame "
+          "differs from the replayed one")
     check(traced == [2_097_152, 2_097_152], f"2-shard frame traced {traced}")
     for name in FRAME_MUST:
         check(launches[name] > 0, f"2-shard frame: {name} was not launched")
@@ -2269,6 +2292,8 @@ def mesh_on_card(dev, results, checked):
     results["mesh_frame"] = {"ms": ms, "runs_ms": times, "peak_bytes": peak,
                              "launches": launches, "wavefronts": traced,
                              "idle_share": idle}
+    compare_programs("2-shard full-width frame", frame, lambda x: x, results,
+                     "mesh_frame")
 
     cpu_mesh = make_mesh(devices=["cpu", "cpu"])
     entry = build(lambda device: load_scene(
@@ -2288,29 +2313,45 @@ def mesh_on_card(dev, results, checked):
     # padded with 10 virtual rows, mid tile-block
     cam150 = dataclasses.replace(cam, width=128, height=150)
     single = render_one_camera(data, meta, cam150, cset, device=dev)[0]
-    padded, traced = frame_rays(lambda: render_one_camera(
-        data, meta, cam150, cset, device=dev, mesh=mesh)[0])
+
+    def padded():
+        return render_one_camera(data, meta, cam150, cset, device=dev,
+                                 mesh=mesh)[0]
+    with eager():
+        eager_padded, traced = frame_rays(padded)
     check(sum(traced) == 160 * 128, f"128x150 on 2 shards traced {traced}")
-    check(np.array_equal(single, padded),
-          "128x150 on 2 shards differs from the single-device render")
-    log(f"  128x150 on 2 shards (wavefronts {traced}: 10 virtual rows) equals "
-        "the single-device render bit for bit")
+    for what, img150 in (("eager", eager_padded), ("captured", padded()),
+                         ("replayed", padded())):
+        check(np.array_equal(single, img150), f"128x150 on 2 shards "
+              f"({what}) differs from the single-device render")
+    log(f"  128x150 on 2 shards (wavefronts {traced}: 10 virtual rows), "
+        "eager, captured and replayed, equals the single-device render bit "
+        "for bit")
     return launches
 
 
 def rank_worker(rank: int, store: str) -> int:
     """One of phase 8b's two processes (``chip_smoke.py --worker RANK
     STORE``): gloo over the file store, both ranks on cuda:0.  Renders its
-    half of the full-width frame through render_one_camera (warm-up, one
-    frame with the launch counts reset and read, 3 timed frames with each
-    gather timed), holds the image against phase 3's, then 3 sharded
+    half of the full-width frame through render_one_camera, replayed (a
+    warm-up with the captures, one frame with the launch counts reset and
+    read, the same frame eager with equal image and launches, 3 timed
+    frames with each gather timed), holds the image against phase 3's and
+    compares eager with replayed (``compare_programs``); then 3 sharded
     training steps on the terrain through a 64x64 camera against the
-    one-process step.  Writes smoke_out/rank<R>.json."""
+    one-process step, the two-step program against the eager
+    multi-process step (``train_deterministic``: 3 steps at 64x64 bit for
+    bit; ``train_spread``: phase 7's problem, each rank 524,288 rays),
+    5 timed steps at full size (median of steps 2-5) and eager against
+    replayed (``compare_programs``); the ranks' parameters equal.  Writes
+    smoke_out/rank<R>.json."""
+    import numpy as np
     import torch
     import torch.distributed as dist
 
     sys.path.insert(0, REPO)
-    from raytracer_tpu_torch.models.whitted import render_rays
+    from raytracer_tpu_torch.models import programs
+    from raytracer_tpu_torch.models.whitted import eager, render_rays
     from raytracer_tpu_torch.ops import kernels as K
     from raytracer_tpu_torch.ops.camera import camera_vectors, eye_rays_from
     from raytracer_tpu_torch.parallel import distributed
@@ -2329,6 +2370,7 @@ def rank_worker(rank: int, store: str) -> int:
         data, meta, cset = build(terrain_scene, dev, cells=126, res=1024,
                                  mirror_stripes=True)
         cam = meta.cameras[0]
+        res = {}
 
         def frame():
             return render_one_camera(data, meta, cam, cset, ssaa=2,
@@ -2348,12 +2390,20 @@ def rank_worker(rank: int, store: str) -> int:
                 return out
             return gather
 
-        frame()
+        frame()                              # warm-up: the captures
         dist.barrier()
         K.reset_launches()
-        img, traced = frame_rays(frame)
+        img = frame()                        # replays
         torch.cuda.synchronize()
         launches = dict(K.launches)
+        K.reset_launches()
+        with eager():
+            eager_img, traced = frame_rays(frame)
+        torch.cuda.synchronize()
+        check(dict(K.launches) == launches, f"rank {rank}: eager launches "
+              f"{dict(K.launches)}, replayed {launches}")
+        check(np.array_equal(eager_img, img),
+              f"rank {rank}: the eager frame differs from the replayed one")
         for name in FRAME_MUST:
             check(launches[name] > 0, f"rank {rank}: {name} was not launched")
         ref = read_ppm(os.path.join(OUT, "terrain_1024.ppm"))
@@ -2368,6 +2418,8 @@ def rank_worker(rank: int, store: str) -> int:
                 frame()
                 torch.cuda.synchronize()
                 times.append((time.perf_counter() - t0) * 1e3)
+        compare_programs(f"rank {rank} full-width frame", frame,
+                         lambda x: x, res, "rank_frame")
 
         # 3 sharded steps on a 64x64 camera against the one-process step
         cam64 = dataclasses.replace(cam, width=64, height=64)
@@ -2390,7 +2442,41 @@ def rank_worker(rank: int, store: str) -> int:
         check(abs(losses[0] - float(one_loss)) <= 1e-5 * abs(float(one_loss)),
               f"rank {rank}: sharded loss {losses[0]}, one process "
               f"{float(one_loss)}")
-        flat = torch.cat([p.detach().flatten() for p in state.params.values()]).cpu()
+        flats = [torch.cat([p.detach().flatten()
+                            for p in state.params.values()]).cpu()]
+        programs.drop(data)
+        del data, cset, state, step, one
+
+        # the two-step program against the eager step over both ranks
+        flats.append(train_deterministic(dev, res, mesh, f"rank {rank} 64x64"))
+        label = f"rank {rank} full-size training (524,288 rays a rank)"
+        train_spread(dev, res, mesh, label, "rank_train_spread")
+        _, tmeta, tcset, torigin, tdirs, ttarget, tbad = training_setup(dev)
+        tstep = make_train_step(tmeta, lr=3e-2, engine="cluster", device=dev,
+                                mesh=mesh)
+        tstate = init_state(tbad, fields=fields)
+
+        def one_step():
+            return tstep(tstate, tbad, torigin, tdirs, ttarget,
+                         accel=tcset)[1]
+        step_times = []
+        for i in range(5):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if i == 0:
+                K.reset_launches()
+            one_step()
+            torch.cuda.synchronize()
+            if i == 0:
+                step_launches = dict(K.launches)
+            step_times.append((time.perf_counter() - t0) * 1e3)
+        compare_programs(f"rank {rank} full-size training step", one_step,
+                         None, res, "rank_step", pools=lambda: [
+                             p.progs.pool for p in tstep.programs.values()])
+        flats.append(torch.cat([p.detach().flatten()
+                                for p in tstate.params.values()]).cpu())
+        flat = torch.cat(flats)
         both = [torch.empty_like(flat) for _ in range(2)]
         dist.all_gather(both, flat)
         check(torch.equal(both[0], both[1]),
@@ -2398,7 +2484,10 @@ def rank_worker(rank: int, store: str) -> int:
         out = {"rank": rank, "traced": traced, "launches": launches,
                "frame_ms": statistics.median(times), "runs_ms": times,
                "gather_ms": gathers, "losses": losses,
-               "one_process_loss": float(one_loss)}
+               "one_process_loss": float(one_loss),
+               "step_ms": statistics.median(step_times[1:]),
+               "step_runs_ms": step_times, "step_launches": step_launches,
+               "programs": res["programs"]}
         with open(os.path.join(OUT, f"rank{rank}.json"), "w") as f:
             json.dump(out, f)
         dist.barrier()
@@ -2413,7 +2502,8 @@ def rank_worker(rank: int, store: str) -> int:
 def two_ranks(results):
     """Phase 8b: two processes on the card (``rank_worker``), gloo over a
     file store in smoke_out/ (NCCL refuses two ranks on one card); both
-    must exit 0 within 400 s.  Returns rank 0's launches of its frame."""
+    must exit 0 within 600 s.  Returns rank 0's launches of its frame and
+    of its full-size training step."""
     store = os.path.join(OUT, "rank_store")
     for f in [store] + [os.path.join(OUT, f"rank{r}.json") for r in (0, 1)]:
         if os.path.exists(f):
@@ -2425,7 +2515,7 @@ def two_ranks(results):
     outs = []
     try:
         for p in procs:
-            outs.append(p.communicate(timeout=400)[0])
+            outs.append(p.communicate(timeout=600)[0])
     finally:
         for p in procs:
             if p.poll() is None:
@@ -2440,14 +2530,26 @@ def two_ranks(results):
         with open(os.path.join(OUT, f"rank{r}.json")) as f:
             ranks.append(json.load(f))
     for d in ranks:
-        log(f"  rank {d['rank']}: wavefronts {d['traced']}, launches "
-            f"{d['launches']}; frame ms {[round(t, 3) for t in d['runs_ms']]} "
-            f"(median {d['frame_ms']:.3f}); gather ms "
+        log(f"  rank {d['rank']}: wavefronts {d['traced']} (eager), launches "
+            f"{d['launches']} (replayed); frame ms "
+            f"{[round(t, 3) for t in d['runs_ms']]} (median "
+            f"{d['frame_ms']:.3f}); gather ms "
             f"{[round(t, 3) for t in d['gather_ms']]}; image equal to phase "
-            f"3's; losses {d['losses']} (one process {d['one_process_loss']})")
+            f"3's; 64x64 losses {d['losses']} (one process "
+            f"{d['one_process_loss']}); full-size step ms "
+            f"{[round(t, 3) for t in d['step_runs_ms']]} (median of steps "
+            f"2-5 {d['step_ms']:.3f}), launches {d['step_launches']}")
+        for key in ("rank_frame", "rank_step"):
+            row = d["programs"][key]
+            log(f"  rank {d['rank']} {key}: " + "; ".join(
+                f"{w} {row[w]['ms']:.3f} ms, busy "
+                f"{row[w]['device_busy_ms']:.3f} ms, idle "
+                f"{row[w]['idle_share']:.3f}, {row[w]['host_ops']} host ops, "
+                f"{row[w]['graph_launches']} graph launches"
+                for w in ("eager", "graph")))
     check(ranks[0]["losses"] == ranks[1]["losses"], "the ranks' losses differ")
     results["rank2"] = ranks
-    return ranks[0]["launches"]
+    return ranks[0]["launches"], ranks[0]["step_launches"]
 
 
 def train_on_mesh(dev, results, checked):
@@ -2900,9 +3002,12 @@ SPREAD_FACTOR = 4.0
 SPREAD_RUNS = 5
 
 
-def train_spread(dev, results):
+def train_spread(dev, results, mesh=None, label="full-width training",
+                 key="train_spread"):
     """Phase 9, training at full width (phase 7's problem), replayed against
-    eager.  Eager run A takes 5 steps from the start, its state (params,
+    eager (on ``mesh`` when given: phase 8b's ranks, each replaying the
+    two-step program; results under ``key``, checks named by ``label``).
+    Eager run A takes 5 steps from the start, its state (params,
     Adam's moments and step count) kept before each; the program R takes
     its first 5 steps (the first eager, then captured) from the same start,
     step 1's loss equal to A's bit for bit.  Then, for each step n, R's
@@ -2929,7 +3034,8 @@ def train_spread(dev, results):
     moments = ("step", "exp_avg", "exp_avg_sq")
 
     def new_run():
-        return (make_train_step(meta, lr=3e-2, engine="cluster", device=dev),
+        return (make_train_step(meta, lr=3e-2, engine="cluster", device=dev,
+                                mesh=mesh),
                 init_state(bad, fields=fields))
 
     def one(run, graphs):
@@ -2969,7 +3075,7 @@ def train_spread(dev, results):
     before[0] = ({f: getattr(bad, f).detach().clone() for f in fields},
                  {f: {m: torch.zeros_like(x) for m, x in st.items()}
                   for f, st in snapshot(a_run[1])[1].items()})
-    check(torch.equal(r[0][0], a[0][0]), f"full-width training: step 1 loss "
+    check(torch.equal(r[0][0], a[0][0]), f"{label}: step 1 loss "
           f"{float(r[0][0])!r} replayed, {float(a[0][0])!r} eager")
     trajectory = {f"step {n} {k[0]} {k[1]}": {
         "eager_spread": dist(b[n - 1][1][k], a[n - 1][1][k]),
@@ -2999,7 +3105,7 @@ def train_spread(dev, results):
             d = dist(x_r, x_a)
             rows[f"step {n} {name}"] = {"eager_spread": spread,
                                         "replayed_distance": d}
-            check(d <= SPREAD_FACTOR * spread, f"full-width training step "
+            check(d <= SPREAD_FACTOR * spread, f"{label} step "
                   f"{n} from eager's state: {name} replayed {d!r} from "
                   f"eager, {1 + SPREAD_RUNS} eager steps up to {spread!r} "
                   f"apart")
@@ -3010,39 +3116,41 @@ def train_spread(dev, results):
         adam[1].opt.step()
         for f, p in r_run[1].params.items():
             q = adam[1].params[f]
-            check(torch.equal(p.detach(), q.detach()), f"full-width training "
+            check(torch.equal(p.detach(), q.detach()), f"{label} "
                   f"step {n}: {f} params replayed differ from eager Adam on "
                   f"the replayed gradients")
             for m in moments:
                 check(torch.equal(r_run[1].opt.state[p][m],
                                   adam[1].opt.state[q][m]),
-                      f"full-width training step {n}: {f} Adam {m} replayed "
+                      f"{label} step {n}: {f} Adam {m} replayed "
                       f"differs from eager Adam on the replayed gradients")
-    check(programs.stats["captures"] == captures, "full-width training: a "
+    check(programs.stats["captures"] == captures, f"{label}: a "
           "loaded state captured the step anew")
-    log("  full-width training from eager's state before each step, the "
+    log(f"  {label} from eager's state before each step, the "
         f"largest distance between {1 + SPREAD_RUNS} eager steps and "
         "||R - A||: " + "; ".join(
             f"{k} {v['eager_spread']:.6g} / {v['replayed_distance']:.6g}"
             for k, v in rows.items())
         + "; params, moments and step count equal to eager Adam on the "
         "replayed gradients")
-    log("  full-width training over 5 free steps, ||B - A|| (two eager runs) "
+    log(f"  {label} over 5 free steps, ||B - A|| (two eager runs) "
         "and ||R - A|| (replayed): " + "; ".join(
             f"{k} {v['eager_spread']:.6g} / {v['replayed_distance']:.6g}"
             for k, v in trajectory.items()))
     log(f"  losses eager A {[float(x[0]) for x in a]}, B "
         f"{[float(x[0]) for x in b]}, replayed {[float(x[0]) for x in r]}")
-    results.setdefault("programs", {})["train_spread"] = {
+    results.setdefault("programs", {})[key] = {
         "same_state": rows, "trajectory": trajectory}
 
 
-def train_deterministic(dev, results):
+def train_deterministic(dev, results, mesh=None, label="64x64"):
     """Phase 9, training on a 64x64 camera of the full-width terrain under
     ``torch.use_deterministic_algorithms(True)``: 3 steps eager and 3
     replayed from the same start (mat_diffuse, light_int, light_pos and
     vertices), loss, gradients and parameters equal bit for bit, the
-    launches of each step equal."""
+    launches of each step equal.  ``mesh``: phase 8b's ranks, each
+    replaying the two-step program.  Returns the replayed run's last
+    parameters, flat on the host."""
     import contextlib
 
     import torch
@@ -3069,7 +3177,8 @@ def train_deterministic(dev, results):
     torch.use_deterministic_algorithms(True)
     try:
         for graphs in (False, True):
-            step = make_train_step(meta, engine="cluster", device=dev)
+            step = make_train_step(meta, engine="cluster", device=dev,
+                                   mesh=mesh)
             state = init_state(bad, fields=fields)
             c0 = programs.stats["captures"]
             got = []
@@ -3080,33 +3189,37 @@ def train_deterministic(dev, results):
                         state, loss = step(state, bad, origin, dirs, target,
                                            accel=cset)
                     except RuntimeError as e:
-                        check(False, f"64x64 training step under deterministic "
-                              f"algorithms: {e}")
+                        check(False, f"{label} training step under "
+                              f"deterministic algorithms: {e}")
                     torch.cuda.synchronize()
                     got.append((loss, {(f, w): x.detach().clone()
                                        for f, p in state.params.items()
                                        for w, x in (("grad", p.grad),
                                                     ("param", p))},
                                 dict(K.launches)))
-            check(programs.stats["captures"] == c0 + graphs,
-                  "64x64 deterministic training: captures")
+            # the two-step program over several processes
+            n = 2 if mesh is not None and mesh.world > 1 else 1
+            check(programs.stats["captures"] == c0 + n * graphs,
+                  f"{label} deterministic training: captures")
             runs[graphs] = got
     finally:
         torch.use_deterministic_algorithms(was)
     for i, (e, g) in enumerate(zip(runs[False], runs[True])):
-        check(torch.equal(e[0], g[0]), f"64x64 deterministic step {i + 1}: "
+        check(torch.equal(e[0], g[0]), f"{label} deterministic step {i + 1}: "
               f"loss {float(e[0])!r} eager, {float(g[0])!r} replayed")
         for k in e[1]:
             check(torch.equal(e[1][k], g[1][k]),
-                  f"64x64 deterministic step {i + 1}: {k} differs")
-        check(e[2] == g[2], f"64x64 deterministic step {i + 1}: launches "
+                  f"{label} deterministic step {i + 1}: {k} differs")
+        check(e[2] == g[2], f"{label} deterministic step {i + 1}: launches "
               f"{e[2]} eager, {g[2]} replayed")
-    log(f"  64x64 training under deterministic algorithms: 3 steps eager and "
+    log(f"  {label} training under deterministic algorithms: 3 steps eager and "
         f"replayed equal bit for bit (losses {[float(x[0]) for x in runs[True]]}; "
         f"launches a step {runs[True][0][2]})")
     results.setdefault("programs", {})["train_deterministic"] = {
         "losses": [float(x[0]) for x in runs[True]],
         "launches": runs[True][0][2]}
+    return torch.cat([x.flatten() for (f, w), x in runs[True][-1][1].items()
+                      if w == "param"]).cpu()
 
 
 def train_programs(dev, results):
@@ -3210,9 +3323,12 @@ def programs_on_card(dev, results):
 
 def scaling_on_card(dev, results):
     """Phase 8e: measure_scaling of the full-width terrain's 4,194,304 eye
-    rays (tile order) over [cuda:0] and 2 logical shards of it."""
+    rays (tile order) over [cuda:0] and 2 logical shards of it, replayed:
+    run twice, the second run captures nothing (its points are the ones
+    kept)."""
     import torch
 
+    from raytracer_tpu_torch.models import programs
     from raytracer_tpu_torch.models.whitted import _tile_order
     from raytracer_tpu_torch.ops.camera import camera_vectors, eye_rays_from
     from raytracer_tpu_torch.ops.tiling import apply_tile_order
@@ -3226,13 +3342,22 @@ def scaling_on_card(dev, results):
                                  cam.width, cam.height)
     blocks, perm, _ = _tile_order(cam.height, cam.width, dev)
     dirs = apply_tile_order(dirs, cam.height, cam.width, blocks, perm).contiguous()
+    first = measure_scaling(data, meta, origin, dirs, cset, "cluster",
+                            sizes=[1, 2], device=dev)
+    c0 = programs.stats["captures"]
     points = measure_scaling(data, meta, origin, dirs, cset, "cluster",
                              sizes=[1, 2], device=dev)
+    check(programs.stats["captures"] == c0,
+          "measure_scaling captured again on its second run")
+    log("  first run (with the captures): " + ", ".join(
+        f"{p.n_devices} shard(s) {p.seconds_per_frame * 1e3:.3f} ms/frame"
+        for p in first) + "; the second run replays only")
     for p in points:
         log(f"  {p.n_devices} logical shard(s) on one card: "
             f"{p.rays_per_s / 1e6:.3f} Mrays/s, {p.seconds_per_frame * 1e3:.3f} "
             f"ms/frame, efficiency {p.efficiency:.3f} (the split, not scaling)")
     results["scaling"] = [dataclasses.asdict(p) for p in points]
+    programs.drop(data)
 
 
 def run():
@@ -3545,7 +3670,8 @@ def run():
     path_launches["mesh_frame"] = mesh_on_card(dev, results, checked)
     log("== phase 8b: two processes on the card (gloo), the full-width frame "
         "and 3 sharded steps")
-    path_launches["rank2_frame"] = two_ranks(results)
+    path_launches["rank2_frame"], path_launches["rank2_step"] = two_ranks(
+        results)
     log("== phase 8c: phase 7's training on a 2-shard mesh of cuda:0")
     path_launches["mesh_train_step"] = train_on_mesh(dev, results, checked)
     log("== phase 8d: the render server (stdin, TCP, in process)")

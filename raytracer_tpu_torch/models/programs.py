@@ -3,8 +3,10 @@ adaptive frame and the training step as CUDA graphs, the port's
 counterparts of the JAX package's jitted programs ``_render_rays_jit``,
 ``_render_camera_jit`` and ``_render_band_jit``
 (``raytracer_tpu/models/whitted.py:306-398``), ``_adaptive_jit``
-(``raytracer_tpu/ops/adaptive.py:82``) and the jitted train step
-(``raytracer_tpu/parallel/train.py:118``).
+(``raytracer_tpu/ops/adaptive.py:82``), the jitted train step
+(``raytracer_tpu/parallel/train.py:118``) and the jitted ``shard_map``
+render (``raytracer_tpu/parallel/render.py:29-44``; the band's
+``shard_map`` at ``raytracer_tpu/models/whitted.py:373-390``).
 
 XLA runs each of those programs as one dispatch, with the bounce loop's
 control on the device.  Here a program is a set of *steps*: each step is
@@ -13,7 +15,8 @@ before a run, results are written into fixed buffers in place), so that
 one CUDA graph of it serves every later run of the same shape.  The
 bodies live in ``models.whitted`` (``_Wavefront``, ``_Rays``, ``_Frame``),
 ``ops.adaptive`` (``_Adaptive``) and ``parallel.train``
-(``_TrainProgram``); this module holds what they share:
+(``_TrainProgram``), the mesh band in ``models.whitted``
+(``_MeshFrame``); this module holds what they share:
 
 - ``Step``: one body.  Its first run is eager: it computes the result and
   warms every kernel instance the body launches (the kernel library's
@@ -30,6 +33,14 @@ bodies live in ``models.whitted`` (``_Wavefront``, ``_Rays``, ``_Frame``),
   LRU of ``MAX_SCENES`` scenes; ``drop(data)`` forgets a scene's programs
   (the server's LRU does so when it evicts the scene).  All the programs
   of one scene share one graph memory pool: they run one after another.
+  A scene's programs belong to one device: their steps run, are captured
+  and replay with it as the current device (a mesh of several cards in
+  one process has a scene, so programs and a pool, per card).
+- ``replica(obj, device)``: one copy of a scene object per (object,
+  device), for the shards of a mesh (``parallel.mesh.replicate``), kept
+  while the object's tensors are not edited in place, so that another
+  device's programs, keyed on the copy, replay frame after frame;
+  ``drop`` and ``clear`` forget the copies with the programs.
 - ``eager()``: inside the block nothing is captured or replayed, the
   counterpart of ``jax.disable_jit()``.  The checks that record kernel
   calls and the tests run the same bodies this way; ``--debug-nans``
@@ -57,6 +68,9 @@ MAX_SCENES = 8
 
 _eager = [0]
 _scenes: "OrderedDict[tuple, Programs]" = OrderedDict()
+# (id of a source object, device) -> (the source, its versions, its copy),
+# for at most 2 * MAX_SCENES sources (a scene and its accelerator each)
+_replicas: "OrderedDict[tuple, tuple]" = OrderedDict()
 
 # captures made in this process and the seconds they took (timed on the
 # host around each capture, the device synchronised first by the capture)
@@ -103,26 +117,37 @@ def enabled(device) -> bool:
     return graph_class(device) is not None
 
 
+def _on(device):
+    """Inside the block the CUDA device ``device`` is the current one (a
+    capture records and a replay launches on its current stream); nothing
+    for None or the CPU."""
+    if device is None or torch.device(device).type != "cuda":
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
 class Step:
     """``body()`` as a program step: eager on its first run, then captured
     into a graph from ``new_graph()`` and replayed (see the module
-    docstring)."""
+    docstring), each with ``device`` current."""
 
-    def __init__(self, name: str, body, new_graph):
+    def __init__(self, name: str, body, new_graph, device=None):
         self.name = name
         self.body = body
         self.new_graph = new_graph
+        self.device = device
         self.graph = None
         self.launches = {}
 
     def __call__(self) -> None:
-        if self.graph is not None:
-            self.graph.replay()
-            for k, n in self.launches.items():
-                kernels.launches[k] += n
-            return
-        self.body()
-        self._capture()
+        with _on(self.device):
+            if self.graph is not None:
+                self.graph.replay()
+                for k, n in self.launches.items():
+                    kernels.launches[k] += n
+                return
+            self.body()
+            self._capture()
 
     def _capture(self) -> None:
         before = dict(kernels.launches)
@@ -143,14 +168,16 @@ class Step:
 
 
 class Programs(dict):
-    """One scene's programs by key, sharing one graph memory pool.  Holds
-    the scene's objects, so that the ids it is keyed on stay theirs."""
+    """One scene's programs by key, sharing one graph memory pool, on
+    ``device``.  Holds the scene's objects, so that the ids it is keyed on
+    stay theirs."""
 
-    def __init__(self, refs: tuple, versions: tuple, graph_type):
+    def __init__(self, refs: tuple, versions: tuple, graph_type, device=None):
         super().__init__()
         self.refs = refs
         self.versions = versions
         self.graph_type = graph_type
+        self.device = device
         self.pool = None
 
     def _new_graph(self):
@@ -160,7 +187,7 @@ class Programs(dict):
 
     def step(self, name: str, body) -> Step:
         """A ``Step`` of ``body`` captured into this scene's pool."""
-        return Step(name, body, self._new_graph)
+        return Step(name, body, self._new_graph, self.device)
 
     def program(self, key, make):
         """The program under ``key``, made by ``make()`` on first use."""
@@ -170,14 +197,22 @@ class Programs(dict):
         return prog
 
 
+def _tensors(obj, skip=()) -> list:
+    """``obj`` itself if it is a tensor, else the tensor fields of the
+    dataclass ``obj`` but those named in ``skip``."""
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    return [getattr(obj, f.name) for f in dataclasses.fields(obj)
+            if f.name not in skip
+            and isinstance(getattr(obj, f.name), torch.Tensor)]
+
+
 def _versions(*objs, skip=()) -> tuple:
-    """The version counters of every tensor field of the dataclasses
-    ``objs`` (None is skipped) but the fields named in ``skip``: they
+    """The version counters of the tensors of ``objs`` (tensors or
+    dataclasses; None is skipped) but the fields named in ``skip``: they
     change with any in-place edit."""
-    return tuple(
-        getattr(o, f.name)._version for o in objs if o is not None
-        for f in dataclasses.fields(o)
-        if f.name not in skip and isinstance(getattr(o, f.name), torch.Tensor))
+    return tuple(t._version for o in objs if o is not None
+                 for t in _tensors(o, skip))
 
 
 def scene_programs(data, meta, accel, device) -> Programs:
@@ -189,7 +224,8 @@ def scene_programs(data, meta, accel, device) -> Programs:
     if progs is None or progs.versions != versions:
         stale = progs is not None
         progs = _scenes[key] = Programs((data, meta, accel), versions,
-                                        graph_class(device))
+                                        graph_class(device),
+                                        torch.device(device))
         while len(_scenes) > MAX_SCENES:
             _scenes.popitem(last=False)
             stale = True
@@ -204,17 +240,45 @@ def cached(data) -> int:
     return sum(len(p) for p in _scenes.values() if p.refs[0] is data)
 
 
+def replica(obj, device):
+    """``obj`` (a tensor or a dataclass of tensors with ``to``) on
+    ``device``: ``obj`` itself where its tensors lie there, else its copy
+    there, made on first use and kept while ``obj``'s tensors keep their
+    version counters (an in-place edit makes a new copy)."""
+    device = torch.device(device)
+    if all(t.device == device for t in _tensors(obj)):
+        return obj
+    key = (id(obj), device)
+    versions = _versions(obj)
+    kept = _replicas.get(key)
+    if kept is None or kept[1] != versions:
+        kept = _replicas[key] = (obj, versions, obj.to(device))
+    _replicas.move_to_end(key)
+    while len({i for i, _ in _replicas}) > 2 * MAX_SCENES:
+        _replicas.popitem(last=False)
+    return kept[2]
+
+
 def drop(data) -> None:
-    """Forget the programs of every scene of ``data`` (and so their graphs,
-    their pool and their hold on the scene's tensors)."""
-    for key in [k for k, p in _scenes.items() if p.refs[0] is data]:
+    """Forget the programs of every scene of ``data`` and of its copies on
+    other devices (and so their graphs, their pool and their hold on the
+    scene's tensors), and those copies and the copies of its scenes'
+    accelerators."""
+    sources = {id(data)} | {id(p.refs[2]) for p in _scenes.values()
+                            if p.refs[0] is data and p.refs[2] is not None}
+    copies = {id(data)} | {id(c) for (i, _), (_, _, c) in _replicas.items()
+                           if i == id(data)}
+    for key in [k for k, p in _scenes.items() if id(p.refs[0]) in copies]:
         del _scenes[key]
+    for key in [k for k in _replicas if k[0] in sources]:
+        del _replicas[key]
     gc.collect()                    # see clear()
 
 
 def clear() -> None:
-    """Forget every scene's programs."""
+    """Forget every scene's programs and every replica."""
     _scenes.clear()
+    _replicas.clear()
     # a program's steps call its bound methods, a reference cycle: collect
     # it now, so that its graphs, pool and buffers go with it
     gc.collect()

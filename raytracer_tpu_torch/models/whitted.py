@@ -31,16 +31,17 @@ sampling, jittered sampling included, and over a device mesh it splits
 each band's rays into the mesh's shards (``parallel.render``).
 
 On a CUDA device the cluster engine's forward renders (``render_rays``,
-``trace``, ``render_camera``, ``render_camera_streamed`` without a mesh)
-replay captured CUDA graphs (``models.programs``): the bounce loop as
-steps on static buffers (``_Wavefront``, cut into chunks by ``_Rays``), a
-band or camera as a program around it (``_Frame``), the counterparts of
-the JAX package's jitted ``_render_rays_jit``, ``_render_band_jit`` and
-``_render_camera_jit``; the adaptive frame (``ops.adaptive``) and the
-training step through the differentiable path (``parallel.train``)
-replay programs of their own.  The same bodies run eagerly on the CPU,
-inside ``eager()`` and under ``debug_nans()``; the other engines and
-the mesh render stay eager.
+``trace``, ``render_camera``, ``render_camera_streamed``, on one device
+or a mesh) replay captured CUDA graphs (``models.programs``): the bounce
+loop as steps on static buffers (``_Wavefront``, cut into chunks by
+``_Rays``), a band or camera as a program around it (``_Frame``; on a
+mesh ``_MeshFrame``, its shards ``_Shard``s), the counterparts of the
+JAX package's jitted ``_render_rays_jit``, ``_render_band_jit`` (with
+its ``shard_map``) and ``_render_camera_jit``; the adaptive frame
+(``ops.adaptive``) and the training step through the differentiable
+path (``parallel.train``) replay programs of their own.  The same bodies
+run eagerly on the CPU, inside ``eager()`` and under ``debug_nans()``;
+the other engines stay eager.
 """
 
 from __future__ import annotations
@@ -634,8 +635,7 @@ class _Frame:
                  relaxed: bool, device):
         self.kind, self.h, self.w, self.bh = kind, h, w, bh
         self.ssaa, self.ssaa_mode, self.hdr = ssaa, ssaa_mode, hdr
-        self.rays = _Rays(progs, data, meta, accel, bh * w, chunk, bfc,
-                          relaxed, "auto", device)
+        self._init_trace(progs, data, meta, accel, chunk, bfc, relaxed, device)
         self.blocks, self.perm, self.inv = _tile_order(bh, w, device)
         f32 = dict(dtype=torch.float32, device=device)
         self.vec = torch.zeros((5, 3), **f32)
@@ -660,9 +660,23 @@ class _Frame:
         if self.jitter is not None:
             self.jitter.copy_(jitter)
         self.prologue()
-        self.rays.run()
+        self._trace()
         self.epilogue()
         return self.out
+
+    def _init_trace(self, progs, data, meta, accel, chunk, bfc, relaxed,
+                    device) -> None:
+        self.rays = _Rays(progs, data, meta, accel, self.bh * self.w, chunk,
+                          bfc, relaxed, "auto", device)
+
+    def _load(self, origin, dirs) -> None:
+        self.rays.load(origin, dirs)
+
+    def _trace(self) -> None:
+        self.rays.run()
+
+    def _color(self) -> torch.Tensor:
+        return self.rays.color
 
     def _prologue(self) -> None:
         if self.kind == "camera":
@@ -670,24 +684,130 @@ class _Frame:
         else:
             origin, dirs = eye_rays_band(self.vec, self.w, self.h, self.row0,
                                          self.bh, jitter=self.jitter)
-        self.rays.load(origin, apply_tile_order(dirs, self.bh, self.w,
-                                                self.blocks, self.perm))
+        self._load(origin, apply_tile_order(dirs, self.bh, self.w,
+                                            self.blocks, self.perm))
 
     def _epilogue(self) -> None:
-        self.out.copy_(_band_image(self.rays.color, self.bh, self.w,
+        self.out.copy_(_band_image(self._color(), self.bh, self.w,
                                    self.blocks, self.inv, self.ssaa,
                                    self.ssaa_mode, self.hdr))
 
 
+class _Shard:
+    """One shard of a mesh band (``_MeshFrame``): ``src`` (its slice of the
+    band's tile-ordered rays, with their shared ``origin``) traced by
+    ``rays`` (the ``_Rays`` of its device, shared by the shards there,
+    which run one after another) into ``dst`` (its slice of this process's
+    radiance).  Steps of ``progs`` (the programs of the shard's device):
+    ``load`` copies the rays into ``rays``, ``store`` its radiance out.  A
+    shard on another device than ``src``'s stages both through static
+    buffers on its own device, copied between graphs."""
+
+    def __init__(self, progs, rays: _Rays, origin, src, dst, name: str):
+        self.rays, self.origin, self.src, self.dst = rays, origin, src, dst
+        d = rays.wf.dirs.device
+        self.staged = src.device != d
+        self.in_origin, self.in_dirs, self.out = (
+            [torch.zeros_like(x, device=d) for x in (origin, src, dst)]
+            if self.staged else (origin, src, dst))
+        self.load = progs.step(f"{name} load", self._load)
+        self.store = progs.step(f"{name} store", self._store)
+
+    def _load(self) -> None:
+        self.rays.load(self.in_origin, self.in_dirs)
+
+    def _store(self) -> None:
+        self.out.copy_(self.rays.color)
+
+    @torch.no_grad()
+    def __call__(self) -> None:
+        if self.staged:
+            self.in_origin.copy_(self.origin)
+            self.in_dirs.copy_(self.src)
+        self.load()
+        self.rays.run()
+        self.store()
+        if self.staged:
+            self.dst.copy_(self.out)
+
+
+class _MeshFrame(_Frame):
+    """A band on a mesh (``render_band`` with ``mesh``) as a program, the
+    counterpart of ``_render_band_jit``'s ``shard_map``.  The prologue (on
+    the mesh's first device, ``device``) writes the band's tile-ordered
+    rays into the static ``origin`` and ``dirs``; each of this process's
+    shards (``band / mesh.size`` rays, cut into chunks as ``trace`` cuts
+    them) then runs as a ``_Shard`` on its device, in the programs of its
+    device's copy of the scene (``parallel.mesh.replicate``), writing its
+    slice of this process's radiance ``local``; with several processes the
+    gather (``distributed.gather_rows``, over host copies on gloo) runs
+    between graphs into the static ``color`` of the whole band; the
+    epilogue reduces it into ``out``.  The image is ``render_band``'s on
+    the mesh bit for bit: the same rays, cut the same way, traced by the
+    same bodies."""
+
+    def __init__(self, progs, data, meta, accel, mesh, *args):
+        self.mesh = mesh
+        super().__init__(progs, data, meta, accel, *args)
+
+    def _init_trace(self, progs, data, meta, accel, chunk, bfc, relaxed,
+                    device) -> None:
+        from raytracer_tpu_torch.parallel.mesh import replicate
+
+        mesh = self.mesh
+        r = self.bh * self.w
+        per = r // mesh.size
+        first = mesh.rank * len(mesh.devices)
+        f32 = dict(dtype=torch.float32, device=device)
+        self.origin = torch.zeros((3,), **f32)
+        self.dirs = torch.zeros((r, 3), **f32)
+        self.local = torch.zeros((per * len(mesh.devices), 3), **f32)
+        self.color = (self.local if mesh.world == 1
+                      else torch.zeros((r, 3), **f32))
+        rays, self.shards = {}, []
+        for i, (d, d_data, d_accel) in enumerate(zip(
+                mesh.devices, replicate(mesh, data), replicate(mesh, accel))):
+            d_progs = programs.scene_programs(d_data, meta, d_accel, d)
+            if d not in rays:
+                rays[d] = _Rays(d_progs, d_data, meta, d_accel, per, chunk,
+                                bfc, relaxed, "auto", d)
+            k = first + i
+            self.shards.append(_Shard(
+                d_progs, rays[d], self.origin,
+                self.dirs[k * per:(k + 1) * per],
+                self.local[i * per:(i + 1) * per], f"shard {k}"))
+
+    def _load(self, origin, dirs) -> None:
+        self.origin.copy_(origin)
+        self.dirs.copy_(dirs)
+
+    def _trace(self) -> None:
+        for shard in self.shards:
+            shard()
+        if self.mesh.world > 1:
+            # a host step between graphs (gloo gathers host copies)
+            from raytracer_tpu_torch.parallel import distributed
+
+            self.color.copy_(distributed.gather_rows(self.local, self.mesh))
+
+    def _color(self) -> torch.Tensor:
+        return self.color
+
+
 def _frame(progs, data, meta, accel, kind: str, h: int, w: int, bh: int,
            chunk: int, ssaa: int, ssaa_mode: str, hdr: bool, jittered: bool,
-           bfc: bool, relaxed: bool) -> _Frame:
-    """The scene's cached frame program of this shape (``_Frame``)."""
+           bfc: bool, relaxed: bool, mesh=None) -> _Frame:
+    """The scene's cached frame program of this shape (``_Frame``), over
+    ``mesh`` when given (``_MeshFrame``, a band)."""
     key = ("frame", kind, h, w, bh, chunk, ssaa, ssaa_mode, hdr, jittered,
-           bfc, relaxed)
-    return progs.program(key, lambda: _Frame(
-        progs, data, meta, accel, kind, h, w, bh, chunk, ssaa, ssaa_mode,
-        hdr, jittered, bfc, relaxed, data.device))
+           bfc, relaxed, mesh)
+    args = (kind, h, w, bh, chunk, ssaa, ssaa_mode, hdr, jittered, bfc,
+            relaxed, data.device)
+    if mesh is None:
+        return progs.program(key, lambda: _Frame(progs, data, meta, accel,
+                                                 *args))
+    return progs.program(key, lambda: _MeshFrame(progs, data, meta, accel,
+                                                 mesh, *args))
 
 
 def render_camera_streamed(data: SceneData, meta: SceneMeta, cam: Camera,
@@ -715,7 +835,9 @@ def render_camera_streamed(data: SceneData, meta: SceneMeta, cam: Camera,
     shard, so every shard holds whole blocks, as in the JAX package, whose
     band heights (and so jitter sample sets) this keeps; a short last band
     is padded with virtual rows below the frame (the eye rays extrapolate
-    the image plane), rendered and cropped."""
+    the image plane), rendered and cropped.  On CUDA devices a band on the
+    mesh replays as one program (``_MeshFrame``) as a band on one device
+    does (``_Frame``)."""
     dev = _render_device(data, accel, device)
     engine = resolve_engine(engine, accel, meta)
     chunk = _cap_chunk_for_big_scenes(chunk, accel)
@@ -739,7 +861,8 @@ def render_camera_streamed(data: SceneData, meta: SceneMeta, cam: Camera,
     vec = torch.from_numpy(camera_vectors(cam)).to(dev)
     jittered = ssaa_mode == "jitter" and ssaa > 1
     progs = (programs.scene_programs(data, meta, accel, dev)
-             if mesh is None and _programs_on(dev, engine) else None)
+             if all(_programs_on(d, engine)
+                    for d in (mesh.devices if mesh else [dev])) else None)
     bands = []
     for row0 in range(0, hs, band_h):
         bh = min(band_h, hs - row0)
@@ -751,7 +874,7 @@ def render_camera_streamed(data: SceneData, meta: SceneMeta, cam: Camera,
         if progs is not None:
             bands.append(_frame(progs, data, meta, accel, "band", hs, ws, bh,
                                 chunk, ssaa, ssaa_mode, hdr, jittered, bfc,
-                                relaxed)(vec, row0, offsets).clone())
+                                relaxed, mesh)(vec, row0, offsets).clone())
             continue
         with nan_site(f"band of rows {row0}-{row0 + bh - 1}"):
             bands.append(render_band(

@@ -83,14 +83,19 @@ def gather_rows(local: torch.Tensor, mesh=None) -> torch.Tensor:
 
 
 def all_mean(x: torch.Tensor, mesh=None) -> torch.Tensor:
-    """The mean of ``x`` over the processes: an all-reduce of the SUM over
-    the world (gloo has no AVG), identical on every rank; ``x`` itself
-    with one process."""
+    """``x`` made the mean of the processes' ``x``, in place (a captured
+    step's buffers stay put), and returned: an all-reduce of the SUM over
+    the world (gloo has no AVG), then the division by the world where the
+    collective ran (the host copy on gloo), identical on every rank; with
+    one process ``x`` is left as it is."""
     if mesh is None or mesh.world == 1:
         return x
-    y = _on_wire(x.detach().clone())
+    y = _on_wire(x.detach())
     dist.all_reduce(y, op=dist.ReduceOp.SUM)
-    return (y / mesh.world).to(x.device)
+    y.div_(mesh.world)
+    if y.device != x.device:
+        x.detach().copy_(y)
+    return x
 
 
 def assemble_image(local: torch.Tensor, mesh=None) -> np.ndarray:

@@ -23,6 +23,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from raytracer_tpu_torch.backend import resolve_device
+from raytracer_tpu_torch.models import programs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,9 +118,9 @@ def shard_rays(mesh: Mesh, x: torch.Tensor) -> list:
 def replicate(mesh: Mesh, obj) -> tuple:
     """``obj`` (a tensor, a ``SceneData``, ``ClusterSet`` or ``DeviceBVH``,
     or None) per shard: one copy per distinct device, shared by the shards
-    on it (the object itself on the device that holds it)."""
-    copies = {}
-    for d in mesh.devices:
-        if d not in copies:
-            copies[d] = None if obj is None else obj.to(d)
-    return tuple(copies[d] for d in mesh.devices)
+    on it (the object itself on the device that holds it).  The copies are
+    kept (``models.programs.replica``: one per object and device, until an
+    in-place edit of the object, ``programs.drop`` or ``programs.clear``),
+    so that the programs of a device, keyed on its copy, replay."""
+    return tuple(None if obj is None else programs.replica(obj, d)
+                 for d in mesh.devices)

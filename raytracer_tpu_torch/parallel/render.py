@@ -4,7 +4,11 @@ ray axis split over the mesh, the scene and its accelerator replicated.
 Rays never communicate, so each shard traces its contiguous slice of the
 wavefront on its own device (``models.whitted.trace``, which cuts a
 slice above the ray chunk into chunk-sized wavefronts) and the image is
-assembled by one gather across processes.
+assembled by one gather across processes.  On a CUDA device the cluster
+engine's shards replay their device's captured wavefront programs (the
+counterpart of the JAX package's ``jax.jit(shard_map(...))``): shards of
+one size on one device share one program, whose key is the shape, and
+each device's scene is a kept copy (``parallel.mesh.replicate``).
 """
 
 from __future__ import annotations
@@ -26,20 +30,18 @@ def render_rays_sharded(data: SceneData, meta: SceneMeta, origin, dirs,
     the mesh size, in tile order for the cluster engine), concatenated on
     the mesh's first device.  ``engine`` as ``models.whitted.render_rays``
     takes it (``auto`` resolved)."""
-    from raytracer_tpu_torch.models.whitted import eager, resolve_engine, trace
+    from raytracer_tpu_torch.models.whitted import resolve_engine, trace
 
     engine = resolve_engine(engine, accel, meta)
     per_ray = origin.dim() == 2
     origins = shard_rays(mesh, origin) if per_ray else [
         origin.to(d) for d in mesh.devices]
-    # eager: a captured mesh render is queued in ROADMAP.md
-    with eager():
-        colors = [
-            trace(d_data, meta, org, dd, d_accel, chunk, bfc=bfc,
-                  relaxed=relaxed, engine=engine).to(mesh.devices[0])
-            for d_data, d_accel, org, dd in zip(
-                replicate(mesh, data), replicate(mesh, accel), origins,
-                shard_rays(mesh, dirs))]
+    colors = [
+        trace(d_data, meta, org, dd, d_accel, chunk, bfc=bfc,
+              relaxed=relaxed, engine=engine).to(mesh.devices[0])
+        for d_data, d_accel, org, dd in zip(
+            replicate(mesh, data), replicate(mesh, accel), origins,
+            shard_rays(mesh, dirs))]
     return torch.cat(colors)
 
 

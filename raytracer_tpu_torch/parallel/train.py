@@ -17,9 +17,9 @@ the shards; the master parameters stay on the mesh's first device, and
 each shard renders through a differentiable copy on its own device, so
 its gradient flows back to them.  The loss and the gradients are the
 means over the shards: over this process's shards by autograd, then over
-the processes by an all-reduce (the JAX step's two ``pmean``s), before
-one ``Adam.step()`` on every rank from the same numbers, so every rank
-keeps the same parameters bit for bit.
+the processes by an all-reduce in place (the JAX step's two ``pmean``s),
+before one ``Adam.step()`` on every rank from the same numbers, so every
+rank keeps the same parameters bit for bit.
 """
 
 from __future__ import annotations
@@ -80,10 +80,10 @@ def image_loss(params, data, meta, origin, dirs, target, accel, engine,
 
 def _loss_and_grads(state: TrainState, data, meta, origin, dirs, target,
                     accel, engine: str, ldr: bool, mesh, dev):
-    """The loss at ``state``'s params, its gradients accumulated into their
-    ``.grad`` (zeroed in place first, so that the buffers stay put): on one
-    device, or as the shards' means, then the processes' (``all_mean``;
-    the identity with one process, whose ``.grad`` is left as it is)."""
+    """This process's loss at ``state``'s params, its gradients accumulated
+    into their ``.grad`` (zeroed in place first, so that the buffers stay
+    put): on one device, or as the means over this process's shards.  The
+    mean over the processes follows (``_all_mean``)."""
     state.opt.zero_grad(set_to_none=False)
     if mesh is None:
         loss = image_loss(state.params, data, meta, origin, dirs, target,
@@ -102,42 +102,69 @@ def _loss_and_grads(state: TrainState, data, meta, origin, dirs, target,
                            engine, ldr) / n
         shard.backward()
         loss = loss + shard.detach().to(dev)
-    if mesh.world > 1:
-        for p in state.params.values():
-            if p.grad is not None:
-                p.grad = all_mean(p.grad, mesh)
-    return all_mean(loss, mesh)
+    return loss
+
+
+def _all_mean(state: TrainState, loss, mesh) -> None:
+    """The loss and every gradient made their means over the processes, in
+    place (``distributed.all_mean``, the JAX step's two ``pmean``s): a
+    host step, between a captured step's graphs; nothing with one
+    process."""
+    if mesh is None or mesh.world == 1:
+        return
+    all_mean(loss, mesh)
+    for p in state.params.values():
+        if p.grad is not None:
+            all_mean(p.grad, mesh)
 
 
 class _TrainProgram:
     """One training step as a captured program (``programs.Step``), the
     counterpart of the JAX package's ``jax.jit(shard_map(local_step))``:
-    forward, backward and the Adam update in one graph.  Its static inputs
+    with one process forward, backward and the Adam update in one graph;
+    over several processes two, "loss and gradients" and "adam", with the
+    all-reduce of the loss and the gradients (``_all_mean``, in place)
+    between them as a host step (gloo reduces host copies; an NCCL
+    collective stays outside the graphs too).  Its static inputs
     ``origin``, ``dirs`` and ``target`` are copied in before each run; the
     body writes the loss into the static ``loss``.  The first run is eager
     (Adam's lazy state, every kernel instance warmed), the capture follows
     and later runs replay: the gradients stay in the ``.grad`` buffers the
     first run made, the parameters and Adam's moments and step count
     (``capturable``, on the card) are updated in place, and ``lr`` is the
-    one written before the first run (a graph bakes it in).  The graph has
-    a memory pool of its own, freed with the program."""
+    one written before the first run (a graph bakes it in).  The graphs
+    have a memory pool of their own, freed with the program."""
 
     def __init__(self, state: TrainState, data, meta, origin, dirs, target,
-                 accel, run, versions, graph_type):
+                 accel, local, mesh, versions, graph_type):
         self.progs = programs.Programs(
             (tuple(state.params.values()), state.opt, data, meta, accel),
-            versions, graph_type)
-        self.state, self.data, self.accel, self.run = state, data, accel, run
+            versions, graph_type, dirs.device)
+        self.state, self.data, self.accel = state, data, accel
+        self.local, self.mesh = local, mesh
         self.origin = torch.zeros_like(origin)
         self.dirs = torch.zeros_like(dirs)
         self.target = torch.zeros_like(target)
         self.loss = torch.zeros((), device=dirs.device)
         self.grads = None
-        self.step = self.progs.step("train step", self._body)
+        if mesh is None or mesh.world == 1:
+            self.steps = (self.progs.step("train step", self._body),)
+        else:
+            # the all-reduce runs on the host, between the two graphs
+            self.steps = (self.progs.step("loss and gradients", self._grads),
+                          self._all_mean,
+                          self.progs.step("adam", state.opt.step))
+
+    def _all_mean(self) -> None:
+        _all_mean(self.state, self.loss, self.mesh)
+
+    def _grads(self) -> None:
+        self.loss.copy_(self.local(self.state, self.data, self.origin,
+                                   self.dirs, self.target, self.accel))
 
     def _body(self) -> None:
-        self.loss.copy_(self.run(self.state, self.data, self.origin,
-                                 self.dirs, self.target, self.accel))
+        self._grads()
+        self.state.opt.step()
 
     def __call__(self, origin, dirs, target) -> torch.Tensor:
         params = self.state.params.values()
@@ -151,7 +178,8 @@ class _TrainProgram:
             for p, g in zip(params, self.grads):
                 if p.grad is not g:
                     p.grad = g
-        self.step()
+        for step in self.steps:
+            step()
         if self.grads is None:
             self.grads = tuple(p.grad for p in params)
         return self.loss.clone()
@@ -175,22 +203,26 @@ def make_train_step(meta: SceneMeta, lr: float = 3e-2, engine: str = "brute",
 
     On a CUDA device the cluster engine's step replays a captured program
     (``_TrainProgram``; ``state`` needs ``Adam(capturable=True)``, which
-    ``init_state`` makes there) without a mesh and on a mesh of one
-    process whose shards all sit on ``device``, outside ``eager()`` and
-    ``debug_nans()``: one program per state, scene and shape, at most
-    ``MAX_TRAIN_PROGRAMS``.  The eager step remains for the brute and bvh
-    engines, a mesh over several processes (its all-reduce is a host
-    step) or several cards, and on the CPU."""
+    ``init_state`` makes there) without a mesh and on a mesh whose shards
+    of this process all sit on ``device`` (over several processes too,
+    torchrun's one card a process: two graphs around the all-reduce),
+    outside ``eager()`` and ``debug_nans()``: one program per state, scene
+    and shape, at most ``MAX_TRAIN_PROGRAMS``.  The eager step remains for
+    the brute and bvh engines, a mesh of several cards in one process (its
+    autograd crosses devices), and on the CPU."""
     dev = resolve_device(device)
     if mesh is not None and mesh.devices[0] != dev:
         raise ValueError(f"mesh on {mesh.devices[0]}, training on {dev}")
-    one_device = mesh is None or (mesh.world == 1 and all(
-        d == dev for d in mesh.devices))
+    one_device = mesh is None or all(d == dev for d in mesh.devices)
     kept: "OrderedDict[tuple, _TrainProgram]" = OrderedDict()
 
-    def run(state, data, origin, dirs, target, accel):
-        loss = _loss_and_grads(state, data, meta, origin, dirs, target,
+    def local(state, data, origin, dirs, target, accel):
+        return _loss_and_grads(state, data, meta, origin, dirs, target,
                                accel, engine, ldr, mesh, dev)
+
+    def run(state, data, origin, dirs, target, accel):
+        loss = local(state, data, origin, dirs, target, accel)
+        _all_mean(state, loss, mesh)
         state.opt.step()
         return loss
 
@@ -210,8 +242,8 @@ def make_train_step(meta: SceneMeta, lr: float = 3e-2, engine: str = "brute",
             for group in state.opt.param_groups:
                 group["lr"] = lr
             prog = kept[key] = _TrainProgram(
-                state, data, meta, origin, dirs, target, accel, run, versions,
-                programs.graph_class(dev))
+                state, data, meta, origin, dirs, target, accel, local, mesh,
+                versions, programs.graph_class(dev))
             if len(kept) > MAX_TRAIN_PROGRAMS:
                 kept.popitem(last=False)
                 stale = True

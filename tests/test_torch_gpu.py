@@ -745,3 +745,61 @@ def test_replayed_adaptive_equals_eager_on_card(cuda):
             assert launches == out[0][2]
         assert out[0][2]["threefry"] == 1 + rounds
     programs.drop(data)
+
+
+@pytest.mark.parametrize("height,ssaa,mode", [
+    (64, 2, "parity"), (64, 2, "jitter"), (150, 1, "parity")])
+def test_replayed_mesh_band_equals_eager_on_card(cuda, height, ssaa, mode):
+    """A band on a 2-shard mesh of one card replays as one program (the
+    first frame captures, the second captures nothing) and equals the same
+    frame eager (``eager()``) and the single-device render bit for bit,
+    with equal launches: --ssaa 2 in parity and jitter, and 150 rows (the
+    last band padded with virtual rows)."""
+    import numpy as np
+
+    from raytracer_tpu_torch.models import programs
+    from raytracer_tpu_torch.models.bvh import build_bvh
+    from raytracer_tpu_torch.models.clusters import build_clusters
+    from raytracer_tpu_torch.models.whitted import eager
+    from raytracer_tpu_torch.ops import kernels as K
+    from raytracer_tpu_torch.parallel.mesh import make_mesh
+    from raytracer_tpu_torch.pipeline import render_one_camera
+    from raytracer_tpu_torch.utils import synth
+
+    data, meta = synth.terrain_scene(cells=40, res=64, mirror_stripes=True,
+                                     device=cuda)
+    cset = build_clusters(data, meta, build_bvh(data, meta))
+    cam = dataclasses.replace(meta.cameras[0], width=64 * (1 + (height > 64)),
+                              height=height)
+    mesh = make_mesh(devices=[cuda, cuda])
+    kw = dict(ssaa=ssaa, ssaa_mode=mode, seed=4, device=cuda)
+    single, _ = render_one_camera(data, meta, cam, cset, **kw)
+    out = []
+    for graphs in (False, True, True, False):
+        with contextlib.nullcontext() if graphs else eager():
+            c0 = programs.stats["captures"]
+            K.reset_launches()
+            img, _ = render_one_camera(data, meta, cam, cset, mesh=mesh, **kw)
+            torch.cuda.synchronize()
+            out.append((img, dict(K.launches),
+                        programs.stats["captures"] - c0))
+    assert [c for _, _, c in out] == [0, out[1][2], 0, 0] and out[1][2] > 0
+    for img, launches, _ in out:
+        np.testing.assert_array_equal(img, single)
+        assert launches == out[0][1]
+    assert out[0][1]["closest_shared"] == 2
+    programs.drop(data)
+
+
+def test_two_process_programs_on_card(tmp_path):
+    """Two processes on the card (gloo, both on cuda:0) run the worker of
+    tests/test_torch_mesh_programs.py with CUDA graphs: mesh frames
+    replayed equal to eager and one device, the sharded wavefront, and the
+    two-step train program against the eager multi-process step bit for
+    bit over 3 steps under deterministic algorithms, its loss and gradient
+    buffers the same across its replays, the ranks' steps equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from test_torch_mesh_programs import run_two_ranks
+
+    run_two_ranks(tmp_path, "cuda", timeout=600)

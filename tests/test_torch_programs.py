@@ -17,9 +17,9 @@ import pytest
 import torch
 
 import torch_port_util as U
-from torch_port_util import (
-    ENTRY_XML, StubGraph, bad_pixels, jax_accel, jax_band_jitter, numpy_fields,
-    port_meta, radiance_outside, shared_inputs,
+from torch_port_util import (  # noqa: F401 (stub_graphs: a fixture)
+    ENTRY_XML, bad_pixels, jax_accel, jax_band_jitter, numpy_fields, port_meta,
+    radiance_outside, shared_inputs, stub_graphs,
 )
 
 
@@ -80,19 +80,6 @@ def compactions(monkeypatch):
     monkeypatch.setattr(whitted, "_compact_carry",
                         lambda c: calls.append(c[0]) or compact(c))
     return calls
-
-
-@pytest.fixture
-def stub_graphs(monkeypatch):
-    """Renders on the CPU run as programs whose graphs are ``StubGraph``s
-    (outside ``programs.eager()``); no programs are kept before or after."""
-    from raytracer_tpu_torch.models import programs
-
-    programs.clear()
-    monkeypatch.setattr(programs, "graph_class", lambda device: (
-        None if programs._eager[0] else StubGraph))
-    yield programs
-    programs.clear()
 
 
 # (a) the restructured loop against PR 9's: entry (max depth 3, the gate

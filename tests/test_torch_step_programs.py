@@ -22,26 +22,12 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_util import (
-    StubGraph, jax_adaptive_jitter, port_scene, shared_inputs,
+from torch_port_util import (  # noqa: F401 (stub_graphs: a fixture)
+    StubGraph, jax_adaptive_jitter, port_scene, shared_inputs, stub_graphs,
 )
 
 import test_torch_adaptive
 import test_torch_train
-
-
-@pytest.fixture
-def stub_graphs(monkeypatch):
-    """Renders and training steps on the CPU run as programs whose graphs
-    are ``StubGraph``s (outside ``programs.eager()``); no render programs
-    are kept before or after."""
-    from raytracer_tpu_torch.models import programs
-
-    programs.clear()
-    monkeypatch.setattr(programs, "graph_class", lambda device: (
-        None if programs._eager[0] else StubGraph))
-    yield programs
-    programs.clear()
 
 
 @functools.lru_cache(maxsize=None)

@@ -24,6 +24,7 @@ import functools
 import os
 
 import numpy as np
+import pytest
 import torch
 
 # the suite runs in several worker processes at once: PyTorch's default of
@@ -404,3 +405,24 @@ class StubGraph:
 
     def replay(self):
         self.body()
+
+
+def use_stub_graphs(monkeypatch):
+    """Programs on the CPU capture ``StubGraph``s (outside
+    ``programs.eager()``); returns ``models.programs``."""
+    from raytracer_tpu_torch.models import programs
+
+    monkeypatch.setattr(programs, "graph_class", lambda device: (
+        None if programs._eager[0] else StubGraph))
+    return programs
+
+
+@pytest.fixture
+def stub_graphs(monkeypatch):
+    """Renders and training steps on the CPU run as programs whose graphs
+    are ``StubGraph``s (``use_stub_graphs``); no programs or replicas are
+    kept before or after."""
+    programs = use_stub_graphs(monkeypatch)
+    programs.clear()
+    yield programs
+    programs.clear()
