@@ -23,8 +23,9 @@ then:
    image against the CPU's through the diff CLI
    (``raytracer_tpu_torch.compare``); --accel-cache twice (the second run
    must load the cache); each --engine (brute, bvh, cluster, auto) on CUDA
-   and on the CPU (0 differing channels; brute and bvh launch no kernel,
-   and meet the image bar against cluster); the train CLI on CUDA from a
+   (through captured programs, every engine) and on the CPU (0 differing
+   channels; brute and bvh launch no kernel, and meet the image bar
+   against cluster); the train CLI on CUDA from a
    PNG target (--steps 3 with --checkpoint and --out, then a resume for 2
    steps: the losses fall, and the steps launch the flat mask, the
    per-ray-origin closest hit and the 1-light shadow, no shared-origin
@@ -180,6 +181,17 @@ then:
    steps eager and replayed equal bit for bit (a capture that fails there
    fails the run); phase 7's step eager against replayed as the frames
    are (equal launches, ms, device busy, idle, host ops, captures, pool);
+10. brute and BVH programs, eager against replayed, as phase 9 compares
+   (median of ``ENGINE_RUNS``; the BVH modes' eager frame and the 64x64
+   eager step timed once and not profiled; also the host's flag reads and
+   the BVH walk's iterations, equal): the full-width terrain's BVH (octant
+   threads) through a ``BVH_SIDE`` camera's radiance, then at
+   ``MODES_SIDE`` streamed --ssaa 4, jitter, adaptive, a 2-shard mesh band
+   and a warm served --engine bvh request; brute on the 64-sphere mirror
+   field at 1024x1024 --ssaa 2 and on the entry scene; each engine's
+   training step at 64x64 under deterministic algorithms (3 steps bit for
+   bit), at ``TRAIN_SIDE`` within the spread bar (``ENGINE_SPREAD_STEPS``
+   steps), and eager against replayed at both sizes;
 
 Phases 3, 3b, 6, 6c, 7, 8a-8d count launches on the replayed programs
 (a replay adds the launch counts its capture recorded) and record kernel
@@ -1424,12 +1436,14 @@ CLI_ENGINES = ("brute", "bvh", "cluster", "auto")
 def entry_engines(xml, results):
     """The entry scene through the CLI at --ssaa 2 with each --engine, on
     CUDA and on the CPU: each engine's CUDA image equals its CPU image (0
-    differing channels through the diff CLI), brute and bvh launch no
-    kernel and cluster and auto the entry path's, and brute's and bvh's
-    images meet the image bar against cluster's (the exact-t tie class)."""
+    differing channels through the diff CLI), every engine's CUDA run goes
+    through captured programs, brute and bvh launch no kernel and cluster
+    and auto the entry path's, and brute's and bvh's images meet the
+    image bar against cluster's (the exact-t tie class)."""
     from raytracer_tpu_torch import render as cli
     from raytracer_tpu_torch.compare import _read as read_image
     from raytracer_tpu_torch.compare import main as compare_main
+    from raytracer_tpu_torch.models import programs
     from raytracer_tpu_torch.ops import kernels as K
 
     imgs, rows = {}, {}
@@ -1438,10 +1452,14 @@ def entry_engines(xml, results):
         for d in ("cuda", "cpu"):
             out = os.path.join(OUT, f"entry_engine_{engine}_{d}")
             K.reset_launches()
+            c0 = programs.stats["captures"]
             _, text = quiet(cli.main, [xml, "--ssaa", "2", "--engine", engine,
                                        "--device", d, "--out-dir", out])
             if d == "cuda":
                 launches = dict(K.launches)
+                captures = programs.stats["captures"] - c0
+                check(captures > 0, f"--engine {engine} on CUDA captured no "
+                      "program")
             paths[d] = os.path.join(out, "entry_scene.ppm")
         named = "cluster" if engine == "auto" else engine
         check(f"engine={named}" in text, f"--engine {engine}: {text}")
@@ -1453,12 +1471,13 @@ def entry_engines(xml, results):
                   f"--engine {engine} launched kernels: {launches}")
         rc, diff = quiet(compare_main, [paths["cuda"], paths["cpu"]])
         stats = json.loads(diff)
-        log(f"  entry --engine {engine}: launches {launches}; diff CLI cuda vs "
-            f"cpu: rc {rc} {diff}")
+        log(f"  entry --engine {engine}: launches {launches}, {captures} "
+            f"captures; diff CLI cuda vs cpu: rc {rc} {diff}")
         check(rc == 0 and stats["differing"] == 0,
               f"--engine {engine}: the CUDA and CPU images differ")
         imgs[engine] = read_image(paths["cuda"])
-        rows[engine] = {"launches": launches, "compare": stats}
+        rows[engine] = {"launches": launches, "captures": captures,
+                        "compare": stats}
     for engine in ("brute", "bvh"):
         compare_images(imgs[engine], imgs["cluster"],
                        f"entry --engine {engine} vs cluster on CUDA")
@@ -2910,28 +2929,82 @@ def lean_profile(frame, lead=False):
     return wall, busy, mine, host["top_level_ops"], graphs, rows
 
 
-def compare_programs(label, frame, image, results, key, pools=scene_pools):
+def raw_profile(frame):
+    """``lean_profile``'s numbers for one run of ``frame`` (no warm-up run)
+    from the profiler's raw events, without building its event tree
+    (minutes for the ~10^6 events of an eager BVH frame on the H100 80GB
+    HBM3 at 700.00 W): top-level host ops are the aten ops nested in no
+    other host event of their thread."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        frame()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = mine = 0.0
+    rows, host, graphs = {}, {}, 0
+    cuda = DeviceType.CUDA
+    for ev in prof.profiler.kineto_results.events():
+        name = ev.name()
+        if ev.device_type() == cuda:
+            ms = ev.duration_ns() / 1e6
+            busy += ms
+            kname = kernel_of(name)
+            if kname is not None:
+                mine += ms
+                rows[kname] = rows.get(kname, 0) + 1
+            continue
+        graphs += "GraphLaunch" in name
+        host.setdefault(ev.start_thread_id(), []).append(
+            (ev.start_ns(), -ev.end_ns(), name[:6] == "aten::"))
+    ops = 0
+    for events in host.values():
+        events.sort()
+        end = None                      # the open top-level event's end
+        for start, neg_end, aten in events:
+            if end is None or start >= end:
+                end = -neg_end
+                ops += aten
+    return wall, busy, mine, ops, graphs, rows
+
+
+def compare_programs(label, frame, image, results, key, pools=scene_pools,
+                     runs=5, lean=False, eager_runs=None, eager_profile=True):
     """One frame eager (``whitted.eager()``) against its captured programs
     replayed: the first graph call after ``programs.clear()`` (its capture
-    ms and the bytes of the pools ``pools()``), the launches of one frame
-    each (equal), the images (0 differing pixels), 5 warm synced frames of
-    each in turns (median ms), one profiled frame of each (device busy,
-    idle share against the median, top-level host ops).  ``image(out)``:
-    the frame's image as a numpy array; None for a training step, whose
-    state each run moves on (its results are checked apart)."""
+    ms and the bytes of the pools ``pools()``), the launches, the host's
+    flag reads and the BVH walk's iterations of one frame each (launches
+    and iterations equal), the images (0 differing pixels), ``runs`` warm
+    synced frames of each in turns (median ms), one profiled frame of each
+    (device busy, idle share against the median, top-level host ops).
+    ``image(out)``: the frame's image as a numpy array; None for a
+    training step, whose state each run moves on (its results are checked
+    apart).  ``lean`` (an eager frame of seconds): no eager run before the
+    first graph call, and the frame of each that gives the image, launches
+    and peak is the profiled one (``raw_profile``; 3 runs fewer);
+    ``eager_runs``: the eager frame's timed runs, when fewer than
+    ``runs``; without ``eager_profile`` (lean only) the eager frame that
+    gives the image is timed instead of profiled (its device busy, idle
+    share and host ops are then not measured: None)."""
     import numpy as np
     import torch
 
     from raytracer_tpu_torch.models import programs
     from raytracer_tpu_torch.models.whitted import eager
     from raytracer_tpu_torch.ops import kernels as K
+    from raytracer_tpu_torch.ops.traverse import walk_stats
 
     def eager_frame():
         with eager():
             return frame()
 
     programs.clear()
-    eager_frame()
+    if not lean:
+        eager_frame()
     torch.cuda.synchronize()
     s0 = dict(programs.stats)
     t0 = time.perf_counter()
@@ -2941,24 +3014,45 @@ def compare_programs(label, frame, image, results, key, pools=scene_pools):
     captures = programs.stats["captures"] - s0["captures"]
     capture_ms = (programs.stats["capture_s"] - s0["capture_s"]) * 1e3
     pool = pool_bytes(pools())
-    out = {}
+    out, prof = {}, {}
     for name, fn in (("eager", eager_frame), ("graph", frame)):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         K.reset_launches()
-        res = fn()
+        f0, w0 = programs.stats["flag_reads"], walk_stats["iterations"]
+        runs_ms = []
+        if lean and (eager_profile or name == "graph"):
+            got = []
+            prof[name] = raw_profile(lambda fn=fn: got.append(fn()))
+            res = got[0]
+        else:
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            if lean:
+                runs_ms.append((time.perf_counter() - t0) * 1e3)
+                prof[name] = (None,) * 6
         img = None if image is None else image(res)
         torch.cuda.synchronize()
-        out[name] = {"img": img, "launches": dict(K.launches), "runs_ms": [],
-                     "peak": torch.cuda.max_memory_allocated()}
+        out[name] = {"img": img, "launches": dict(K.launches),
+                     "runs_ms": runs_ms,
+                     "peak": torch.cuda.max_memory_allocated(),
+                     "flag_reads": programs.stats["flag_reads"] - f0,
+                     "walk_iterations": walk_stats["iterations"] - w0}
     diff = 0 if image is None else int(
         (out["eager"]["img"] != out["graph"]["img"]).any(-1).sum())
     check(diff == 0, f"{label}: {diff} pixels differ between eager and replayed")
     check(out["eager"]["launches"] == out["graph"]["launches"],
           f"{label}: launches {out['eager']['launches']} eager, "
           f"{out['graph']['launches']} replayed")
-    for _ in range(5):
+    check(out["eager"]["walk_iterations"] == out["graph"]["walk_iterations"],
+          f"{label}: walk iterations {out['eager']['walk_iterations']} "
+          f"eager, {out['graph']['walk_iterations']} replayed")
+    for i in range(runs):
         for name, fn in (("eager", eager_frame), ("graph", frame)):
+            if name == "eager" and len(out[name]["runs_ms"]) >= (
+                    runs if eager_runs is None else eager_runs):
+                continue
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             fn()
@@ -2969,17 +3063,24 @@ def compare_programs(label, frame, image, results, key, pools=scene_pools):
            "capture_ms": capture_ms, "pool_bytes": pool}
     for name, fn in (("eager", eager_frame), ("graph", frame)):
         ms = statistics.median(out[name]["runs_ms"])
-        wall, busy, mine, ops, graphs, rows = lean_profile(fn)
+        wall, busy, mine, ops, graphs, rows = prof.get(name) or lean_profile(fn)
+        idle = None if busy is None else 1 - busy / ms
         row[name] = {"ms": ms, "runs_ms": out[name]["runs_ms"],
                      "device_busy_ms": busy, "kernels_ms": mine,
-                     "idle_share": 1 - busy / ms, "host_ops": ops,
+                     "idle_share": idle, "host_ops": ops,
                      "graph_launches": graphs, "profiled_wall_ms": wall,
-                     "kernel_events": rows, "peak_bytes": out[name]["peak"]}
-        log(f"  {label}, {name}: {ms:.3f} ms/frame (median of 5 "
-            f"{[round(t, 3) for t in out[name]['runs_ms']]}); device busy "
-            f"{busy:.3f} ms (the CUDA kernels {mine:.3f}), idle share "
-            f"{1 - busy / ms:.3f}; {ops} top-level host ops, {graphs} graph "
-            f"launches; kernel events {rows}; peak allocated "
+                     "kernel_events": rows, "peak_bytes": out[name]["peak"],
+                     "flag_reads": out[name]["flag_reads"],
+                     "walk_iterations": out[name]["walk_iterations"]}
+        profiled = ("not profiled" if busy is None else
+                    f"device busy {busy:.3f} ms (the CUDA kernels {mine:.3f}), "
+                    f"idle share {idle:.3f}; {ops} top-level host ops, "
+                    f"{graphs} graph launches, kernel events {rows}")
+        log(f"  {label}, {name}: {ms:.3f} ms/frame (median of "
+            f"{len(out[name]['runs_ms'])} "
+            f"{[round(t, 3) for t in out[name]['runs_ms']]}); {profiled}; "
+            f"{out[name]['flag_reads']} flag reads, "
+            f"{out[name]['walk_iterations']} walk iterations; peak allocated "
             f"{out[name]['peak']} bytes (outside the graph pool)")
     log(f"  {label}: {'0 differing pixels; ' if image is not None else ''}"
         f"launches equal {row['launches']}; "
@@ -3003,11 +3104,12 @@ SPREAD_RUNS = 5
 
 
 def train_spread(dev, results, mesh=None, label="full-width training",
-                 key="train_spread"):
-    """Phase 9, training at full width (phase 7's problem), replayed against
-    eager (on ``mesh`` when given: phase 8b's ranks, each replaying the
-    two-step program; results under ``key``, checks named by ``label``).
-    Eager run A takes 5 steps from the start, its state (params,
+                 key="train_spread", problem=None, engine="cluster", steps=5):
+    """Phase 9, training at full width (phase 7's problem, or ``problem``:
+    ``training_setup``'s tuple, on ``engine``), replayed against eager (on
+    ``mesh`` when given: phase 8b's ranks, each replaying the two-step
+    program; results under ``key``, checks named by ``label``).  Eager
+    run A takes ``steps`` (5) steps from the start, its state (params,
     Adam's moments and step count) kept before each; the program R takes
     its first 5 steps (the first eager, then captured) from the same start,
     step 1's loss equal to A's bit for bit.  Then, for each step n, R's
@@ -3029,12 +3131,12 @@ def train_spread(dev, results, mesh=None, label="full-width training",
     from raytracer_tpu_torch.models.whitted import eager
     from raytracer_tpu_torch.parallel.train import init_state, make_train_step
 
-    _, meta, cset, origin, dirs, target, bad = training_setup(dev)
+    _, meta, cset, origin, dirs, target, bad = problem or training_setup(dev)
     fields = ("mat_diffuse", "light_int")
     moments = ("step", "exp_avg", "exp_avg_sq")
 
     def new_run():
-        return (make_train_step(meta, lr=3e-2, engine="cluster", device=dev,
+        return (make_train_step(meta, lr=3e-2, engine=engine, device=dev,
                                 mesh=mesh),
                 init_state(bad, fields=fields))
 
@@ -3066,7 +3168,7 @@ def train_spread(dev, results, mesh=None, label="full-width training",
 
     a_run, b_run, r_run = new_run(), new_run(), new_run()
     a, b, r, before = [], [], [], []
-    for _ in range(5):
+    for _ in range(steps):
         before.append(snapshot(a_run[1]) if a else None)
         a.append(one(a_run, False))
         b.append(one(b_run, False))
@@ -3080,13 +3182,13 @@ def train_spread(dev, results, mesh=None, label="full-width training",
     trajectory = {f"step {n} {k[0]} {k[1]}": {
         "eager_spread": dist(b[n - 1][1][k], a[n - 1][1][k]),
         "replayed_distance": dist(r[n - 1][1][k], a[n - 1][1][k])}
-        for n in (1, 5) for k in a[0][1]}
+        for n in sorted({1, steps}) for k in a[0][1]}
 
     captures = programs.stats["captures"]
     adam = new_run()
     one(adam, False)              # its Adam state made, lr written
     rows = {}
-    for n in range(1, 6):
+    for n in range(1, steps + 1):
         snap = before[n - 1]
         load(r_run[1], snap)
         loss_r, got_r = one(r_run, True)
@@ -3133,7 +3235,7 @@ def train_spread(dev, results, mesh=None, label="full-width training",
             for k, v in rows.items())
         + "; params, moments and step count equal to eager Adam on the "
         "replayed gradients")
-    log(f"  {label} over 5 free steps, ||B - A|| (two eager runs) "
+    log(f"  {label} over {steps} free steps, ||B - A|| (two eager runs) "
         "and ||R - A|| (replayed): " + "; ".join(
             f"{k} {v['eager_spread']:.6g} / {v['replayed_distance']:.6g}"
             for k, v in trajectory.items()))
@@ -3143,14 +3245,16 @@ def train_spread(dev, results, mesh=None, label="full-width training",
         "same_state": rows, "trajectory": trajectory}
 
 
-def train_deterministic(dev, results, mesh=None, label="64x64"):
-    """Phase 9, training on a 64x64 camera of the full-width terrain under
+def train_deterministic(dev, results, mesh=None, label="64x64",
+                        engine="cluster", scene=None, key="train_deterministic"):
+    """Phase 9, training on a 64x64 camera of the full-width terrain (or of
+    ``scene``: (data, meta, accel)) on ``engine`` under
     ``torch.use_deterministic_algorithms(True)``: 3 steps eager and 3
     replayed from the same start (mat_diffuse, light_int, light_pos and
     vertices), loss, gradients and parameters equal bit for bit, the
     launches of each step equal.  ``mesh``: phase 8b's ranks, each
-    replaying the two-step program.  Returns the replayed run's last
-    parameters, flat on the host."""
+    replaying the two-step program.  Results under ``key``.  Returns the
+    replayed run's last parameters, flat on the host."""
     import contextlib
 
     import torch
@@ -3162,13 +3266,13 @@ def train_deterministic(dev, results, mesh=None, label="64x64"):
     from raytracer_tpu_torch.parallel.train import init_state, make_train_step
     from raytracer_tpu_torch.utils.synth import terrain_scene
 
-    data, meta, cset = build(terrain_scene, dev, cells=126, res=64,
-                             mirror_stripes=True)
-    cam = meta.cameras[0]
+    data, meta, cset = scene or build(terrain_scene, dev, cells=126, res=64,
+                                      mirror_stripes=True)
+    cam = dataclasses.replace(meta.cameras[0], width=64, height=64)
     origin, dirs = eye_rays_from(torch.from_numpy(camera_vectors(cam)).to(dev),
                                  cam.width, cam.height)
     with torch.no_grad():
-        target = render_rays(data, meta, origin, dirs, cset, engine="cluster")
+        target = render_rays(data, meta, origin, dirs, cset, engine=engine)
     bad = dataclasses.replace(data, mat_diffuse=data.mat_diffuse * 0.5,
                               light_int=data.light_int * 0.7)
     fields = ("mat_diffuse", "light_int", "light_pos", "vertices")
@@ -3177,7 +3281,7 @@ def train_deterministic(dev, results, mesh=None, label="64x64"):
     torch.use_deterministic_algorithms(True)
     try:
         for graphs in (False, True):
-            step = make_train_step(meta, engine="cluster", device=dev,
+            step = make_train_step(meta, engine=engine, device=dev,
                                    mesh=mesh)
             state = init_state(bad, fields=fields)
             c0 = programs.stats["captures"]
@@ -3197,26 +3301,34 @@ def train_deterministic(dev, results, mesh=None, label="64x64"):
                                        for w, x in (("grad", p.grad),
                                                     ("param", p))},
                                 dict(K.launches)))
-            # the two-step program over several processes
+            # the two-step program over several processes; the BVH
+            # engine's visibility pass captures steps of its own
             n = 2 if mesh is not None and mesh.world > 1 else 1
-            check(programs.stats["captures"] == c0 + n * graphs,
-                  f"{label} deterministic training: captures")
+            made = programs.stats["captures"] - c0
+            check(made > n if engine == "bvh" and graphs else made == n * graphs,
+                  f"{label} deterministic training: {made} captures")
             runs[graphs] = got
     finally:
         torch.use_deterministic_algorithms(was)
+    # equal values, NaN where the other has NaN: a grazing sphere hit can
+    # give a NaN gradient (sqrt at a clamped discriminant), the same in both
+    nans = []
     for i, (e, g) in enumerate(zip(runs[False], runs[True])):
         check(torch.equal(e[0], g[0]), f"{label} deterministic step {i + 1}: "
               f"loss {float(e[0])!r} eager, {float(g[0])!r} replayed")
         for k in e[1]:
-            check(torch.equal(e[1][k], g[1][k]),
+            check(e[1][k].shape == g[1][k].shape
+                  and equal_nan(e[1][k], g[1][k]),
                   f"{label} deterministic step {i + 1}: {k} differs")
+        nans.append({f"{f} {w}": n for (f, w), x in g[1].items()
+                     if (n := int(torch.isnan(x).sum()))})
         check(e[2] == g[2], f"{label} deterministic step {i + 1}: launches "
               f"{e[2]} eager, {g[2]} replayed")
     log(f"  {label} training under deterministic algorithms: 3 steps eager and "
         f"replayed equal bit for bit (losses {[float(x[0]) for x in runs[True]]}; "
-        f"launches a step {runs[True][0][2]})")
-    results.setdefault("programs", {})["train_deterministic"] = {
-        "losses": [float(x[0]) for x in runs[True]],
+        f"NaN entries a step {nans}; launches a step {runs[True][0][2]})")
+    results.setdefault("programs", {})[key] = {
+        "losses": [float(x[0]) for x in runs[True]], "nans": nans,
         "launches": runs[True][0][2]}
     return torch.cat([x.flatten() for (f, w), x in runs[True][-1][1].items()
                       if w == "param"]).cpu()
@@ -3319,6 +3431,206 @@ def programs_on_card(dev, results):
     compare_programs("served terrain request (warm), --ssaa 2", served,
                      lambda r: read_ppm(r["images"][0]), results, "served")
     programs.clear()
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the brute and BVH engines' programs, eager against replayed
+# ---------------------------------------------------------------------------
+
+# the BVH frames' camera side (262,144 rays a frame at --ssaa 1), the
+# camera side of the other modes and of the served request, the larger
+# training camera (65,536 rays a step), and the steps of its spread bar
+BVH_SIDE = 512
+MODES_SIDE = 256
+TRAIN_SIDE = 256
+ENGINE_SPREAD_STEPS = 1
+# timed runs of each phase-10 frame and step (median), eager and replayed;
+# the BVH modes beyond the camera frame and the 64x64 step time their
+# eager frame once and do not profile it (an eager BVH frame took 3.0 to
+# 8.1 s, host-bound, on the H100 80GB HBM3 at 700.00 W)
+ENGINE_RUNS = 3
+
+
+def engine_compare(full=True):
+    """``compare_programs``' options in phase 10: ENGINE_RUNS timed runs
+    and the lean schedule (an eager BVH frame takes seconds and runs
+    ~10^5 host ops: profiling one cost ~10 s more on the H100 80GB HBM3
+    at 700.00 W); not ``full``: the eager frame is timed once and not
+    profiled."""
+    return dict(runs=ENGINE_RUNS, lean=True, eager_runs=None if full else 1,
+                eager_profile=full)
+
+
+def mirror_spheres(dev):
+    """(data, meta) of the 64-sphere field (the scenes that ``auto``
+    renders by brute force: at most 64 primitives) at 1024x1024, every
+    sphere a mirror (tint 0.8), max depth 2."""
+    import torch
+
+    from raytracer_tpu_torch.models.whitted import resolve_engine
+    from raytracer_tpu_torch.utils.synth import sphere_field
+
+    data, meta = sphere_field(n_spheres=64, res=1024, device=dev)
+    data = dataclasses.replace(
+        data, mat_is_mirror=torch.ones_like(data.mat_is_mirror),
+        mat_mirror=torch.full_like(data.mat_mirror, 0.8))
+    check(resolve_engine("auto", None, meta) == "brute"
+          and meta.n_spheres == 64, "the sphere field is not auto's brute case")
+    return data, meta
+
+
+def engine_problem(data, meta, accel, engine, side):
+    """``training_setup``'s tuple for ``engine`` on (data, meta, accel)
+    through a side x side camera: raster eye rays, the target the true
+    scene's radiance, the start with mat_diffuse x 0.5 and light_int x
+    0.7."""
+    import torch
+
+    from raytracer_tpu_torch.models.whitted import render_rays
+    from raytracer_tpu_torch.ops.camera import camera_vectors, eye_rays_from
+
+    cam = dataclasses.replace(meta.cameras[0], width=side, height=side)
+    vec = torch.from_numpy(camera_vectors(cam)).to(data.vertices.device)
+    origin, dirs = eye_rays_from(vec, side, side)
+    with torch.no_grad():
+        target = render_rays(data, meta, origin, dirs, accel, engine=engine)
+    bad = dataclasses.replace(data, mat_diffuse=data.mat_diffuse * 0.5,
+                              light_int=data.light_int * 0.7)
+    return data, meta, accel, origin, dirs, target, bad
+
+
+def engine_training(dev, results, engine, scene, label):
+    """Phase 10's training on ``engine`` over ``scene`` (data, meta,
+    accel): 3 steps eager and replayed bit for bit at 64x64 under
+    deterministic algorithms, the spread bar at TRAIN_SIDE, and the step
+    at both sizes eager against replayed (``compare_programs``)."""
+    from raytracer_tpu_torch.parallel.train import init_state, make_train_step
+
+    train_deterministic(dev, results, label=f"{label} 64x64", engine=engine,
+                        scene=scene, key=f"{engine}_train_deterministic")
+    big = engine_problem(*scene, engine, TRAIN_SIDE)
+    train_spread(dev, results, label=f"{label} {TRAIN_SIDE}x{TRAIN_SIDE} "
+                 "training", key=f"{engine}_train_spread", problem=big,
+                 engine=engine, steps=ENGINE_SPREAD_STEPS)
+    for side, problem in ((64, engine_problem(*scene, engine, 64)),
+                          (TRAIN_SIDE, big)):
+        data, meta, accel, origin, dirs, target, bad = problem
+        step = make_train_step(meta, lr=3e-2, engine=engine, device=dev)
+        state = init_state(bad, fields=("mat_diffuse", "light_int"))
+
+        def one():
+            return step(state, bad, origin, dirs, target, accel=accel)[1]
+        compare_programs(f"{label} training step {side}x{side} "
+                         f"({side * side} rays)", one, None, results,
+                         f"{engine}_train_step_{side}",
+                         **engine_compare(full=side == TRAIN_SIDE),
+                         pools=lambda: [p.progs.pool
+                                        for p in step.programs.values()])
+
+
+def engine_programs(dev, results):
+    """Phase 10: the brute and BVH engines' programs against the same
+    bodies run eagerly (``compare_programs``: 0 differing pixels, equal
+    launches and walk iterations, ms, device busy and idle share, host
+    ops, graph launches, flag reads, captures, pool bytes).  BVH: the
+    full-width terrain (31,752 triangles, 2 lights, max depth 2) with its
+    octant threads (``render.engine_accel``), the camera at
+    BVH_SIDE x BVH_SIDE, then at MODES_SIDE streamed at --ssaa 4, jitter,
+    adaptive, a band on a 2-shard mesh of the card and a served
+    ``--engine bvh`` request; brute: the 64-sphere mirror field at
+    1024x1024 --ssaa 2 (4,194,304 rays) and the entry scene; then each
+    engine's training step (``engine_training``)."""
+    import torch
+
+    from raytracer_tpu_torch.models import programs
+    from raytracer_tpu_torch.models.scene import load_scene
+    from raytracer_tpu_torch.models.whitted import render_camera
+    from raytracer_tpu_torch.parallel.mesh import make_mesh
+    from raytracer_tpu_torch.pipeline import render_one_camera
+    from raytracer_tpu_torch.render import engine_accel
+    from raytracer_tpu_torch.serve import RenderServer
+    from raytracer_tpu_torch.utils.ppm import read_ppm
+    from raytracer_tpu_torch.utils.synth import terrain_scene
+
+    first = lambda out: out[0]  # noqa: E731
+    data, meta = terrain_scene(cells=126, res=1024, mirror_stripes=True,
+                               device=dev)
+    check(meta.n_tris == 31_752 and meta.n_lights == 2
+          and meta.max_depth == 2, "the full-width terrain changed")
+    t0 = time.perf_counter()
+    bvh = engine_accel("bvh", None, data, meta, dev)
+    check(bvh.blocks == 8, "the terrain's BVH has no octant threads")
+    log(f"  BVH with octant threads: {bvh.n_nodes} nodes a thread, built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    cam = dataclasses.replace(meta.cameras[0], width=BVH_SIDE,
+                              height=BVH_SIDE)
+    compare_programs(f"BVH terrain camera {BVH_SIDE}x{BVH_SIDE} (radiance)",
+                     lambda: render_camera(data, meta, cam, bvh, device=dev,
+                                           engine="bvh"),
+                     lambda x: x.cpu().numpy(), results, "bvh_camera",
+                     **engine_compare())
+    small = dataclasses.replace(cam, width=MODES_SIDE, height=MODES_SIDE)
+    for key, label, kw in (
+            ("bvh_streamed_ssaa4", "streamed, --ssaa 4", dict(ssaa=4)),
+            ("bvh_jitter", "--ssaa 2 jitter", dict(ssaa=2,
+                                                   ssaa_mode="jitter")),
+            ("bvh_adaptive", "adaptive (base 4 spp, 12.5% of blocks get 12 "
+             "more)", dict(ssaa=2, ssaa_mode="adaptive")),
+            ("bvh_mesh2", "--ssaa 2 on a 2-shard mesh of the card",
+             dict(ssaa=2, mesh=make_mesh(devices=[dev, dev])))):
+        compare_programs(
+            f"BVH terrain {MODES_SIDE}x{MODES_SIDE} {label}",
+            lambda kw=kw: render_one_camera(data, meta, small, bvh,
+                                            device=dev, engine="bvh", **kw),
+            first, results, key, **engine_compare(full=False))
+    programs.clear()
+
+    xml = os.path.join(OUT, "terrain_1024.xml")
+    check(os.path.exists(xml), "phase 8d's terrain XML is missing")
+    with open(xml) as f:
+        text = f.read()
+    res = "<ImageResolution>1024 1024</ImageResolution>"
+    check(text.count(res) == 1, "the terrain XML's camera changed")
+    xml = os.path.join(OUT, f"terrain_{MODES_SIDE}.xml")
+    with open(xml, "w") as f:
+        f.write(text.replace(res, f"<ImageResolution>{MODES_SIDE} "
+                             f"{MODES_SIDE}</ImageResolution>"))
+    server = RenderServer(device=dev)
+    req = {"scene": xml, "out_dir": os.path.join(OUT, "engine_served"),
+           "engine": "bvh"}
+
+    def served():
+        r = server.handle(req)
+        check(r.get("ok"), f"served --engine bvh request: {r}")
+        return r
+    served()
+    compare_programs(f"served --engine bvh terrain request (warm), "
+                     f"{MODES_SIDE}x{MODES_SIDE}", served,
+                     lambda r: read_ppm(r["images"][0]), results,
+                     "bvh_served", **engine_compare(full=False))
+    programs.clear()
+    del server
+
+    sd, sm = mirror_spheres(dev)
+    compare_programs("brute 64-sphere mirror field, 1024x1024 --ssaa 2 "
+                     "(--engine auto)",
+                     lambda: render_one_camera(sd, sm, sm.cameras[0], None,
+                                               device=dev, ssaa=2),
+                     first, results, "brute_spheres", **engine_compare())
+    entry = os.path.join(REPO, "tests", "data", "entry_scene.xml")
+    ed, em = load_scene(entry, device=dev)
+    compare_programs("brute entry scene, --ssaa 2",
+                     lambda: render_one_camera(ed, em, em.cameras[0], None,
+                                               device=dev, ssaa=2,
+                                               engine="brute"),
+                     first, results, "brute_entry", **engine_compare())
+    programs.clear()
+
+    engine_training(dev, results, "bvh", (data, meta, bvh), "BVH terrain")
+    engine_training(dev, results, "brute", (sd, sm, None),
+                    "brute 64-sphere field")
+    programs.clear()
+    log(f"  card: {smi_line()}")
 
 
 def scaling_on_card(dev, results):
@@ -3680,6 +3992,8 @@ def run():
     scaling_on_card(dev, results)
     log("== phase 9: the compiled programs, eager against replayed")
     programs_on_card(dev, results)
+    log("== phase 10: brute and BVH programs, eager against replayed")
+    engine_programs(dev, results)
     # the draw kernel's row: its launches in the jitter frame of phase 6,
     # one band; JAX_DRAWS's checks were exact (max_abs_err 0); per frame,
     # the draws' device ms timed in the counted frames of phase 6

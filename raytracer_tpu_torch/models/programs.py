@@ -1,5 +1,5 @@
-"""Compiled programs: the cluster engine's wavefront, its frames, the
-adaptive frame and the training step as CUDA graphs, the port's
+"""Compiled programs: each engine's wavefront, its frames, the adaptive
+frame and the training step as CUDA graphs, the port's
 counterparts of the JAX package's jitted programs ``_render_rays_jit``,
 ``_render_camera_jit`` and ``_render_band_jit``
 (``raytracer_tpu/models/whitted.py:306-398``), ``_adaptive_jit``
@@ -46,6 +46,12 @@ bodies live in ``models.whitted`` (``_Wavefront``, ``_Rays``, ``_Frame``),
   calls and the tests run the same bodies this way; ``--debug-nans``
   (``whitted.debug_nans``) does too.
 
+- ``read_flags`` / ``run_while``: the host reads a program's flag
+  tensors between its steps (the wavefront's early exit and compaction
+  gate between bounces, the BVH walk's loop test between blocks of
+  iterations), as XLA's while_loop reads its predicate; ``stats`` counts
+  the reads.
+
 A capture that fails raises, naming the step; nothing falls back to
 eager.  On the CPU there is nothing to capture: the caller asked for the
 CPU, and the bodies run eagerly on every run, kept nowhere.
@@ -73,8 +79,9 @@ _scenes: "OrderedDict[tuple, Programs]" = OrderedDict()
 _replicas: "OrderedDict[tuple, tuple]" = OrderedDict()
 
 # captures made in this process and the seconds they took (timed on the
-# host around each capture, the device synchronised first by the capture)
-stats = {"captures": 0, "capture_s": 0.0}
+# host around each capture, the device synchronised first by the capture),
+# and the host's reads of a program's flags (``read_flags``)
+stats = {"captures": 0, "capture_s": 0.0, "flag_reads": 0}
 
 
 @contextlib.contextmanager
@@ -90,15 +97,25 @@ def eager():
 
 class CudaGraph:
     """One ``torch.cuda.CUDAGraph`` captured into the memory pool ``pool``
-    (``torch.cuda.graph`` captures on a side stream)."""
+    (``torch.cuda.graph`` captures on a side stream).  The garbage
+    collector is off while it captures: ``torch.cuda.graph`` collects
+    first, and a collection during the capture could destroy another
+    program's graphs and free its pool (a dropped program is a reference
+    cycle), calls that invalidate the capture."""
 
     def __init__(self, pool):
         self.graph = torch.cuda.CUDAGraph()
         self.pool = pool
 
     def capture(self, body) -> None:
-        with torch.cuda.graph(self.graph, pool=self.pool):
-            body()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph, pool=self.pool):
+                body()
+        finally:
+            if collecting:
+                gc.enable()
 
     def replay(self) -> None:
         self.graph.replay()
@@ -124,6 +141,24 @@ def _on(device):
     if device is None or torch.device(device).type != "cuda":
         return contextlib.nullcontext()
     return torch.cuda.device(device)
+
+
+def read_flags(flags: torch.Tensor) -> list:
+    """The values of the device tensor ``flags`` on the host (a sync),
+    counted in ``stats``: how a program decides between its steps, as
+    XLA's while_loop reads its predicate on the host once an iteration."""
+    stats["flag_reads"] += 1
+    return flags.tolist()
+
+
+def run_while(flag: torch.Tensor, step) -> int:
+    """Run ``step`` while the one-element flag ``flag``, which the step
+    rewrites, reads true (read before every run); returns the runs."""
+    n = 0
+    while read_flags(flag)[0]:
+        step()
+        n += 1
+    return n
 
 
 class Step:

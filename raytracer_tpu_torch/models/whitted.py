@@ -30,18 +30,28 @@ about one chunk; it is the route of every render request but adaptive
 sampling, jittered sampling included, and over a device mesh it splits
 each band's rays into the mesh's shards (``parallel.render``).
 
-On a CUDA device the cluster engine's forward renders (``render_rays``,
+On a CUDA device the forward renders of every engine (``render_rays``,
 ``trace``, ``render_camera``, ``render_camera_streamed``, on one device
 or a mesh) replay captured CUDA graphs (``models.programs``): the bounce
 loop as steps on static buffers (``_Wavefront``, cut into chunks by
-``_Rays``), a band or camera as a program around it (``_Frame``; on a
-mesh ``_MeshFrame``, its shards ``_Shard``s), the counterparts of the
-JAX package's jitted ``_render_rays_jit``, ``_render_band_jit`` (with
-its ``shard_map``) and ``_render_camera_jit``; the adaptive frame
-(``ops.adaptive``) and the training step through the differentiable
-path (``parallel.train``) replay programs of their own.  The same bodies
-run eagerly on the CPU, inside ``eager()`` and under ``debug_nans()``;
-the other engines stay eager.
+``_Rays``; the BVH engine's bounce cut at its two walks, whose blocks of
+iterations replay while their flag reads true), a band or camera as a
+program around it (``_Frame``; on a mesh ``_MeshFrame``, its shards
+``_Shard``s), the counterparts of the JAX package's jitted
+``_render_rays_jit``, ``_render_band_jit`` (with its ``shard_map``) and
+``_render_camera_jit``; the adaptive frame (``ops.adaptive``) and the
+training step through the differentiable path (``parallel.train``)
+replay programs of their own.  The same bodies run eagerly on the CPU,
+inside ``eager()`` and under ``debug_nans()``.
+
+The differentiable path on the BVH engine runs in two passes: a
+recording wavefront (``_Wavefront`` with ``record``, no gradient) traces
+the visibility of every bounce (primitive ids, occlusion bits), then the
+differentiable bounces refine and shade from the recorded visibility, so
+that the pass that autograd sees has no host read (``parallel.train``
+captures it with the backward and Adam).  Visibility carries no gradient
+and autograd does not change forward values: the loss and gradients are
+those of one pass.
 """
 
 from __future__ import annotations
@@ -58,7 +68,7 @@ from raytracer_tpu_torch.models.clusters import ClusterSet
 from raytracer_tpu_torch.models.programs import eager  # noqa: F401 (re-export)
 from raytracer_tpu_torch.models.scene import Camera, SceneData, SceneMeta
 from raytracer_tpu_torch.ops import cluster_trace as ctr
-from raytracer_tpu_torch.ops import traverse
+from raytracer_tpu_torch.ops import shade, traverse
 from raytracer_tpu_torch.ops.camera import (
     camera_vectors, draw_jitter, eye_rays_band, eye_rays_from,
 )
@@ -67,7 +77,7 @@ from raytracer_tpu_torch.ops.image import (
 )
 from raytracer_tpu_torch.ops.kernels import TILE
 from raytracer_tpu_torch.ops.shade import (
-    Hit, refine_hit, reflection_rays, shade_local,
+    Hit, refine_hit, reflection_rays, shade_local, shadow_query,
 )
 from raytracer_tpu_torch.ops.tiling import (
     apply_tile_order, block_permutation, divides, undo_tile_order,
@@ -180,13 +190,14 @@ def _occlusion(data: SceneData, meta: SceneMeta, accel, engine: str,
 
 
 def _bounce(data: SceneData, meta: SceneMeta, accel, engine: str, bfc: bool,
-            fns, carry, origin=None, shared_eye: bool = False):
+            fns, carry, origin=None, shared_eye: bool = False, prim=None):
     """One bounce of the carry (depth, color, throughput, active, cur_org,
     cur_dir, idx); ``depth`` is a Python int.  The cluster engine's
     forward path (``origin`` given: the wavefront's shared (3,) origin,
     used by the peeled eye bounce, ``shared_eye``) takes its hits from the
-    kernel's slot table; otherwise the engine's primitive ids are refined
-    differentiably (``refine_hit``)."""
+    kernel's slot table; otherwise the engine's primitive ids (``prim``,
+    when given: recorded ones) are refined differentiably
+    (``refine_hit``)."""
     depth, color, throughput, active, cur_org, cur_dir, idx = carry
     if origin is not None:
         fhit, t, normal, mat, point, offset, _ = ctr.cluster_closest_hit(
@@ -196,10 +207,19 @@ def _bounce(data: SceneData, meta: SceneMeta, accel, engine: str, bfc: bool,
         h = Hit(hit=fhit & active, t=t, normal=normal, mat=mat,
                 point=point, offset=offset)
     else:
-        prim = traverse.closest_hit(data, cur_org, cur_dir, accel, engine,
-                                    active=active, bfc=bfc)
+        if prim is None:
+            prim = traverse.closest_hit(data, cur_org, cur_dir, accel, engine,
+                                        active=active, bfc=bfc)
         prim = torch.where(active, prim, traverse.MISS)
         h = refine_hit(data, meta, cur_org, cur_dir, prim)
+    return _shade(data, meta, fns, carry, h)
+
+
+def _shade(data: SceneData, meta: SceneMeta, fns, carry, h: Hit):
+    """The rest of a bounce from its hits ``h``: the background of a depth-0
+    miss, the local shading (occlusion through ``fns``), the mirror
+    reflection; returns the next carry."""
+    depth, color, throughput, active, cur_org, cur_dir, idx = carry
     if depth == 0:
         color = color + torch.where((~h.hit & active)[:, None],
                                     data.background[None, :], 0.0)
@@ -219,33 +239,47 @@ def _bounce(data: SceneData, meta: SceneMeta, accel, engine: str, bfc: bool,
 
 
 class _Wavefront:
-    """The cluster engine's forward bounce loop over ``r`` rays (the fast
-    path of ``render_rays``) as program steps on static buffers: the
-    inputs ``origin`` ((3,) shared, or (r, 3)) and ``dirs``; the carry
-    (``color``, ``throughput``, ``active``, ``cur_org``, ``cur_dir``,
-    ``idx``), which each bounce rewrites in place; and ``flags``, written
-    at the end of every bounce but the last: any ray still active, and the
-    compaction gate of the next bounce, in the float ops of the JAX
-    package's gate.  ``run`` reads the flags once between bounces, as
-    XLA's while_loop reads its predicate, so the early exit and both
-    branches of the gate stay: each bounce runs exactly the ops of the
-    eager loop.  Steps: bounce 0 (the shared-eye peel for a shared
-    origin), bounce d plain or compacting (from _COMPACT_FROM), and
+    """The forward bounce loop over ``r`` rays on ``engine`` (the path of
+    ``render_rays`` without ``differentiable``) as program steps on
+    static buffers: the inputs ``origin`` ((3,) shared, or (r, 3)) and
+    ``dirs``; the carry (``color``, ``throughput``, ``active``,
+    ``cur_org``, ``cur_dir``, ``idx``), which each bounce rewrites in
+    place; and ``flags``, written at the end of every bounce but the last:
+    any ray still active, and the compaction gate of the next bounce, in
+    the float ops of the JAX package's gate (the cluster engine's; off for
+    brute and bvh, whose hits are refined from ids, as in the JAX
+    package).  ``run`` reads the flags once between bounces, as XLA's
+    while_loop reads its predicate, so the early exit and both branches of
+    the gate stay: each bounce runs exactly the ops of the eager loop.
+
+    Steps: bounce 0 (on the cluster engine the shared-eye peel for a
+    shared origin), bounce d plain or compacting (from _COMPACT_FROM), and
     ``uncompact`` after a run whose carry was permuted (the host knows
-    whether one was; idx is arange otherwise).  ``step(name, body)`` makes
-    each step, captured (``programs.Programs.step``); with ``step`` None
-    the bodies run eagerly and nothing is kept (a kept step refers back to
-    the wavefront: a cycle that would hold its buffers until the garbage
+    whether one was; idx is arange otherwise).  A BVH bounce is cut at its
+    two walks (``traverse.Walk``, static state of r and L*r lanes): the
+    closest walk's set-up; its blocks; the hits (``refine_hit``, kept in
+    the static ``hit``) and the shadow walk's set-up (``shadow_query``);
+    its blocks; the shading, the reflection and the flags.  A walk's block
+    is one step shared by every bounce, replayed while its flag reads
+    true.  ``record`` (BVH, the differentiable path's visibility pass):
+    every bounce runs, no early exit, and each writes its primitive ids
+    into ``ids[d]`` and its occlusion bits into ``occ[d]``.
+
+    ``step(name, body)`` makes each step, captured
+    (``programs.Programs.step``); with ``step`` None the bodies run
+    eagerly and nothing is kept (a kept step refers back to the
+    wavefront: a cycle that would hold its buffers until the garbage
     collector runs)."""
 
     def __init__(self, data: SceneData, meta: SceneMeta, accel, r: int,
                  shared: bool, bfc: bool, relaxed: bool, compact_mode: str,
-                 device, step):
+                 device, step, engine: str = "cluster", record: bool = False):
         self.data, self.meta, self.accel, self.bfc = data, meta, accel, bfc
-        self.r, self.shared = r, shared
-        self.compact = ((meta.max_depth >= _COMPACT_MIN_DEPTH
-                         or compact_mode == "deep") and r % TILE == 0)
-        self.fns = _occlusion(data, meta, accel, "cluster", bfc, relaxed)
+        self.r, self.shared, self.engine, self.record = r, shared, engine, record
+        self.compact = (engine == "cluster"
+                        and (meta.max_depth >= _COMPACT_MIN_DEPTH
+                             or compact_mode == "deep") and r % TILE == 0)
+        self.fns = _occlusion(data, meta, accel, engine, bfc, relaxed)
         f32 = dict(dtype=torch.float32, device=device)
         self.origin = torch.zeros((3,) if shared else (r, 3), **f32)
         self.dirs = torch.zeros((r, 3), **f32)
@@ -256,8 +290,28 @@ class _Wavefront:
         self.active = torch.zeros((r,), dtype=torch.bool, device=device)
         self.idx = torch.arange(r, device=device)
         self.flags = torch.zeros((2,), dtype=torch.bool, device=device)
+        nl, i64 = meta.n_lights, dict(dtype=torch.int64, device=device)
+        if engine == "bvh":
+            bvh = traverse._device_bvh(accel)
+            self.walks = [traverse.Walk(data, bvh, r, True, bfc, device)]
+            if nl:
+                self.walks.append(traverse.Walk(data, bvh, nl * r, False, bfc,
+                                                device))
+            self.hit = Hit(
+                hit=torch.zeros((r,), dtype=torch.bool, device=device),
+                t=torch.zeros((r,), **f32), normal=torch.zeros((r, 3), **f32),
+                mat=torch.zeros((r,), **i64), point=torch.zeros((r, 3), **f32),
+                offset=torch.zeros((r, 3), **f32))
+        elif record:
+            raise ValueError("only the bvh engine records its visibility")
+        if record:
+            self.ids = torch.zeros((meta.max_depth + 1, r), **i64)
+            self.occ = (torch.zeros((meta.max_depth + 1, nl * r),
+                                    dtype=torch.bool, device=device)
+                        if nl else None)
         self.step = step
         self.steps = {}
+        self.blocks = {}
 
     @torch.no_grad()
     def load(self, origin, dirs) -> None:
@@ -270,9 +324,11 @@ class _Wavefront:
         self._run(0, False)
         compacted = False
         for depth in range(1, self.meta.max_depth + 1):
-            alive, scattered = self.flags.tolist()
-            if not alive:
-                break
+            scattered = False
+            if not self.record:
+                alive, scattered = programs.read_flags(self.flags)
+                if not alive:
+                    break
             take = self.compact and depth >= _COMPACT_FROM and scattered
             self._run(depth, take)
             compacted |= take
@@ -281,81 +337,164 @@ class _Wavefront:
         return self.color
 
     def _run(self, depth, compacted: bool) -> None:
-        step = self.steps.get((depth, compacted))
-        if step is None:
-            if depth == "uncompact":
-                name, body = "uncompact", self._uncompact
+        steps = self.steps.get((depth, compacted))
+        if steps is None:
+            steps = [self._walk(p) if isinstance(p, int)
+                     else p[1] if self.step is None else self.step(*p)
+                     for p in self._parts(depth, compacted)]
+            if self.step is not None:
+                self.steps[(depth, compacted)] = steps
+        for step in steps:
+            step()
+
+    def _parts(self, depth, compacted: bool) -> list:
+        """The (name, body) steps of bounce ``depth``, a walk's index where
+        its blocks run."""
+        if depth == "uncompact":
+            return [("uncompact", self._uncompact)]
+        if self.engine != "bvh":
+            name = f"bounce {depth}" + (", compacted" if compacted else "")
+            return [(name, self._bounce_body(depth, compacted))]
+        parts = [(f"bounce {depth} closest set-up",
+                  lambda: self._bvh_closest(depth)), 0,
+                 (f"bounce {depth} shadow set-up",
+                  lambda: self._bvh_shadows(depth))]
+        if len(self.walks) > 1:
+            parts.append(1)
+        return parts + [(f"bounce {depth} shading",
+                         lambda: self._bvh_shade(depth))]
+
+    def _walk(self, i: int):
+        """Runs walk ``i``'s blocks: its one block step, kept."""
+        walk = self.walks[i]
+        if self.step is None:
+            return walk.run
+        if i not in self.blocks:
+            self.blocks[i] = self.step(f"{('closest', 'shadow')[i]} walk "
+                                       "block", walk.block)
+        block = self.blocks[i]
+        return lambda: walk.run(block)
+
+    def _carry(self, depth: int):
+        """The carry entering bounce ``depth``: the loaded rays at 0, else
+        the buffers (``_buffers``)."""
+        if depth == 0:
+            r, dev = self.r, self.dirs.device
+            return (0, torch.zeros((r, 3), dtype=torch.float32, device=dev),
+                    torch.ones((r, 3), dtype=torch.float32, device=dev),
+                    torch.ones((r,), dtype=torch.bool, device=dev),
+                    self.origin.expand(r, 3), self.dirs,
+                    torch.arange(r, device=dev) if self.compact else self.idx)
+        return self._buffers(depth)
+
+    def _buffers(self, depth: int):
+        return (depth, self.color, self.throughput, self.active, self.cur_org,
+                self.cur_dir, self.idx)
+
+    def _store(self, carry) -> None:
+        """The carry's tensors into the buffers."""
+        _, color, throughput, active, cur_org, cur_dir, idx = carry
+        for buf, x in ((self.color, color), (self.throughput, throughput),
+                       (self.active, active), (self.cur_org, cur_org),
+                       (self.cur_dir, cur_dir), (self.idx, idx)):
+            if x is not buf:
+                buf.copy_(x)
+
+    def _flags(self, depth: int, active) -> None:
+        if depth < self.meta.max_depth:
+            alive = active.any()
+            if self.compact and depth + 1 >= _COMPACT_FROM:
+                act_f = active.to(torch.float32).mean()
+                live_f = active.reshape(-1, TILE).any(1).to(
+                    torch.float32).mean()
+                scattered = live_f - act_f > _COMPACT_SCATTER
             else:
-                name = f"bounce {depth}" + (", compacted" if compacted else "")
-                body = self._bounce_body(depth, compacted)
-            if self.step is None:
-                return body()
-            step = self.steps[(depth, compacted)] = self.step(name, body)
-        step()
+                scattered = torch.zeros_like(alive)
+            self.flags.copy_(torch.stack([alive, scattered]))
 
     def _bounce_body(self, depth: int, compacted: bool):
         def body():
-            r, dev = self.r, self.dirs.device
-            if depth == 0:
-                carry = (0, torch.zeros((r, 3), dtype=torch.float32, device=dev),
-                         torch.ones((r, 3), dtype=torch.float32, device=dev),
-                         torch.ones((r,), dtype=torch.bool, device=dev),
-                         self.origin.expand(r, 3), self.dirs,
-                         torch.arange(r, device=dev) if self.compact
-                         else self.idx)
-            else:
-                carry = (depth, self.color, self.throughput, self.active,
-                         self.cur_org, self.cur_dir, self.idx)
-                if compacted:
-                    carry = _compact_carry(carry)
-            _, color, throughput, active, cur_org, cur_dir, idx = _bounce(
-                self.data, self.meta, self.accel, "cluster", self.bfc,
-                self.fns, carry, origin=self.origin,
-                shared_eye=depth == 0 and self.shared)
-            for buf, x in ((self.color, color), (self.throughput, throughput),
-                           (self.active, active), (self.cur_org, cur_org),
-                           (self.cur_dir, cur_dir), (self.idx, idx)):
-                if x is not buf:
-                    buf.copy_(x)
-            if depth < self.meta.max_depth:
-                alive = active.any()
-                if self.compact and depth + 1 >= _COMPACT_FROM:
-                    act_f = active.to(torch.float32).mean()
-                    live_f = active.reshape(-1, TILE).any(1).to(
-                        torch.float32).mean()
-                    scattered = live_f - act_f > _COMPACT_SCATTER
-                else:
-                    scattered = torch.zeros_like(alive)
-                self.flags.copy_(torch.stack([alive, scattered]))
+            carry = self._carry(depth)
+            if compacted:
+                carry = _compact_carry(carry)
+            cluster = self.engine == "cluster"
+            carry = _bounce(self.data, self.meta, self.accel, self.engine,
+                            self.bfc, self.fns, carry,
+                            origin=self.origin if cluster else None,
+                            shared_eye=depth == 0 and self.shared)
+            self._store(carry)
+            self._flags(depth, carry[3])
         return body
+
+    def _bvh_closest(self, depth: int) -> None:
+        if depth == 0:
+            self._store(self._carry(0))
+        self.walks[0].start(self.cur_org, self.cur_dir, self.active)
+
+    def _bvh_shadows(self, depth: int) -> None:
+        prim = torch.where(self.active, self.walks[0].best_p, traverse.MISS)
+        # shade's own binding: this module's refine_hit is the one the
+        # differentiable bounces call (a check that spies on it counts
+        # those, not a recording pass's)
+        h = shade.refine_hit(self.data, self.meta, self.cur_org,
+                             self.cur_dir, prim)
+        for buf, x in zip(self.hit, h):
+            buf.copy_(x)
+        if self.record:
+            self.ids[depth].copy_(prim)
+        if len(self.walks) > 1:
+            org, seg, t_max, mask = shadow_query(self.data, self.meta, h)
+            self.walks[1].start(org, seg, mask, t_max)
+
+    def _bvh_shade(self, depth: int) -> None:
+        occ = self.walks[1].done if len(self.walks) > 1 else None
+        if self.record and occ is not None:
+            self.occ[depth].copy_(occ)
+        carry = _shade(self.data, self.meta, (None, None, lambda *a: occ),
+                       self._buffers(depth), self.hit)
+        self._store(carry)
+        self._flags(depth, carry[3])
 
     def _uncompact(self) -> None:
         self.color.copy_(_uncompact_color(self.color, self.idx))
 
 
-def _programs_on(device, engine: str = "cluster") -> bool:
-    """True when a render on ``device`` through ``engine`` replays
-    captured programs: the cluster engine on a CUDA device, outside
-    ``eager()`` and ``debug_nans()``."""
-    return (engine == "cluster" and not _debug["nans"]
-            and programs.enabled(device))
+def _programs_on(device) -> bool:
+    """True when a render on ``device`` replays captured programs: on a
+    CUDA device, outside ``eager()`` and ``debug_nans()``, whatever the
+    engine."""
+    return not _debug["nans"] and programs.enabled(device)
 
 
 def _wavefront(progs, data, meta, accel, r: int, shared: bool, bfc: bool,
-               relaxed: bool, compact_mode: str, device) -> _Wavefront:
-    """The scene's cached wavefront program of this shape (``progs``:
-    ``programs.scene_programs``), or with ``progs`` None a new eager one."""
+               relaxed: bool, compact_mode: str, device,
+               engine: str = "cluster") -> _Wavefront:
+    """The scene's cached wavefront program of this engine and shape
+    (``progs``: ``programs.scene_programs``), or with ``progs`` None a new
+    eager one."""
     args = (data, meta, accel, r, shared, bfc, relaxed, compact_mode, device)
     if progs is None:
-        return _Wavefront(*args, None)
-    return progs.program(("rays", r, shared, bfc, relaxed, compact_mode),
-                         lambda: _Wavefront(*args, progs.step))
+        return _Wavefront(*args, None, engine)
+    return progs.program(("rays", engine, r, shared, bfc, relaxed,
+                          compact_mode),
+                         lambda: _Wavefront(*args, progs.step, engine))
+
+
+def _visibility(data, meta, accel, origin, dirs, bfc: bool):
+    """The BVH engine's visibility of the differentiable path's bounces,
+    traced eagerly by a recording wavefront (no gradient): (ids (D+1, R),
+    occ (D+1, L*R) or None without lights)."""
+    wf = _Wavefront(data, meta, accel, dirs.shape[0], origin.dim() == 1, bfc,
+                    False, "auto", dirs.device, None, "bvh", record=True)
+    wf.load(origin.detach(), dirs.detach())
+    wf.run()
+    return wf.ids, wf.occ
 
 
 def render_rays(data: SceneData, meta: SceneMeta, origin, dirs, accel,
                 engine: str = "cluster", differentiable: bool = False,
                 bfc: bool = False, relaxed: bool = False,
-                compact_mode: str = "auto"):
+                compact_mode: str = "auto", visibility=None):
     """(R, 3) f32 radiance of a wavefront.  ``origin``: (3,) (a shared eye
     point) or (R, 3); ``dirs``: (R, 3), unnormalized (the camera's).
     ``accel``: the engine's accelerator (a ClusterSet, a DeviceBVH, None
@@ -364,12 +503,15 @@ def render_rays(data: SceneData, meta: SceneMeta, origin, dirs, accel,
     ``differentiable``: the hits are re-derived from the engine's
     primitive ids by ``refine_hit`` (gradients flow into the scene
     tensors), in exactly max_depth + 1 bounces: no early exit, no
-    compaction, no peeled eye bounce.  Otherwise the cluster engine takes
-    its hits from the kernel's slot table (the fast path, ``_Wavefront``:
-    on a CUDA device a captured program of this scene and shape, replayed,
-    ``programs``), and brute and bvh refine their ids the same way,
-    stopping once no ray is active.  The cluster engine's shadow kernels
-    (plane tables within ``SHADOW_PLANES_BYTES_MAX``) serve both paths.
+    compaction, no peeled eye bounce.  On the BVH engine the ids and the
+    occlusion bits come from ``visibility`` ((ids, occ) of a recording
+    ``_Wavefront``), traced first (``_visibility``) when not given.
+    Otherwise the wavefront runs as ``_Wavefront`` (on a CUDA device a
+    captured program of this scene, engine and shape, replayed,
+    ``programs``): the cluster engine takes its hits from the kernel's
+    slot table, brute and bvh refine their ids the same way, stopping once
+    no ray is active.  The cluster engine's shadow kernels (plane tables
+    within ``SHADOW_PLANES_BYTES_MAX``) serve both paths.
     ``compact_mode`` (fast path only): ``auto`` gates the activity
     compaction off below max depth _COMPACT_MIN_DEPTH; ``deep`` keeps only
     the runtime scatter gate (adaptive refinement waves, scattered by
@@ -377,14 +519,16 @@ def render_rays(data: SceneData, meta: SceneMeta, origin, dirs, accel,
     if compact_mode not in ("auto", "deep"):
         raise ValueError(f"unknown compact_mode {compact_mode!r}")
     r, dev = dirs.shape[0], dirs.device
-    if engine == "cluster" and not differentiable:
+    if not differentiable:
         progs = (programs.scene_programs(data, meta, accel, dev)
                  if _programs_on(dev) else None)
         wf = _wavefront(progs, data, meta, accel, r, origin.dim() == 1, bfc,
-                        relaxed, compact_mode, dev)
+                        relaxed, compact_mode, dev, engine)
         wf.load(origin, dirs)
         color = wf.run()
         return color if progs is None else color.clone()
+    if engine == "bvh" and visibility is None:
+        visibility = _visibility(data, meta, accel, origin, dirs, bfc)
     fns = _occlusion(data, meta, accel, engine, bfc, relaxed)
     carry = (
         0,
@@ -395,12 +539,14 @@ def render_rays(data: SceneData, meta: SceneMeta, origin, dirs, accel,
         dirs,
         torch.arange(r, device=dev),
     )
-    if differentiable:
-        for _ in range(meta.max_depth + 1):
-            carry = _bounce(data, meta, accel, engine, bfc, fns, carry)
-        return carry[1]
-    while carry[0] <= meta.max_depth and bool(carry[3].any()):
-        carry = _bounce(data, meta, accel, engine, bfc, fns, carry)
+    for depth in range(meta.max_depth + 1):
+        prim = None
+        if visibility is not None:
+            ids, occ = visibility
+            prim = ids[depth]
+            if occ is not None:
+                fns = (None, None, lambda *a, o=occ[depth]: o)
+        carry = _bounce(data, meta, accel, engine, bfc, fns, carry, prim=prim)
     return carry[1]
 
 
@@ -512,10 +658,11 @@ def render_camera(data: SceneData, meta: SceneMeta, cam: Camera, accel,
     chunk = _cap_chunk_for_big_scenes(max(TILE, (chunk // TILE) * TILE),
                                       accel)
     vec = torch.from_numpy(camera_vectors(cam)).to(dev)
-    if _programs_on(dev, engine):
+    if _programs_on(dev):
         progs = programs.scene_programs(data, meta, accel, dev)
         return _frame(progs, data, meta, accel, "camera", h, w, h, chunk,
-                      1, "parity", True, False, bfc, relaxed)(vec).clone()
+                      1, "parity", True, False, bfc, relaxed,
+                      engine)(vec).clone()
     blocks, perm, inv = _tile_order(h, w, dev, engine)
     origin, dirs = eye_rays_from(vec, w, h)
     dirs = apply_tile_order(dirs, h, w, blocks, perm).contiguous()
@@ -572,7 +719,8 @@ def _band_image(color, bh: int, ws: int, blocks, inv, ssaa: int,
 
 
 class _Rays:
-    """A wavefront program over ``r`` rays with a shared (3,) origin, cut
+    """A wavefront program over ``r`` rays with a shared (3,) origin on
+    ``engine``, cut
     into chunks as ``trace`` cuts them (``_chunks``): one ``_Wavefront`` of
     r rays, or of ``chunk`` rays rounded down to whole tiles run chunk by
     chunk over ``dirs_all``, the rays padded with copies of the last one,
@@ -581,11 +729,11 @@ class _Rays:
 
     def __init__(self, progs, data: SceneData, meta: SceneMeta, accel, r: int,
                  chunk: int, bfc: bool, relaxed: bool, compact_mode: str,
-                 device):
+                 device, engine: str = "cluster"):
         self.r = r
         c, self.n, pad = _chunks(r, chunk)
         self.wf = _wavefront(progs, data, meta, accel, c, True, bfc, relaxed,
-                             compact_mode, device)
+                             compact_mode, device, engine)
         self.whole = self.n == 1 and pad == 0
         if not self.whole:
             f32 = dict(dtype=torch.float32, device=device)
@@ -624,19 +772,21 @@ class _Frame:
     static inputs ``vec`` (the (5, 3) camera vector), ``row0`` (f32) and
     ``jitter`` ((bh, w, 2), jittered bands only) are copied in before each
     run, so every band and camera of one shape shares one capture, as in
-    JAX, where they are traced.  Steps: a prologue (eye rays, tile order,
-    the rays' ``load``), the bounce steps of ``_Rays`` (chunk by chunk when
-    ``trace`` would cut the band), and an epilogue (``_band_image``) into
-    the static ``out``.  ``progs`` None: eager steps."""
+    JAX, where they are traced.  Steps: a prologue (eye rays, the engine's
+    tile order, the rays' ``load``), the bounce steps of ``_Rays`` (chunk
+    by chunk when ``trace`` would cut the band), and an epilogue
+    (``_band_image``) into the static ``out``.  ``progs`` None: eager
+    steps."""
 
     def __init__(self, progs, data: SceneData, meta: SceneMeta, accel,
                  kind: str, h: int, w: int, bh: int, chunk: int, ssaa: int,
                  ssaa_mode: str, hdr: bool, jittered: bool, bfc: bool,
-                 relaxed: bool, device):
+                 relaxed: bool, device, engine: str = "cluster"):
         self.kind, self.h, self.w, self.bh = kind, h, w, bh
         self.ssaa, self.ssaa_mode, self.hdr = ssaa, ssaa_mode, hdr
+        self.engine = engine
         self._init_trace(progs, data, meta, accel, chunk, bfc, relaxed, device)
-        self.blocks, self.perm, self.inv = _tile_order(bh, w, device)
+        self.blocks, self.perm, self.inv = _tile_order(bh, w, device, engine)
         f32 = dict(dtype=torch.float32, device=device)
         self.vec = torch.zeros((5, 3), **f32)
         self.row0 = torch.zeros((), **f32)
@@ -667,7 +817,7 @@ class _Frame:
     def _init_trace(self, progs, data, meta, accel, chunk, bfc, relaxed,
                     device) -> None:
         self.rays = _Rays(progs, data, meta, accel, self.bh * self.w, chunk,
-                          bfc, relaxed, "auto", device)
+                          bfc, relaxed, "auto", device, self.engine)
 
     def _load(self, origin, dirs) -> None:
         self.rays.load(origin, dirs)
@@ -770,7 +920,7 @@ class _MeshFrame(_Frame):
             d_progs = programs.scene_programs(d_data, meta, d_accel, d)
             if d not in rays:
                 rays[d] = _Rays(d_progs, d_data, meta, d_accel, per, chunk,
-                                bfc, relaxed, "auto", d)
+                                bfc, relaxed, "auto", d, self.engine)
             k = first + i
             self.shards.append(_Shard(
                 d_progs, rays[d], self.origin,
@@ -796,13 +946,13 @@ class _MeshFrame(_Frame):
 
 def _frame(progs, data, meta, accel, kind: str, h: int, w: int, bh: int,
            chunk: int, ssaa: int, ssaa_mode: str, hdr: bool, jittered: bool,
-           bfc: bool, relaxed: bool, mesh=None) -> _Frame:
-    """The scene's cached frame program of this shape (``_Frame``), over
-    ``mesh`` when given (``_MeshFrame``, a band)."""
+           bfc: bool, relaxed: bool, engine: str, mesh=None) -> _Frame:
+    """The scene's cached frame program of this engine and shape
+    (``_Frame``), over ``mesh`` when given (``_MeshFrame``, a band)."""
     key = ("frame", kind, h, w, bh, chunk, ssaa, ssaa_mode, hdr, jittered,
-           bfc, relaxed, mesh)
+           bfc, relaxed, engine, mesh)
     args = (kind, h, w, bh, chunk, ssaa, ssaa_mode, hdr, jittered, bfc,
-            relaxed, data.device)
+            relaxed, data.device, engine)
     if mesh is None:
         return progs.program(key, lambda: _Frame(progs, data, meta, accel,
                                                  *args))
@@ -837,7 +987,7 @@ def render_camera_streamed(data: SceneData, meta: SceneMeta, cam: Camera,
     is padded with virtual rows below the frame (the eye rays extrapolate
     the image plane), rendered and cropped.  On CUDA devices a band on the
     mesh replays as one program (``_MeshFrame``) as a band on one device
-    does (``_Frame``)."""
+    does (``_Frame``), on every engine."""
     dev = _render_device(data, accel, device)
     engine = resolve_engine(engine, accel, meta)
     chunk = _cap_chunk_for_big_scenes(chunk, accel)
@@ -861,8 +1011,8 @@ def render_camera_streamed(data: SceneData, meta: SceneMeta, cam: Camera,
     vec = torch.from_numpy(camera_vectors(cam)).to(dev)
     jittered = ssaa_mode == "jitter" and ssaa > 1
     progs = (programs.scene_programs(data, meta, accel, dev)
-             if all(_programs_on(d, engine)
-                    for d in (mesh.devices if mesh else [dev])) else None)
+             if all(_programs_on(d) for d in (mesh.devices if mesh else [dev]))
+             else None)
     bands = []
     for row0 in range(0, hs, band_h):
         bh = min(band_h, hs - row0)
@@ -874,7 +1024,8 @@ def render_camera_streamed(data: SceneData, meta: SceneMeta, cam: Camera,
         if progs is not None:
             bands.append(_frame(progs, data, meta, accel, "band", hs, ws, bh,
                                 chunk, ssaa, ssaa_mode, hdr, jittered, bfc,
-                                relaxed, mesh)(vec, row0, offsets).clone())
+                                relaxed, engine, mesh)(vec, row0,
+                                                       offsets).clone())
             continue
         with nan_site(f"band of rows {row0}-{row0 + bh - 1}"):
             bands.append(render_band(

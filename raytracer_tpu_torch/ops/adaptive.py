@@ -23,11 +23,13 @@ that order).
 
 Every shape is fixed by the arguments (the base wave is (blocks,
 base_spp), round r (k, its share of extra_spp), the selection a device
-tensor), so on a CUDA device the cluster engine's frame is a captured
-program (``_Adaptive``, the counterpart of the JAX package's
+tensor), so on a CUDA device the frame is a captured program on every
+engine (``_Adaptive``, the counterpart of the JAX package's
 ``_adaptive_jit``); the eager route (``_adaptive_eager``) serves the CPU,
-brute, bvh, ``eager()`` and ``debug_nans()``.  Both run the same helpers
-on the same float operations.
+``eager()`` and ``debug_nans()``.  Both run the same helpers on the same
+float operations.  The refinement waves' ``compact_mode="deep"`` gates
+the cluster engine's compaction only: brute and bvh never compact, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -149,8 +151,8 @@ class _Adaptive:
     each wave's jitter (drawn just before the wave, one threefry launch)
     are copied into static buffers before each run.  Steps: the base
     prologue (eye rays into the base wave), the base wave's bounce steps
-    (``_Rays``, ``compact_mode="auto"``), the base epilogue (the running
-    statistics); per round a prologue (score, ``stable_topk``, the chosen
+    (``_Rays`` on ``engine``, ``compact_mode="auto"``), the base epilogue
+    (the running statistics); per round a prologue (score, ``stable_topk``, the chosen
     blocks' rays), the round wave's bounce steps (``"deep"``) and an
     epilogue (``_add_samples``); a final step (the mean, back to row order)
     into the static ``out``.  Every wave keeps its flags read between
@@ -158,7 +160,7 @@ class _Adaptive:
 
     def __init__(self, progs, data: SceneData, meta: SceneMeta, accel, h: int,
                  w: int, base_spp: int, per_round: tuple, k: int, bfc: bool,
-                 relaxed: bool, device):
+                 relaxed: bool, device, engine: str = "cluster"):
         bh, bw = _tile_block_shape()
         self.tile = tile = bh * bw
         self.h, self.w, self.base_spp, self.per_round = h, w, base_spp, per_round
@@ -184,7 +186,7 @@ class _Adaptive:
         def rays(r, compact_mode):
             return _Rays(progs, data, meta, accel, r,
                          _cap_chunk_for_big_scenes(r, accel), bfc, relaxed,
-                         compact_mode, device)
+                         compact_mode, device, engine)
         self.base = rays(nblk * base_spp * tile, "auto")
         self.waves = {spp: rays(k * spp * tile, "deep") for spp in set(per_round)}
         # the steps of each wave, drawn into its jitter buffer first
@@ -261,9 +263,9 @@ def render_camera_adaptive(data: SceneData, meta: SceneMeta, cam: Camera,
     records the budget spent.  ``jitter``: optional callable ``(key,
     shape) -> array`` supplying the draws (see the module docstring).
 
-    On a CUDA device the cluster engine's frame replays a captured
-    program of this scene and shape (``_Adaptive``); brute and bvh, the
-    CPU, ``eager()`` and ``debug_nans()`` run it eagerly."""
+    On a CUDA device the frame replays a captured program of this scene,
+    engine and shape (``_Adaptive``); the CPU, ``eager()`` and
+    ``debug_nans()`` run it eagerly."""
     if base_spp < 2:
         raise ValueError("adaptive sampling needs base_spp >= 2 "
                          "(variance of one sample is identically zero)")
@@ -287,12 +289,12 @@ def render_camera_adaptive(data: SceneData, meta: SceneMeta, cam: Camera,
         for i in range(rounds)) if extra_spp > 0 else ()
     per_round = tuple(x for x in per_round if x > 0)
     vec = torch.from_numpy(camera_vectors(cam)).to(dev)
-    if _programs_on(dev, engine):
+    if _programs_on(dev):
         progs = programs.scene_programs(data, meta, accel, dev)
         prog = progs.program(
-            ("adaptive", h, w, base_spp, per_round, k, bfc, relaxed),
+            ("adaptive", engine, h, w, base_spp, per_round, k, bfc, relaxed),
             lambda: _Adaptive(progs, data, meta, accel, h, w, base_spp,
-                              per_round, k, bfc, relaxed, dev))
+                              per_round, k, bfc, relaxed, dev, engine))
         img = prog(vec, jitter, seed).clone()
     else:
         img = _adaptive_eager(data, meta, accel, vec, h, w, base_spp,

@@ -125,6 +125,41 @@ def refine_hit(data: SceneData, meta: SceneMeta, origin, dirs, prim) -> Hit:
                offset=offset)
 
 
+def _light_terms(data: SceneData, meta: SceneMeta, h: Hit):
+    """(to_off (R, L, 3), light_dist (R, L), cos_theta (R, L), relevant
+    (R, L)) of each hit and light: the segment from the offset point to
+    the light, its length, the cosine at the unoffset point, and whether
+    the light can contribute at all."""
+    lp = data.light_pos[:meta.n_lights]
+    to_off = lp[None, :, :] - h.offset[:, None, :]          # (R, L, 3)
+    light_dist = norm(to_off)                               # (R, L)
+    sdir_real = normalize(lp[None, :, :] - h.point[:, None, :])
+    cos_theta = dot(sdir_real, h.normal[:, None, :])        # (R, L)
+    # a light strictly behind the surface contributes nothing: skip its
+    # shadow test (see RELEVANT_COS)
+    relevant = cos_theta >= RELEVANT_COS
+    return to_off, light_dist, cos_theta, relevant
+
+
+def _segments(h: Hit, to_off, relevant):
+    """The generic any-hit's query (org, seg, t_max, mask) of L*R shadow
+    segments, light-major, so each light's segments keep the rays' tile
+    order."""
+    r, nl = relevant.shape
+    return (h.offset[None].expand(nl, r, 3).reshape(nl * r, 3),
+            to_off.transpose(0, 1).reshape(nl * r, 3),
+            torch.ones((nl * r,), dtype=torch.float32, device=to_off.device),
+            (h.hit[:, None] & relevant).T.reshape(nl * r))
+
+
+def shadow_query(data: SceneData, meta: SceneMeta, h: Hit):
+    """The arguments ``shade_local`` passes its ``occluded_fn`` for the hits
+    ``h`` (meta.n_lights > 0), so that a caller can trace the occlusion
+    ahead of the shading (the BVH walk between program steps)."""
+    to_off, _, _, relevant = _light_terms(data, meta, h)
+    return _segments(h, to_off, relevant)
+
+
 def shade_local(
     data: SceneData,
     meta: SceneMeta,
@@ -156,16 +191,9 @@ def shade_local(
     d_unit = normalize(dirs)
     n_unit = normalize(h.normal)
 
-    lp = data.light_pos[:nl]
     lint = data.light_int[:nl]
-    to_off = lp[None, :, :] - h.offset[:, None, :]          # (R, L, 3)
-    light_dist = norm(to_off)                               # (R, L)
+    to_off, light_dist, cos_theta, relevant = _light_terms(data, meta, h)
     sdir = to_off / light_dist[..., None]
-    sdir_real = normalize(lp[None, :, :] - h.point[:, None, :])
-    cos_theta = dot(sdir_real, h.normal[:, None, :])        # (R, L)
-    # a light strictly behind the surface contributes nothing: skip its
-    # shadow test (see RELEVANT_COS)
-    relevant = cos_theta >= RELEVANT_COS
 
     # occlusion is tested on the UNNORMALIZED segment light - origin with
     # t < 1, the reference's t < dist test in other units
@@ -177,14 +205,8 @@ def shade_local(
             for l in range(nl)
         ], dim=1)
     else:
-        # light-major, so each light's segments keep the rays' tile order
-        r = dirs.shape[0]
-        occ = occluded_fn(
-            h.offset[None].expand(nl, r, 3).reshape(nl * r, 3),
-            to_off.transpose(0, 1).reshape(nl * r, 3),
-            torch.ones((nl * r,), dtype=torch.float32, device=dirs.device),
-            (h.hit[:, None] & relevant).T.reshape(nl * r),
-        ).reshape(nl, r).T
+        occ = occluded_fn(*_segments(h, to_off, relevant)).reshape(
+            nl, dirs.shape[0]).T
     lit = h.hit[:, None] & relevant & ~occ
     irr = lint[None] / (light_dist * light_dist)[..., None]  # (R, L, 3)
 

@@ -16,20 +16,25 @@
   miss: skip[node]).  Closest-hit prunes boxes entered beyond its best t;
   any-hit never prunes and stops each ray at its first hit.  With the
   octant threads (``blocks`` 8) each ray walks the preorder of its
-  direction octant, nearer child first.
+  direction octant, nearer child first.  The walk's state lives in fixed
+  buffers (``Walk``): a start, then blocks of ``_WALK_CHECK`` iterations,
+  each ending with the loop test written into a flag that the host reads
+  between blocks, so that a compiled program replays a block as one graph
+  (``models.whitted._Wavefront``).
 
 The engines return primitive ids (or occlusion bits) only and run under
 ``torch.no_grad()`` on detached inputs: visibility carries no gradient,
-``ops.shade.refine_hit`` re-derives the hit from the ids.  The dispatch
-(``closest_hit``, ``any_hit``) runs brute and bvh on the ``active`` lanes
-only: the integrator reads no other lane (the JAX package traces them all
-and masks the results).
+``ops.shade.refine_hit`` re-derives the hit from the ids.  Every shape is
+fixed by the rays: the engines trace all R lanes, and the lanes that
+``active`` leaves out return the fill (MISS or False), as the JAX
+package's masked trace does (a walk's inactive lane starts finished).
 """
 
 from __future__ import annotations
 
 import torch
 
+from raytracer_tpu_torch.models import programs
 from raytracer_tpu_torch.models.bvh import DeviceBVH
 from raytracer_tpu_torch.models.scene import SceneData
 from raytracer_tpu_torch.ops.intersect import (
@@ -46,6 +51,10 @@ _RAY_BLOCK = 1 << 14
 # _WALK_CHECK iterations: an iteration changes nothing for a ray that is
 # done, or past its end with no primitive left, so extra ones are no-ops
 _WALK_CHECK = 8
+
+# the walk blocks run in this process and their iterations, counted by the
+# host loop (``Walk.run``: a replayed block runs no Python)
+walk_stats = {"blocks": 0, "iterations": 0}
 
 
 def _gather_tris(data: SceneData):
@@ -102,8 +111,9 @@ def _ray_blocks(r: int):
 
 @torch.no_grad()
 def brute_closest(data: SceneData, origin, dirs, chunk: int = 512,
-                  bfc: bool = False):
-    """(R,) int64 prim id of each ray's closest hit, MISS on a miss."""
+                  bfc: bool = False, active=None):
+    """(R,) int64 prim id of each ray's closest hit, MISS on a miss and on
+    the lanes that ``active`` (when given) leaves out."""
     dirs = dirs.detach()
     origin = origin.detach().expand(dirs.shape)
     r = dirs.shape[0]
@@ -117,13 +127,14 @@ def brute_closest(data: SceneData, origin, dirs, chunk: int = 512,
             upd = tj < best_t[a:e]
             best_t[a:e] = torch.where(upd, tj, best_t[a:e])
             best_p[a:e] = torch.where(upd, ids[j], best_p[a:e])
-    return best_p
+    return best_p if active is None else torch.where(active, best_p, MISS)
 
 
 @torch.no_grad()
 def brute_any(data: SceneData, origin, dirs, t_max, chunk: int = 512,
-              bfc: bool = False):
-    """(R,) bool: some primitive has an accepted hit with t < t_max."""
+              bfc: bool = False, active=None):
+    """(R,) bool: some primitive has an accepted hit with t < t_max; False
+    on the lanes that ``active`` (when given) leaves out."""
     dirs = dirs.detach()
     origin = origin.detach().expand(dirs.shape)
     t_max = t_max.detach()
@@ -133,7 +144,7 @@ def brute_any(data: SceneData, origin, dirs, t_max, chunk: int = 512,
         for a, e in _ray_blocks(r):
             t, ok = test(origin[a:e], dirs[a:e], bfc)
             found[a:e] |= (ok & (t < t_max[a:e, None])).any(1)
-    return found
+    return found if active is None else found & active
 
 
 def _prim_test(data: SceneData, origin, dirs, p, bfc: bool = False):
@@ -153,85 +164,143 @@ def _prim_test(data: SceneData, origin, dirs, p, bfc: bool = False):
             torch.where(is_tri, ok_tri, ok_sph))
 
 
-@torch.no_grad()
-def _bvh_walk(data: SceneData, bvh: DeviceBVH, origin, dirs, t_max, closest: bool,
-              bfc: bool = False):
-    """The lockstep skip walk: (best prim (R,), done (R,)).  closest=True:
-    closest hit with box t-pruning; False: any hit with t < t_max, each
-    ray stopping at its first."""
-    dirs = dirs.detach()
-    origin = origin.detach().expand(dirs.shape)
-    dev = dirs.device
-    r = dirs.shape[0]
-    n = bvh.n_nodes
-    n_total = bvh.blocks * n
-    p_total = bvh.prim_idx.shape[0]
-    inv_d = 1.0 / dirs
-    if bvh.blocks == 8:
-        octant = ((dirs < 0.0).long()
-                  * torch.tensor([4, 2, 1], device=dev)).sum(-1)
-        node = octant * n
-    else:
-        node = torch.zeros((r,), dtype=torch.int64, device=dev)
-    end = node + n
-    cursor = torch.zeros((r,), dtype=torch.int64, device=dev)
-    remaining = torch.zeros((r,), dtype=torch.int64, device=dev)
-    best_t = torch.full((r,), float("inf"), device=dev)
-    best_p = torch.full((r,), MISS, dtype=torch.int64, device=dev)
-    done = torch.zeros((r,), dtype=torch.bool, device=dev)
-    it = 0
-    while it % _WALK_CHECK or bool((~done & ((node < end)
-                                             | (remaining > 0))).any()):
-        it += 1
-        in_leaf = (remaining > 0) & ~done
-        # one primitive of the current leaf
-        p = bvh.prim_idx[torch.clamp(cursor, 0, p_total - 1)]
-        t_p, ok_p = _prim_test(data, origin, dirs, p, bfc=bfc)
-        if closest:
-            upd = in_leaf & ok_p & (t_p < best_t)
-            best_t = torch.where(upd, t_p, best_t)
-            best_p = torch.where(upd, p, best_p)
+class Walk:
+    """The lockstep skip walk of ``bvh`` over ``n`` lanes as fixed state
+    buffers: the rays (``origin``, ``dirs``, ``inv_d``, ``t_max``), per lane
+    ``node``, ``end``, ``cursor``, ``remaining``, ``best_t``, ``best_p`` and
+    ``done``, and ``flag``, the loop test (some lane not done with a node
+    or a primitive left).  ``start`` loads rays and writes the first test;
+    ``block`` runs ``_WALK_CHECK`` iterations and writes the test again;
+    ``run`` runs blocks while the host reads the flag true: the schedule of
+    a loop that tests its condition once every ``_WALK_CHECK`` iterations,
+    so the same iterations as ever.  closest=True: closest hit with box
+    t-pruning (``best_p``); False: any hit with t < t_max, each ray
+    stopping at its first (``done``).  A lane that ``active`` leaves out
+    starts finished (node = end, no primitive left): MISS and False."""
+
+    def __init__(self, data: SceneData, bvh: DeviceBVH, n: int, closest: bool,
+                 bfc: bool, device):
+        self.data, self.bvh, self.closest, self.bfc = data, bvh, closest, bfc
+        f32 = dict(dtype=torch.float32, device=device)
+        i64 = dict(dtype=torch.int64, device=device)
+        self.origin = torch.zeros((n, 3), **f32)
+        self.dirs = torch.zeros((n, 3), **f32)
+        self.inv_d = torch.zeros((n, 3), **f32)
+        self.t_max = None if closest else torch.zeros((n,), **f32)
+        self.node, self.end, self.cursor, self.remaining, self.best_p = (
+            torch.zeros((n,), **i64) for _ in range(5))
+        self.best_t = torch.zeros((n,), **f32)
+        self.done = torch.zeros((n,), dtype=torch.bool, device=device)
+        self.flag = torch.zeros((1,), dtype=torch.bool, device=device)
+
+    @torch.no_grad()
+    def start(self, origin, dirs, active=None, t_max=None) -> None:
+        """Load the rays (``origin`` (3,) or (n, 3), ``dirs`` (n, 3),
+        ``t_max`` (n,) for any-hit) and start every lane at its thread's
+        root (its octant's with the octant threads)."""
+        dirs = dirs.detach()
+        self.dirs.copy_(dirs)
+        self.origin.copy_(origin.detach().expand(dirs.shape))
+        self.inv_d.copy_(1.0 / dirs)
+        if not self.closest:
+            self.t_max.copy_(t_max.detach())
+        n = self.bvh.n_nodes
+        if self.bvh.blocks == 8:
+            neg = (dirs < 0.0).long()
+            node = (neg[:, 0] * 4 + neg[:, 1] * 2 + neg[:, 2]) * n
         else:
-            found = in_leaf & ok_p & (t_p < t_max)
-            best_p = torch.where(found & (best_p == MISS), p, best_p)
-            done = done | found
-        cursor = torch.where(in_leaf, cursor + 1, cursor)
-        remaining = torch.where(in_leaf, remaining - 1, remaining)
-        # one node box
-        at_node = ~in_leaf & (node < end) & ~done
-        ni = torch.clamp(node, 0, n_total - 1)
-        tmin, ok_box = aabb_intersect(origin, inv_d, bvh.box_min[ni],
-                                      bvh.box_max[ni])
-        visit = ok_box & (tmin <= best_t) if closest else ok_box
-        count = bvh.leaf_count[ni]
-        enter_leaf = at_node & visit & (count > 0)
-        node = torch.where(at_node, torch.where(visit, node + 1,
-                                                bvh.skip[ni]), node)
-        remaining = torch.where(enter_leaf, count, remaining)
-        cursor = torch.where(enter_leaf, bvh.leaf_start[ni], cursor)
-    return best_p, done
+            node = torch.zeros_like(self.node)
+        self.end.copy_(node + n)
+        self.node.copy_(node if active is None
+                        else torch.where(active, node, self.end))
+        self.cursor.zero_()
+        self.remaining.zero_()
+        self.best_t.fill_(float("inf"))
+        self.best_p.fill_(MISS)
+        self.done.zero_()
+        self._test(self.node, self.remaining, self.done)
+
+    def _test(self, node, remaining, done) -> None:
+        self.flag.copy_((~done & ((node < self.end) | (remaining > 0)))
+                        .any().reshape(1))
+
+    @torch.no_grad()
+    def block(self) -> None:
+        """``_WALK_CHECK`` iterations, then the loop test into ``flag``."""
+        data, bvh, closest = self.data, self.bvh, self.closest
+        origin, dirs, inv_d, t_max, end = (self.origin, self.dirs, self.inv_d,
+                                           self.t_max, self.end)
+        n_total = bvh.blocks * bvh.n_nodes
+        p_total = bvh.prim_idx.shape[0]
+        node, cursor, remaining = self.node, self.cursor, self.remaining
+        best_t, best_p, done = self.best_t, self.best_p, self.done
+        for _ in range(_WALK_CHECK):
+            in_leaf = (remaining > 0) & ~done
+            # one primitive of the current leaf
+            p = bvh.prim_idx[torch.clamp(cursor, 0, p_total - 1)]
+            t_p, ok_p = _prim_test(data, origin, dirs, p, bfc=self.bfc)
+            if closest:
+                upd = in_leaf & ok_p & (t_p < best_t)
+                best_t = torch.where(upd, t_p, best_t)
+                best_p = torch.where(upd, p, best_p)
+            else:
+                found = in_leaf & ok_p & (t_p < t_max)
+                best_p = torch.where(found & (best_p == MISS), p, best_p)
+                done = done | found
+            cursor = torch.where(in_leaf, cursor + 1, cursor)
+            remaining = torch.where(in_leaf, remaining - 1, remaining)
+            # one node box
+            at_node = ~in_leaf & (node < end) & ~done
+            ni = torch.clamp(node, 0, n_total - 1)
+            tmin, ok_box = aabb_intersect(origin, inv_d, bvh.box_min[ni],
+                                          bvh.box_max[ni])
+            visit = ok_box & (tmin <= best_t) if closest else ok_box
+            count = bvh.leaf_count[ni]
+            enter_leaf = at_node & visit & (count > 0)
+            node = torch.where(at_node, torch.where(visit, node + 1,
+                                                    bvh.skip[ni]), node)
+            remaining = torch.where(enter_leaf, count, remaining)
+            cursor = torch.where(enter_leaf, bvh.leaf_start[ni], cursor)
+        for buf, x in ((self.node, node), (self.cursor, cursor),
+                       (self.remaining, remaining), (self.best_t, best_t),
+                       (self.best_p, best_p), (self.done, done)):
+            buf.copy_(x)
+        self._test(node, remaining, done)
+
+    def run(self, block=None) -> None:
+        """Run blocks (``block``: the captured step of ``self.block``, or
+        None to run it eagerly) while ``flag`` reads true."""
+        n = programs.run_while(self.flag, block or self.block)
+        walk_stats["blocks"] += n
+        walk_stats["iterations"] += n * _WALK_CHECK
 
 
-def bvh_closest(data: SceneData, bvh, origin, dirs, bfc: bool = False):
-    return _bvh_walk(data, bvh, origin, dirs, None, closest=True, bfc=bfc)[0]
+def _bvh_walk(data: SceneData, bvh: DeviceBVH, origin, dirs, t_max,
+              closest: bool, bfc: bool = False, active=None):
+    """An eager ``Walk`` of the rays: (best prim (R,), done (R,))."""
+    walk = Walk(data, bvh, dirs.shape[0], closest, bfc, dirs.device)
+    walk.start(origin, dirs, active, t_max)
+    walk.run()
+    return walk.best_p, walk.done
 
 
-def bvh_any(data: SceneData, bvh, origin, dirs, t_max, bfc: bool = False):
-    return _bvh_walk(data, bvh, origin, dirs, t_max.detach(), closest=False,
-                     bfc=bfc)[1]
+def bvh_closest(data: SceneData, bvh, origin, dirs, bfc: bool = False,
+                active=None):
+    return _bvh_walk(data, bvh, origin, dirs, None, closest=True, bfc=bfc,
+                     active=active)[0]
 
 
-def _active_lanes(fn, active, fill, origin, dirs, *per_ray):
-    """fn(origin, dirs, *per_ray) on the ``active`` lanes only, ``fill`` on
-    the others (whose results the integrator never reads)."""
-    if active is None:
-        return fn(origin, dirs, *per_ray)
-    origin = origin.expand(dirs.shape)
-    idx = torch.nonzero(active).squeeze(1)
-    got = fn(origin[idx], dirs[idx], *(x[idx] for x in per_ray))
-    out = torch.full(active.shape, fill, dtype=got.dtype, device=got.device)
-    out[idx] = got
-    return out
+def bvh_any(data: SceneData, bvh, origin, dirs, t_max, bfc: bool = False,
+            active=None):
+    return _bvh_walk(data, bvh, origin, dirs, t_max, closest=False, bfc=bfc,
+                     active=active)[1]
+
+
+def _device_bvh(accel) -> DeviceBVH:
+    if not isinstance(accel, DeviceBVH):
+        raise ValueError("the bvh engine walks a DeviceBVH "
+                         "(models.bvh.device_bvh)")
+    return accel
 
 
 def closest_hit(data: SceneData, origin, dirs, accel, engine: str,
@@ -246,15 +315,11 @@ def closest_hit(data: SceneData, origin, dirs, accel, engine: str,
             raise ValueError("the cluster engine needs a built ClusterSet")
         return cluster_closest(accel, origin, dirs, active=active, bfc=bfc)
     if engine == "bvh":
-        if not isinstance(accel, DeviceBVH):
-            raise ValueError("the bvh engine walks a DeviceBVH "
-                             "(models.bvh.device_bvh)")
-        fn = lambda o, d: bvh_closest(data, accel, o, d, bfc=bfc)  # noqa: E731
-    elif engine == "brute":
-        fn = lambda o, d: brute_closest(data, o, d, bfc=bfc)  # noqa: E731
-    else:
-        raise ValueError(f"unknown engine {engine!r}; one of {ENGINES}")
-    return _active_lanes(fn, active, MISS, origin, dirs)
+        return bvh_closest(data, _device_bvh(accel), origin, dirs, bfc=bfc,
+                           active=active)
+    if engine == "brute":
+        return brute_closest(data, origin, dirs, bfc=bfc, active=active)
+    raise ValueError(f"unknown engine {engine!r}; one of {ENGINES}")
 
 
 def any_hit(data: SceneData, origin, dirs, t_max, accel, engine: str,
@@ -270,12 +335,8 @@ def any_hit(data: SceneData, origin, dirs, t_max, accel, engine: str,
         return cluster_any(accel, origin, dirs, t_max, active=active, bfc=bfc,
                            relaxed=relaxed)
     if engine == "bvh":
-        if not isinstance(accel, DeviceBVH):
-            raise ValueError("the bvh engine walks a DeviceBVH "
-                             "(models.bvh.device_bvh)")
-        fn = lambda o, d, t: bvh_any(data, accel, o, d, t, bfc=bfc)  # noqa: E731
-    elif engine == "brute":
-        fn = lambda o, d, t: brute_any(data, o, d, t, bfc=bfc)  # noqa: E731
-    else:
-        raise ValueError(f"unknown engine {engine!r}; one of {ENGINES}")
-    return _active_lanes(fn, active, False, origin, dirs, t_max)
+        return bvh_any(data, _device_bvh(accel), origin, dirs, t_max, bfc=bfc,
+                       active=active)
+    if engine == "brute":
+        return brute_any(data, origin, dirs, t_max, bfc=bfc, active=active)
+    raise ValueError(f"unknown engine {engine!r}; one of {ENGINES}")

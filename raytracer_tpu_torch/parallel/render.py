@@ -4,8 +4,8 @@ ray axis split over the mesh, the scene and its accelerator replicated.
 Rays never communicate, so each shard traces its contiguous slice of the
 wavefront on its own device (``models.whitted.trace``, which cuts a
 slice above the ray chunk into chunk-sized wavefronts) and the image is
-assembled by one gather across processes.  On a CUDA device the cluster
-engine's shards replay their device's captured wavefront programs (the
+assembled by one gather across processes.  On a CUDA device the shards
+replay their device's captured wavefront programs, on every engine (the
 counterpart of the JAX package's ``jax.jit(shard_map(...))``): shards of
 one size on one device share one program, whose key is the shape, and
 each device's scene is a kept copy (``parallel.mesh.replicate``).

@@ -34,7 +34,9 @@ import torch
 from raytracer_tpu_torch.backend import resolve_device
 from raytracer_tpu_torch.models import programs
 from raytracer_tpu_torch.models.scene import SceneData, SceneMeta
-from raytracer_tpu_torch.models.whitted import _programs_on, render_rays
+from raytracer_tpu_torch.models.whitted import (
+    _programs_on, _Wavefront, render_rays,
+)
 from raytracer_tpu_torch.parallel.distributed import all_mean
 from raytracer_tpu_torch.parallel.mesh import replicate, shard_rays
 
@@ -66,40 +68,45 @@ def apply_params(data: SceneData, params: dict) -> SceneData:
 
 
 def image_loss(params, data, meta, origin, dirs, target, accel, engine,
-               ldr: bool = False):
+               ldr: bool = False, visibility=None):
     """Mean squared error between the rendered radiance of rays (origin,
     dirs) and ``target`` (R, 3).  ``ldr``: the target is an 8-bit image,
     so the radiance is clipped to [0, 255] first (clipped channels get no
-    gradient, like a saturated camera)."""
+    gradient, like a saturated camera).  ``visibility``: the BVH engine's
+    recorded visibility of these rays (``render_rays``)."""
     color = render_rays(apply_params(data, params), meta, origin, dirs, accel,
-                        engine=engine, differentiable=True)
+                        engine=engine, differentiable=True,
+                        visibility=visibility)
     if ldr:
         color = torch.clamp(color, 0.0, 255.0)
     return torch.mean((color - target) ** 2)
 
 
 def _loss_and_grads(state: TrainState, data, meta, origin, dirs, target,
-                    accel, engine: str, ldr: bool, mesh, dev):
+                    accel, engine: str, ldr: bool, mesh, dev, visibility=None):
     """This process's loss at ``state``'s params, its gradients accumulated
     into their ``.grad`` (zeroed in place first, so that the buffers stay
     put): on one device, or as the means over this process's shards.  The
-    mean over the processes follows (``_all_mean``)."""
+    mean over the processes follows (``_all_mean``).  ``visibility``: the
+    BVH engine's recorded visibility of each of this process's shards (one
+    without a mesh), else traced by ``render_rays``."""
     state.opt.zero_grad(set_to_none=False)
     if mesh is None:
         loss = image_loss(state.params, data, meta, origin, dirs, target,
-                          accel, engine, ldr)
+                          accel, engine, ldr,
+                          visibility and visibility[0])
         loss.backward()
         return loss.detach()
     n = len(mesh.devices)
     origins = (shard_rays(mesh, origin) if origin.dim() == 2
                else [origin.to(d) for d in mesh.devices])
     loss = torch.zeros((), device=dev)
-    for d, d_data, d_accel, org, dd, tt in zip(
+    for i, (d, d_data, d_accel, org, dd, tt) in enumerate(zip(
             mesh.devices, replicate(mesh, data), replicate(mesh, accel),
-            origins, shard_rays(mesh, dirs), shard_rays(mesh, target)):
+            origins, shard_rays(mesh, dirs), shard_rays(mesh, target))):
         params = {f: p.to(d) for f, p in state.params.items()}
         shard = image_loss(params, d_data, meta, org, dd, tt, d_accel,
-                           engine, ldr) / n
+                           engine, ldr, visibility and visibility[i]) / n
         shard.backward()
         loss = loss + shard.detach().to(dev)
     return loss
@@ -133,10 +140,18 @@ class _TrainProgram:
     first run made, the parameters and Adam's moments and step count
     (``capturable``, on the card) are updated in place, and ``lr`` is the
     one written before the first run (a graph bakes it in).  The graphs
-    have a memory pool of their own, freed with the program."""
+    have a memory pool of their own, freed with the program.
+
+    On the BVH engine, whose walks read the host between their blocks, a
+    visibility pass comes first: per shard a recording ``_Wavefront``
+    (steps in the same pool, no gradient) traces the bounces at the
+    current params into its static ``ids`` and ``occ``, and the graphs'
+    forward refines and shades from them (``render_rays``'s
+    ``visibility``).  The brute engine's forward has no host read: it is
+    in the one graph, as the cluster engine's."""
 
     def __init__(self, state: TrainState, data, meta, origin, dirs, target,
-                 accel, local, mesh, versions, graph_type):
+                 accel, local, mesh, versions, graph_type, engine: str):
         self.progs = programs.Programs(
             (tuple(state.params.values()), state.opt, data, meta, accel),
             versions, graph_type, dirs.device)
@@ -147,6 +162,22 @@ class _TrainProgram:
         self.target = torch.zeros_like(target)
         self.loss = torch.zeros((), device=dirs.device)
         self.grads = None
+        self.visibility = []
+        if engine == "bvh":
+            # the params' own storage: Adam's in-place updates show here
+            vdata = apply_params(data, {f: p.detach() for f, p in
+                                        state.params.items()})
+            rays = [(self.origin, self.dirs)]
+            if mesh is not None:
+                n = len(mesh.devices)
+                rays = list(zip(shard_rays(mesh, self.origin)
+                                if origin.dim() == 2 else [self.origin] * n,
+                                shard_rays(mesh, self.dirs)))
+            for o, d in rays:
+                self.visibility.append((_Wavefront(
+                    vdata, meta, accel, d.shape[0], o.dim() == 1, False,
+                    False, "auto", d.device, self.progs.step, "bvh",
+                    record=True), o, d))
         if mesh is None or mesh.world == 1:
             self.steps = (self.progs.step("train step", self._body),)
         else:
@@ -159,8 +190,10 @@ class _TrainProgram:
         _all_mean(self.state, self.loss, self.mesh)
 
     def _grads(self) -> None:
-        self.loss.copy_(self.local(self.state, self.data, self.origin,
-                                   self.dirs, self.target, self.accel))
+        self.loss.copy_(self.local(
+            self.state, self.data, self.origin, self.dirs, self.target,
+            self.accel, [(wf.ids, wf.occ) for wf, _, _ in self.visibility]
+            or None))
 
     def _body(self) -> None:
         self._grads()
@@ -178,6 +211,9 @@ class _TrainProgram:
             for p, g in zip(params, self.grads):
                 if p.grad is not g:
                     p.grad = g
+        for wf, o, d in self.visibility:
+            wf.load(o, d)
+            wf.run()
         for step in self.steps:
             step()
         if self.grads is None:
@@ -201,24 +237,24 @@ def make_train_step(meta: SceneMeta, lr: float = 3e-2, engine: str = "brute",
     each shard traces its slice (``shard_rays``) and the loss and the
     gradients are the shards' means; ``device`` is the mesh's first.
 
-    On a CUDA device the cluster engine's step replays a captured program
-    (``_TrainProgram``; ``state`` needs ``Adam(capturable=True)``, which
-    ``init_state`` makes there) without a mesh and on a mesh whose shards
-    of this process all sit on ``device`` (over several processes too,
-    torchrun's one card a process: two graphs around the all-reduce),
-    outside ``eager()`` and ``debug_nans()``: one program per state, scene
-    and shape, at most ``MAX_TRAIN_PROGRAMS``.  The eager step remains for
-    the brute and bvh engines, a mesh of several cards in one process (its
-    autograd crosses devices), and on the CPU."""
+    On a CUDA device the step replays a captured program on every engine
+    (``_TrainProgram``, on the BVH engine after its visibility pass;
+    ``state`` needs ``Adam(capturable=True)``, which ``init_state`` makes
+    there) without a mesh and on a mesh whose shards of this process all
+    sit on ``device`` (over several processes too, torchrun's one card a
+    process: two graphs around the all-reduce), outside ``eager()`` and
+    ``debug_nans()``: one program per state, scene and shape, at most
+    ``MAX_TRAIN_PROGRAMS``.  The eager step remains for a mesh of several
+    cards in one process (its autograd crosses devices), and on the CPU."""
     dev = resolve_device(device)
     if mesh is not None and mesh.devices[0] != dev:
         raise ValueError(f"mesh on {mesh.devices[0]}, training on {dev}")
     one_device = mesh is None or all(d == dev for d in mesh.devices)
     kept: "OrderedDict[tuple, _TrainProgram]" = OrderedDict()
 
-    def local(state, data, origin, dirs, target, accel):
+    def local(state, data, origin, dirs, target, accel, visibility=None):
         return _loss_and_grads(state, data, meta, origin, dirs, target,
-                               accel, engine, ldr, mesh, dev)
+                               accel, engine, ldr, mesh, dev, visibility)
 
     def run(state, data, origin, dirs, target, accel):
         loss = local(state, data, origin, dirs, target, accel)
@@ -243,7 +279,7 @@ def make_train_step(meta: SceneMeta, lr: float = 3e-2, engine: str = "brute",
                 group["lr"] = lr
             prog = kept[key] = _TrainProgram(
                 state, data, meta, origin, dirs, target, accel, local, mesh,
-                versions, programs.graph_class(dev))
+                versions, programs.graph_class(dev), engine)
             if len(kept) > MAX_TRAIN_PROGRAMS:
                 kept.popitem(last=False)
                 stale = True
@@ -258,7 +294,7 @@ def make_train_step(meta: SceneMeta, lr: float = 3e-2, engine: str = "brute",
                         *((f, p) for f, p in state.params.items())):
             if x.device != dev:
                 raise ValueError(f"{name} on {x.device}, training on {dev}")
-        if one_device and _programs_on(dev, engine):
+        if one_device and _programs_on(dev):
             prog = program(state, data, origin, dirs, target, accel)
             return state, prog(origin, dirs, target)
         for group in state.opt.param_groups:

@@ -36,7 +36,7 @@ scene file invalidates its entry.  It holds the scene and its engine's
 accelerator on the server's device: the clusters for cluster and auto,
 the ``DeviceBVH`` for bvh, nothing for brute; evicting a scene drops its
 captured render programs (``models.programs``), which replay on the card
-for every warm request of the cluster engine.  Renders are split over
+for every warm request, on every engine.  Renders are split over
 every card of the process by default (``--mesh auto``), bit for bit the
 single-device image.
 """

@@ -803,3 +803,129 @@ def test_two_process_programs_on_card(tmp_path):
     from test_torch_mesh_programs import run_two_ranks
 
     run_two_ranks(tmp_path, "cuda", timeout=600)
+
+
+def _engine_scene(cuda, engine):
+    """(data, meta, accel) of the terrain (cells=16, 64x64 camera) on the
+    card for ``engine``: the BVH with its octant threads, or None."""
+    from raytracer_tpu_torch.models.bvh import build_bvh, device_bvh
+    from raytracer_tpu_torch.utils import synth
+
+    data, meta = synth.terrain_scene(cells=16, res=64, mirror_stripes=True,
+                                     device=cuda)
+    accel = (device_bvh(build_bvh(data, meta, ordered=True), cuda)
+             if engine == "bvh" else None)
+    return data, meta, accel
+
+
+@pytest.mark.parametrize("engine", ["brute", "bvh"])
+def test_replayed_engine_frames_equal_eager_on_card(cuda, engine):
+    """The brute and BVH engines' frames replayed (CUDA graphs) against
+    eager(): the camera's radiance, streamed --ssaa 2 parity and jitter,
+    adaptive and a band on a 2-shard mesh of the card; eager, captured,
+    replayed, eager: equal bit for bit, the same walk iterations, no
+    kernel launched but the jitter draw, a capture only on the first graph
+    run."""
+    import numpy as np
+
+    from raytracer_tpu_torch.models import programs
+    from raytracer_tpu_torch.models.whitted import eager, render_camera
+    from raytracer_tpu_torch.ops import kernels as K
+    from raytracer_tpu_torch.ops.traverse import walk_stats
+    from raytracer_tpu_torch.parallel.mesh import make_mesh
+    from raytracer_tpu_torch.pipeline import render_one_camera
+
+    data, meta, accel = _engine_scene(cuda, engine)
+    cam = meta.cameras[0]
+    mesh = make_mesh(devices=[cuda, cuda])
+    frames = [lambda: render_camera(data, meta, cam, accel, device=cuda,
+                                    engine=engine).cpu().numpy()]
+    for kw in (dict(ssaa=2), dict(ssaa=2, ssaa_mode="jitter", seed=3),
+               dict(ssaa=2, ssaa_mode="adaptive", seed=3),
+               dict(ssaa=2, mesh=mesh)):
+        frames.append(lambda kw=kw: render_one_camera(
+            data, meta, cam, accel, device=cuda, engine=engine, **kw)[0])
+    for frame in frames:
+        out = []
+        for graphs in (False, True, True, False):
+            with contextlib.nullcontext() if graphs else eager():
+                c0, w0 = programs.stats["captures"], walk_stats["iterations"]
+                K.reset_launches()
+                img = frame()
+                torch.cuda.synchronize()
+                out.append((img, programs.stats["captures"] - c0,
+                            walk_stats["iterations"] - w0))
+            # the jitter and adaptive frames' draws launch threefry
+            assert not any(n for k, n in K.launches.items()
+                           if k != "threefry"), dict(K.launches)
+        assert [c for _, c, _ in out] == [0, out[1][1], 0, 0] and out[1][1] > 0
+        for img, _, its in out:
+            np.testing.assert_array_equal(img, out[0][0])
+            assert its == out[0][2]
+        assert (out[0][2] > 0) == (engine == "bvh")
+    programs.drop(data)
+
+
+@pytest.mark.parametrize("engine", ["brute", "bvh"])
+def test_replayed_engine_step_equals_eager_on_card(cuda, engine):
+    """The brute step (one graph) and the BVH step (its visibility pass's
+    steps, then one graph) replayed against the eager step on a 64x64
+    camera under torch.use_deterministic_algorithms(True): loss, gradients
+    and parameters equal bit for bit after each of 3 steps."""
+    from raytracer_tpu_torch.models import programs
+    from raytracer_tpu_torch.models.whitted import eager, render_rays
+    from raytracer_tpu_torch.ops.camera import camera_vectors, eye_rays_from
+    from raytracer_tpu_torch.parallel.train import init_state, make_train_step
+
+    data, meta, accel = _engine_scene(cuda, engine)
+    cam = meta.cameras[0]
+    origin, dirs = eye_rays_from(torch.from_numpy(camera_vectors(cam)).to(cuda),
+                                 cam.width, cam.height)
+    with torch.no_grad():
+        target = render_rays(data, meta, origin, dirs, accel, engine=engine)
+    bad = dataclasses.replace(data, mat_diffuse=data.mat_diffuse * 0.5,
+                              light_int=data.light_int * 0.7)
+    fields = ("mat_diffuse", "light_int", "light_pos", "vertices")
+    runs = []
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        for graphs in (True, False):
+            state = init_state(bad, fields=fields)
+            step = make_train_step(meta, engine=engine, device=cuda)
+            c0 = programs.stats["captures"]
+            got = []
+            for _ in range(3):
+                with contextlib.nullcontext() if graphs else eager():
+                    state, loss = step(state, bad, origin, dirs, target,
+                                       accel=accel)
+                torch.cuda.synchronize()
+                got.append((loss, {f: p.grad.clone() for f, p in
+                                   state.params.items()},
+                            {f: p.detach().clone() for f, p in
+                             state.params.items()}))
+            made = programs.stats["captures"] - c0
+            assert (made > 1 if engine == "bvh" else made == 1) if graphs \
+                else made == 0
+            runs.append(got)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    for i, (a, b) in enumerate(zip(*runs)):
+        assert torch.equal(a[0], b[0]), f"step {i + 1} loss"
+        for f in fields:
+            assert torch.equal(a[1][f], b[1][f]), f"step {i + 1} {f} grad"
+            assert torch.equal(a[2][f], b[2][f]), f"step {i + 1} {f} param"
+    assert all(bool(torch.isfinite(x[0])) for x in runs[0])
+
+
+def test_two_process_bvh_programs_on_card(tmp_path):
+    """The two-process worker of tests/test_torch_mesh_programs.py on the
+    BVH engine with CUDA graphs: frames replayed equal to eager and one
+    device, the sharded wavefront, and the two-step train program after
+    each shard's visibility pass equal to the eager multi-process step
+    over 3 steps under deterministic algorithms."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from test_torch_mesh_programs import run_two_ranks
+
+    run_two_ranks(tmp_path, "cuda", timeout=600, engine="bvh")

@@ -166,7 +166,8 @@ def test_program_route_meets_jax_bars(stub_graphs):
 
 
 def test_route_rules(stub_graphs):
-    """brute and bvh keep no program; the cluster engine captures once per
+    """brute and bvh keep a program too, captured on the first step and
+    replayed on the second; the cluster engine captures once per
     state, a new state captures anew, and of three states the least
     recently used one's program is dropped (MAX_TRAIN_PROGRAMS = 2);
     eager() and debug_nans() capture nothing."""
@@ -185,9 +186,11 @@ def test_route_rules(stub_graphs):
         step = make_train_step(meta, engine=engine, device="cpu")
         state = init_state(bad, fields=FIELDS)
         c0 = captures()
-        for _ in range(2):
-            step(state, bad, origin, dirs, target, accel=accel)
-        assert captures() == c0, engine
+        step(state, bad, origin, dirs, target, accel=accel)
+        c1 = captures()
+        step(state, bad, origin, dirs, target, accel=accel)
+        assert c1 > c0 and captures() == c1, engine
+        assert len(step.programs) == 1, engine
     assert MAX_TRAIN_PROGRAMS == 2
     step = make_train_step(meta, engine="cluster", device="cpu")
     states = [init_state(bad, fields=FIELDS) for _ in range(3)]

@@ -426,3 +426,151 @@ def stub_graphs(monkeypatch):
     programs.clear()
     yield programs
     programs.clear()
+
+
+# The subset engines: the brute and BVH engines as they were when they
+# traced the active lanes only (``torch.nonzero``, then a scatter of the
+# results), frozen as the reference of the fixed-shape engines, with the
+# iterations of every walk subset_closest_hit / subset_any_hit ran
+subset_walk_iterations = []
+
+
+def _subset_walk(data, bvh, origin, dirs, t_max, closest: bool,
+               bfc: bool = False):
+    """The subset engines' lockstep walk over the rays it is given, its
+    loop test read on the host every _WALK_CHECK iterations."""
+    from raytracer_tpu_torch.ops.intersect import aabb_intersect
+    from raytracer_tpu_torch.ops.traverse import MISS, _WALK_CHECK, _prim_test
+
+    dirs = dirs.detach()
+    origin = origin.detach().expand(dirs.shape)
+    dev = dirs.device
+    r = dirs.shape[0]
+    n = bvh.n_nodes
+    n_total = bvh.blocks * n
+    p_total = bvh.prim_idx.shape[0]
+    inv_d = 1.0 / dirs
+    if bvh.blocks == 8:
+        octant = ((dirs < 0.0).long()
+                  * torch.tensor([4, 2, 1], device=dev)).sum(-1)
+        node = octant * n
+    else:
+        node = torch.zeros((r,), dtype=torch.int64, device=dev)
+    end = node + n
+    cursor = torch.zeros((r,), dtype=torch.int64, device=dev)
+    remaining = torch.zeros((r,), dtype=torch.int64, device=dev)
+    best_t = torch.full((r,), float("inf"), device=dev)
+    best_p = torch.full((r,), MISS, dtype=torch.int64, device=dev)
+    done = torch.zeros((r,), dtype=torch.bool, device=dev)
+    it = 0
+    while it % _WALK_CHECK or bool((~done & ((node < end)
+                                             | (remaining > 0))).any()):
+        it += 1
+        in_leaf = (remaining > 0) & ~done
+        p = bvh.prim_idx[torch.clamp(cursor, 0, p_total - 1)]
+        t_p, ok_p = _prim_test(data, origin, dirs, p, bfc=bfc)
+        if closest:
+            upd = in_leaf & ok_p & (t_p < best_t)
+            best_t = torch.where(upd, t_p, best_t)
+            best_p = torch.where(upd, p, best_p)
+        else:
+            found = in_leaf & ok_p & (t_p < t_max)
+            best_p = torch.where(found & (best_p == MISS), p, best_p)
+            done = done | found
+        cursor = torch.where(in_leaf, cursor + 1, cursor)
+        remaining = torch.where(in_leaf, remaining - 1, remaining)
+        at_node = ~in_leaf & (node < end) & ~done
+        ni = torch.clamp(node, 0, n_total - 1)
+        tmin, ok_box = aabb_intersect(origin, inv_d, bvh.box_min[ni],
+                                      bvh.box_max[ni])
+        visit = ok_box & (tmin <= best_t) if closest else ok_box
+        count = bvh.leaf_count[ni]
+        enter_leaf = at_node & visit & (count > 0)
+        node = torch.where(at_node, torch.where(visit, node + 1,
+                                                bvh.skip[ni]), node)
+        remaining = torch.where(enter_leaf, count, remaining)
+        cursor = torch.where(enter_leaf, bvh.leaf_start[ni], cursor)
+    subset_walk_iterations.append(it)
+    return best_p, done
+
+
+def _subset_brute(data, origin, dirs, t_max, closest: bool, chunk: int = 512,
+                bfc: bool = False):
+    """The subset engines' ``brute_closest`` (closest) / ``brute_any``."""
+    from raytracer_tpu_torch.ops.traverse import MISS, _prim_chunks, _ray_blocks
+
+    dirs = dirs.detach()
+    origin = origin.detach().expand(dirs.shape)
+    r = dirs.shape[0]
+    best_t = torch.full((r,), float("inf"), device=dirs.device)
+    best_p = torch.full((r,), MISS, dtype=torch.int64, device=dirs.device)
+    found = torch.zeros((r,), dtype=torch.bool, device=dirs.device)
+    for test, ids in _prim_chunks(data, chunk):
+        for a, e in _ray_blocks(r):
+            t, ok = test(origin[a:e], dirs[a:e], bfc)
+            if not closest:
+                found[a:e] |= (ok & (t < t_max[a:e, None].detach())).any(1)
+                continue
+            t = torch.where(ok, t, float("inf"))
+            tj, j = t.min(dim=1)
+            upd = tj < best_t[a:e]
+            best_t[a:e] = torch.where(upd, tj, best_t[a:e])
+            best_p[a:e] = torch.where(upd, ids[j], best_p[a:e])
+    return best_p if closest else found
+
+
+def _subset_active_lanes(fn, active, fill, origin, dirs, *per_ray):
+    """fn on the active lanes only, the fill on the others."""
+    if active is None:
+        return fn(origin, dirs, *per_ray)
+    origin = origin.expand(dirs.shape)
+    idx = torch.nonzero(active).squeeze(1)
+    got = fn(origin[idx], dirs[idx], *(x[idx] for x in per_ray))
+    out = torch.full(active.shape, fill, dtype=got.dtype, device=got.device)
+    out[idx] = got
+    return out
+
+
+@torch.no_grad()
+def subset_closest_hit(data, origin, dirs, accel, engine: str, active=None,
+                     bfc: bool = False):
+    """The subset engines' ``closest_hit`` on brute and bvh: the engine run
+    on the ``active`` lanes only (``torch.nonzero``), MISS on the
+    others."""
+    from raytracer_tpu_torch.ops.traverse import MISS
+
+    if engine == "bvh":
+        fn = lambda o, d: _subset_walk(data, accel, o, d, None, True, bfc)[0]  # noqa: E731
+    else:
+        assert engine == "brute", engine
+        fn = lambda o, d: _subset_brute(data, o, d, None, True, bfc=bfc)  # noqa: E731
+    return _subset_active_lanes(fn, active, MISS, origin, dirs)
+
+
+@torch.no_grad()
+def subset_any_hit(data, origin, dirs, t_max, accel, engine: str, active=None,
+                 bfc: bool = False, relaxed: bool = False):
+    """The subset engines' ``any_hit`` on brute and bvh."""
+    if engine == "bvh":
+        fn = lambda o, d, t: _subset_walk(data, accel, o, d, t.detach(), False,  # noqa: E731
+                                        bfc)[1]
+    else:
+        assert engine == "brute", engine
+        fn = lambda o, d, t: _subset_brute(data, o, d, t, False, bfc=bfc)  # noqa: E731
+    return _subset_active_lanes(fn, active, False, origin, dirs, t_max)
+
+
+def subset_render_rays(data, meta, origin, dirs, accel, engine: str,
+                     differentiable: bool = False):
+    """``render_rays`` on brute and bvh as it was with the subset engines:
+    the frozen loop ``pr9_render_rays`` (its brute/bvh path unchanged
+    since) on them; one pass, its host reads inside."""
+    from raytracer_tpu_torch.ops import traverse
+
+    closest, any_ = traverse.closest_hit, traverse.any_hit
+    traverse.closest_hit, traverse.any_hit = subset_closest_hit, subset_any_hit
+    try:
+        return pr9_render_rays(data, meta, origin, dirs, accel, engine=engine,
+                               differentiable=differentiable)
+    finally:
+        traverse.closest_hit, traverse.any_hit = closest, any_
