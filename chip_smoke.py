@@ -12,7 +12,8 @@ then:
    log (``ptxas -v``) the registers, spills and static shared memory of
    each kernel instance with the blocks per SM its registers allow, and
    from ``cuobjdump -sass`` each instance's NaN-propagating FMNMX count
-   (the masks and the shadow kernel must have some);
+   (the masks and the shadow kernel must have some) and its instructions
+   (the threefry draw's bound);
 2. entry scene: tests/data/entry_scene.xml through the CLI's ``main`` on
    CUDA at --ssaa 1 and 2, against the same runs with --device cpu (the
    plain PyTorch versions of the kernels); then at --ssaa 2 with --format
@@ -94,11 +95,15 @@ then:
    no shadow kernel) with its kernel inputs captured and checked, once
    more for its peak memory, and at 64x64 against the CPU; the jitter and
    adaptive frames must launch the threefry draw kernel;
-6b. the threefry draw kernel (csrc/threefry.cu) against its plain version
-   on the card, bit for bit, at the full-width band shape (2048, 2048, 2)
-   and the adaptive frame's base and round shapes, and against the first
-   and last 8 floats of JAX's own draws (``JAX_DRAWS``); the band draw
-   timed on the device beside its plain version and its bound;
+6b. the threefry draw kernel (csrc/threefry.cu), its key read from device
+   memory, against its plain version on the same key tensor on the card,
+   bit for bit, at the full-width band shape (2048, 2048, 2) and the
+   adaptive frame's base and round shapes, against the host-key call on
+   the same key and against the first and last 8 floats of JAX's own
+   draws (``JAX_DRAWS``); the band draw timed on the device beside its
+   plain version and its bound, the card's issue ceiling over phase 1's
+   SASS instructions at the maximum SM clock ``nvidia-smi`` reports (the
+   clock it reads while the kernel runs logged beside it);
 6c. the full-width terrain on treelet clusters (``build_clusters(...,
    treelet=True)``) at --ssaa 2: one frame's launches and kernel calls
    against the plain versions, 3 timed frames, and at 64x64 against the
@@ -162,15 +167,20 @@ then:
    frames, the adaptive frame and the training step as captured CUDA
    graphs, the default on the card) against the same bodies run eagerly
    (``whitted.eager()``) on the full-width frame, streamed --ssaa 4, the
-   jitter frame, the adaptive frame (and through a 64x64 camera), the big
-   terrain and a warm served
+   jitter frame (one band, and 4 bands: 4 draws inside the replayed band
+   program, each under the key written before its replay), the adaptive
+   frame (and through a 64x64 camera; each wave's draw inside its
+   program), the big terrain and a warm served
    terrain request: 0 differing pixels and equal launches (or the run
    fails), ms/frame (median of 5 warm frames of each, in turns), device
    busy ms and idle share of one profiled frame of each, top-level host
    ops per frame, the first graph call's captures, their ms and the graph
-   pool's bytes, each frame's peak allocated outside the pool; the
-   threefry draw's device events in 5 profiled jitter frames and 5
-   profiled draws alone, each with and without a tiny kernel first; the
+   pool's bytes, each frame's peak allocated outside the pool, the
+   threefry draw's launches, device events and ms in each replayed jitter
+   and adaptive frame's profile (its ms only when every launch is
+   listed); the threefry draw's device events in 5 profiled jitter frames
+   and 5 profiled draws alone, each with no spin first and with a
+   2**26-cycle spin; the
    training step: at full width (phase 7's problem) 5 steps from one
    start twice eager and once replayed, step 1's loss equal bit for bit;
    then each step replayed from the eager run's state before it, its loss
@@ -242,8 +252,10 @@ OPS = {"ray_mask": 20, "tri": 43, "tri_shared": 34, "sph": 33,
 # integer and float operations per element of the threefry draw, counted
 # from csrc/threefry.cu: 20 rounds of add, rotate (one funnel shift) and
 # xor, 5 key injections of 3 adds, 3 for the counter words, 2 for ks2, 8
-# for the bits-to-float steps; held against the FP32 rate (the guide's
-# table has no INT32 rate; Hopper has half as many INT32 as FP32 lanes)
+# for the bits-to-float steps.  Its older bound held them against the FP32
+# rate, which counts an FMA as two operations; phase 6b's bound is the
+# issue ceiling over the kernel's SASS instructions, this one printed
+# beside it
 OPS_THREEFRY = 88
 
 KERNELS = ("ray_mask", "ray_mask_hier", "closest_shared", "closest",
@@ -742,10 +754,13 @@ def ptxas_report(path):
     return out
 
 
-def nan_minmax_report(lib_path):
-    """{kernel instance: NaN-propagating FMNMX instructions, other FMNMX
-    instructions} from ``cuobjdump -sass`` of the library: nan_min /
-    nan_max (csrc/common.cuh) must lower to one FMNMX with .NAN each."""
+def sass_report(lib_path):
+    """From ``cuobjdump -sass`` of the library: ({kernel instance:
+    NaN-propagating FMNMX instructions, other FMNMX instructions}, {kernel
+    instance: its instructions up to its last EXIT, NOPs left out}).
+    nan_min / nan_max (csrc/common.cuh) must lower to one FMNMX with .NAN
+    each.  The threefry draw is straight-line code, one element a thread,
+    so its count is the warp instructions it issues per 32 elements."""
     import re
 
     cuobjdump = os.path.join(os.environ.get("CUDA_HOME") or "/usr/local/cuda",
@@ -753,7 +768,7 @@ def nan_minmax_report(lib_path):
     sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
                           text=True, timeout=300)
     check(sass.returncode == 0, f"cuobjdump -sass failed: {sass.stderr[-2000:]}")
-    out, name = {}, None
+    out, name, ops = {}, None, {}
     for line in sass.stdout.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
@@ -761,13 +776,27 @@ def nan_minmax_report(lib_path):
             name = None if k is None else k[0]
             if name:
                 out[name] = [0, 0]
-        elif name and "FMNMX" in line:
+                ops[name] = []
+            continue
+        if not name:
+            continue
+        if "FMNMX" in line:
             out[name][0 if re.search(r"FMNMX\S*\.NAN", line) else 1] += 1
+        op = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+                       line)
+        if op:
+            ops[name].append(op.group(1).split(".")[0])
+    instructions = {}
+    for name, seq in ops.items():
+        last = max((i for i, op in enumerate(seq) if op == "EXIT"), default=-1)
+        instructions[name] = sum(op != "NOP" for op in seq[:last + 1])
+    check(instructions.get("threefry_uniform", 0) > 0,
+          f"SASS: no instructions counted for threefry_uniform: {instructions}")
     for kname in ("ray_mask", "ray_mask_hier", "shadow"):
         rows = [v for n, v in out.items() if n.split("<")[0] == kname]
         check(rows and all(v[0] > 0 for v in rows),
               f"SASS: {kname} has no NaN-propagating FMNMX: {out}")
-    return out
+    return out, instructions
 
 
 def check_scene_kernels(label, calls, gen, n_tiles=256):
@@ -1805,7 +1834,8 @@ def instrumented(cap):
     """One frame's bands, jitter draws and waves, inside ``cap``: yields
     {"bands": ray count of every band render_camera_streamed renders,
     "draws": (offsets, ms) of every jitter draw, device-timed (CUDA
-    events around it, queued behind a spin),
+    events around it, queued behind a spin), "late_draws": those whose
+    spin ended before the draw was queued (their ms hold a host gap),
     "compactions": activity compactions}; the kernel calls of adaptive
     sampling's refinement waves are kept under the tag "@refine", and
     those after a compaction under "@compacted" too."""
@@ -1814,7 +1844,7 @@ def instrumented(cap):
     from raytracer_tpu_torch.models import whitted
     from raytracer_tpu_torch.ops import adaptive
 
-    seen = {"bands": [], "draws": [], "compactions": 0}
+    seen = {"bands": [], "draws": [], "late_draws": 0, "compactions": 0}
 
     def band(f):
         def counted(*a, **kw):
@@ -1826,12 +1856,17 @@ def instrumented(cap):
         def timed(jitter, seed, key, shape, device):
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(1 << 20)   # the host enqueues while the card spins
+            # the host enqueues while the card spins (~8 ms: long enough for
+            # a new block of the caching allocator, whose cudaMalloc would
+            # otherwise fall between the events)
+            torch.cuda._sleep(1 << 24)
             e0.record()
             x = f(jitter, seed, key, shape, device)
+            late = e0.query()   # the card reached e0 before the draw was queued
             e1.record()
             e1.synchronize()
             seen["draws"].append((math.prod(shape), e0.elapsed_time(e1)))
+            seen["late_draws"] += late
             return x
         return timed
 
@@ -1909,7 +1944,8 @@ def drive_mode(label, frame, results, key, must, checked, must_not=()):
     log(f"  {label}: launches {launches}; bands {len(bands)} "
         f"({sorted(set(bands))} rays); compactions {seen['compactions']}; "
         f"jitter draws {draw_ms:.4f} ms of device time for {n_draw} offsets "
-        f"({len(seen['draws'])} draws)")
+        f"({len(seen['draws'])} draws, {seen['late_draws']} queued after "
+        "their spin ended)")
     log(f"  {label}: captured calls {sorted(cap.calls)}")
     checked(label, cap.calls)
     del cap
@@ -1939,6 +1975,7 @@ def drive_mode(label, frame, results, key, must, checked, must_not=()):
                     "mrays_per_s": rays / ms / 1e3, "peak_bytes": peak,
                     "launches": launches, "bands": bands, "device_busy_ms": busy,
                     "idle_share": idle, "adaptive": stats, "draw_ms": draw_ms,
+                    "late_draws": seen["late_draws"],
                     "draw_offsets": n_draw, "compactions": seen["compactions"]}
     return img, stats, launches
 
@@ -2044,49 +2081,100 @@ def render_modes(dev, results, full, big, big_res, checked):
     return path_launches
 
 
+def sm_clock_mhz(fn, args, n):
+    """(SM clock, its maximum) in MHz as ``nvidia-smi`` reads them; the
+    query starts before the card runs a ~0.27 s spin and then ``n``
+    launches of ``fn(*args)``, so the first is read while they run."""
+    import torch
+
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                            "--format=csv,noheader,nounits"],
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                           text=True)
+    try:
+        torch.cuda._sleep(1 << 29)
+        for _ in range(n):
+            fn(*args)
+        out, err = smi.communicate(timeout=60)
+    finally:
+        if smi.poll() is None:
+            smi.kill()
+            smi.wait()
+    torch.cuda.synchronize()
+    check(smi.returncode == 0, f"nvidia-smi failed: {err[-500:]}")
+    sm, top = (float(x) for x in out.splitlines()[0].split(","))
+    return sm, top
+
+
 def threefry_on_card(dev, results):
-    """Phase 6b: the threefry kernel against its plain version on the card,
-    bit for bit, at the full-width band shape and at the full-width
-    adaptive frame's base and round shapes, each draw's first and last 8
-    floats against JAX's (JAX_DRAWS); the band draw timed on the device
-    (20 launches behind a spin) beside the plain version and its bound.
-    Returns the kernel row's numbers."""
+    """Phase 6b: the threefry kernel, keyed from device memory
+    (``threefry_uniform_keyed``), against its plain version on the same key
+    tensor on the card, bit for bit, at the full-width band shape and at
+    the full-width adaptive frame's base and round shapes; each draw's
+    first and last 8 floats against JAX's (JAX_DRAWS), and the whole draw
+    against the host-key call (``threefry_uniform``) on the same key.  The
+    band draw timed on the device (20 launches behind a spin) beside the
+    plain version and its bound: the card's issue ceiling (phase 1's SASS
+    instructions of the kernel per 32 elements over 132 SMs x 4 warp
+    instructions a clock at the card's maximum SM clock, or its 4 bytes an
+    element at 3.35 TB/s, whichever is longer); the SM clock read while it
+    runs and the older bound (88 operations an element at the FP32 rate)
+    are logged beside it.  Returns the kernel row's numbers."""
     import numpy as np
     import torch
 
     from raytracer_tpu_torch.ops import kernels as K
     from raytracer_tpu_torch.ops.camera import jitter_key
 
+    def words(seed, key):
+        return torch.tensor(jitter_key(seed, key), dtype=torch.int64,
+                            device=dev)
+
     for seed, key, shape, first, last in JAX_DRAWS:
-        k0, k1 = jitter_key(seed, key)
         n = math.prod(shape)
-        got = K.threefry_uniform(k0, k1, n, -0.5, 0.5, dev).view(torch.int32)
-        want = K.threefry_uniform_plain(k0, k1, n, -0.5, 0.5, dev).view(torch.int32)
+        key_t = words(seed, key)
+        got = K.threefry_uniform_keyed(
+            key_t, torch.full(shape, float("nan"), device=dev), -0.5, 0.5)
+        want = K.threefry_uniform_keyed_plain(
+            key_t, torch.empty(shape, device=dev), -0.5, 0.5)
+        host = K.threefry_uniform(*jitter_key(seed, key), n, -0.5, 0.5, dev)
         torch.cuda.synchronize()
+        got, want, host = (x.view(-1).view(torch.int32)
+                           for x in (got, want, host))
         n_diff = int((got != want).sum())
         check(n_diff == 0, f"threefry {key} of seed {seed} {shape}: {n_diff} of "
               f"{n} floats differ from the plain version")
+        check(torch.equal(got, host), f"threefry {key} of seed {seed} {shape}: "
+              "the keyed draw is not the host-key call's")
         bits = got.cpu().numpy().view(np.uint32)
         check(bits[:8].tolist() == first and bits[-8:].tolist() == last,
               f"threefry {key} of seed {seed} {shape}: not JAX's draw")
-        log(f"  threefry {key} of seed {seed}, {shape} ({n} floats): equal to the "
-            "plain version bit for bit; first and last 8 equal to JAX's")
+        log(f"  threefry {key} of seed {seed}, {shape} ({n} floats), keyed from "
+            "device memory: equal to the plain version and to the host-key "
+            "call bit for bit; first and last 8 equal to JAX's")
     seed, key, shape = JAX_DRAWS[0][:3]
     n = math.prod(shape)
-    args = (*jitter_key(seed, key), n, -0.5, 0.5, dev)
-    ms = time_call(K.threefry_uniform, args, 20)
-    plain_ms = time_once(K.threefry_uniform_plain, args)
-    t_ops = n * OPS_THREEFRY / PEAK_FP32 * 1e3
+    args = (words(seed, key), torch.empty(shape, device=dev), -0.5, 0.5)
+    ms = time_call(K.threefry_uniform_keyed, args, 20)
+    plain_ms = time_once(K.threefry_uniform_keyed_plain, args)
+    sm_mhz, max_mhz = sm_clock_mhz(K.threefry_uniform_keyed, args, 3000)
+    instr = results["sass_instructions"]["threefry_uniform"]
+    t_issue = n * instr / (132 * 4 * 32 * max_mhz * 1e6) * 1e3
     t_bytes = 4 * n / PEAK_BYTES * 1e3
-    row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
-           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-           "elements": n}
-    log(f"  threefry, one full-width band draw ({n} floats): {ms:.4f} ms/launch "
-        f"(device), bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
-        f"{n * OPS_THREEFRY:.3e} ops, {4 * n:.3e} bytes), "
-        f"{row['bound_ms'] / ms:.3f} of the bound; plain {plain_ms:.2f} ms; the "
-        "lowbias32 hash it replaces drew a frame's jitter in 2.5 ms "
-        "(PERF.md, PR 6)")
+    t_fp32 = max(n * OPS_THREEFRY / PEAK_FP32 * 1e3, t_bytes)
+    row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_issue, t_bytes),
+           "bound_by": "operations" if t_issue >= t_bytes else "bytes",
+           "elements": n, "sass_instructions": instr, "sm_mhz": sm_mhz,
+           "max_sm_mhz": max_mhz, "issue_bound_ms": t_issue,
+           "bytes_bound_ms": t_bytes}
+    log(f"  threefry, one full-width band draw ({n} floats, keyed): {ms:.4f} "
+        f"ms/launch (device); bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}: {instr} SASS instructions a thread over 132 SMs "
+        f"x 4 warp instructions a clock at the maximum {max_mhz:.0f} MHz "
+        f"= {t_issue:.4f} ms; {4 * n:.3e} bytes = {t_bytes:.4f} ms), "
+        f"{row['bound_ms'] / ms:.3f} of the bound; SM clock read while it ran "
+        f"{sm_mhz:.0f} MHz; the older bound of {OPS_THREEFRY} ops an element at "
+        f"the FP32 rate {t_fp32:.4f} ms; plain {plain_ms:.2f} ms")
     results["threefry"] = row
     return row
 
@@ -2896,11 +2984,11 @@ def pool_bytes(pools):
                if tuple(seg["segment_pool_id"]) in pools)
 
 
-def lean_profile(frame, lead=False):
+def lean_profile(frame, lead=0):
     """One run of ``frame`` under torch.profiler: (wall ms, device busy ms,
     the CUDA kernels' device ms, top-level PyTorch ops, graph launches,
-    device events by kernel row).  ``lead``: a tiny kernel runs first
-    inside the window."""
+    {kernel row: [device events, their device ms]}).  ``lead``: a spin of
+    that many cycles runs first inside the window."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2910,7 +2998,7 @@ def lean_profile(frame, lead=False):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         if lead:
-            torch.cuda._sleep(1000)
+            torch.cuda._sleep(lead)
         frame()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
@@ -2923,7 +3011,9 @@ def lean_profile(frame, lead=False):
             name = kernel_of(ev.name)
             if name is not None:
                 mine += ms
-                rows[name] = rows.get(name, 0) + 1
+                row = rows.setdefault(name, [0, 0.0])
+                row[0] += 1
+                row[1] += ms
     host = host_side(prof)
     graphs = sum(v[0] for k, v in host["runtime"].items() if "GraphLaunch" in k)
     return wall, busy, mine, host["top_level_ops"], graphs, rows
@@ -2956,7 +3046,9 @@ def raw_profile(frame):
             kname = kernel_of(name)
             if kname is not None:
                 mine += ms
-                rows[kname] = rows.get(kname, 0) + 1
+                row = rows.setdefault(kname, [0, 0.0])
+                row[0] += 1
+                row[1] += ms
             continue
         graphs += "GraphLaunch" in name
         host.setdefault(ev.start_thread_id(), []).append(
@@ -3075,7 +3167,9 @@ def compare_programs(label, frame, image, results, key, pools=scene_pools,
         profiled = ("not profiled" if busy is None else
                     f"device busy {busy:.3f} ms (the CUDA kernels {mine:.3f}), "
                     f"idle share {idle:.3f}; {ops} top-level host ops, "
-                    f"{graphs} graph launches, kernel events {rows}")
+                    f"{graphs} graph launches, kernel events "
+                    + ", ".join(f"{k} {n}x {t:.4f} ms"
+                                for k, (n, t) in sorted(rows.items())))
         log(f"  {label}, {name}: {ms:.3f} ms/frame (median of "
             f"{len(out[name]['runs_ms'])} "
             f"{[round(t, 3) for t in out[name]['runs_ms']]}); {profiled}; "
@@ -3356,10 +3450,13 @@ def train_programs(dev, results):
 def programs_on_card(dev, results):
     """Phase 9: the compiled programs (``models.programs``) against the same
     bodies run eagerly (``compare_programs``) on the full-width terrain at
-    --ssaa 2, streamed at --ssaa 4 and in jitter mode, the big terrain at
-    --ssaa 2, and a warm served terrain request in process; then how often
-    the profiler lists the threefry draw: 5 profiled jitter frames and 5
-    draws alone, each with and without a tiny kernel first."""
+    --ssaa 2, streamed at --ssaa 4 and in jitter mode (one band and 4),
+    adaptive (and through a 64x64 camera), the big terrain at --ssaa 2,
+    and a warm served terrain request in process; the threefry draw's
+    launches, device events and ms in each replayed jitter and adaptive
+    frame's profile; then how often the profiler lists the draw: 5
+    profiled jitter frames and 5 draws alone, each with no kernel first
+    and with a 2**26-cycle spin (~34 ms)."""
     from raytracer_tpu_torch.models import programs
     from raytracer_tpu_torch.pipeline import render_one_camera
     from raytracer_tpu_torch.serve import RenderServer
@@ -3370,39 +3467,55 @@ def programs_on_card(dev, results):
                              mirror_stripes=True)
     cam = meta.cameras[0]
     first = lambda out: out[0]  # noqa: E731
+    frames = {}
     for key, label, kw in (
             ("full_width", "full-width terrain, --ssaa 2", dict(ssaa=2)),
             ("streamed_ssaa4", "full-width terrain streamed, --ssaa 4",
              dict(ssaa=4)),
             ("jitter_ssaa2", "full-width terrain, --ssaa 2 jitter",
-             dict(ssaa=2, ssaa_mode="jitter"))):
-        compare_programs(label, lambda kw=kw: render_one_camera(
-            data, meta, cam, cset, device=dev, **kw), first, results, key)
-
-    def jitter_frame():
-        return render_one_camera(data, meta, cam, cset, device=dev, ssaa=2,
-                                 ssaa_mode="jitter")
-    compare_programs("full-width terrain, adaptive (base 4 spp, 12.5% of "
-                     "blocks get 12 more)", lambda: render_one_camera(
-                         data, meta, cam, cset, device=dev, ssaa=2,
-                         ssaa_mode="adaptive"), first, results, "adaptive")
+             dict(ssaa=2, ssaa_mode="jitter")),
+            ("jitter_4band", "full-width terrain, --ssaa 2 jitter in 4 bands",
+             dict(ssaa=2, ssaa_mode="jitter", chunk=1 << 20))):
+        frames[key] = lambda kw=kw: render_one_camera(
+            data, meta, cam, cset, device=dev, **kw)
+        compare_programs(label, frames[key], first, results, key)
+    check(results["programs"]["jitter_4band"]["launches"]["threefry"] == 4,
+          "the 4-band jitter frame did not draw once a band")
     small = dataclasses.replace(cam, width=64, height=64)
-    compare_programs("full-width terrain through a 64x64 camera, adaptive",
-                     lambda: render_one_camera(data, meta, small, cset,
-                                               device=dev, ssaa=2,
-                                               ssaa_mode="adaptive"),
-                     first, results, "adaptive_64")
+    for key, label, c in (
+            ("adaptive", "full-width terrain, adaptive (base 4 spp, 12.5% of "
+             "blocks get 12 more)", cam),
+            ("adaptive_64", "full-width terrain through a 64x64 camera, "
+             "adaptive", small)):
+        frames[key] = lambda c=c: render_one_camera(
+            data, meta, c, cset, device=dev, ssaa=2, ssaa_mode="adaptive")
+        compare_programs(label, frames[key], first, results, key)
+    # the draw inside the replayed graphs, from each frame's profile above:
+    # its ms only when the profile lists every launch (it can miss the
+    # first draw of a window; the probe below)
+    draw = {}
+    for key in ("jitter_ssaa2", "jitter_4band", "adaptive", "adaptive_64"):
+        row = results["programs"][key]
+        n, ms = row["graph"]["kernel_events"].get("threefry", [0, 0.0])
+        launched = row["launches"]["threefry"]
+        draw[key] = {"launches": launched, "events": n,
+                     "ms": ms if n >= launched else None}
+        log(f"  {key}, replayed: the threefry draw {launched} launches, "
+            f"{n} device events in the profiled frame, "
+            + (f"{ms:.4f} ms" if n >= launched else "its ms not measured")
+            + f"; {row['graph']['host_ops']} top-level host ops, "
+            f"{row['graph']['graph_launches']} graph launches")
+    results["programs"]["draw_in_graphs"] = draw
     from raytracer_tpu_torch.ops.camera import draw_jitter
 
     def bare_draw():
         return draw_jitter(None, 0, ("band", 0), (2048, 2048, 2), dev)
     seen = {}
-    for what, fn, lead in (("frame", jitter_frame, False),
-                           ("frame after a lead kernel", jitter_frame, True),
-                           ("draw alone", bare_draw, False),
-                           ("draw after a lead kernel", bare_draw, True)):
-        seen[what] = [lean_profile(fn, lead=lead)[5].get("threefry", 0)
-                      for _ in range(5)]
+    for what, fn in (("frame", frames["jitter_ssaa2"]), ("draw alone", bare_draw)):
+        for after, lead in (("", 0), (" after a 2**26-cycle spin", 1 << 26)):
+            seen[what + after] = [
+                lean_profile(fn, lead=lead)[5].get("threefry", [0])[0]
+                for _ in range(5)]
     log(f"  threefry device events in 5 profiled runs each (one draw a run): "
         f"{seen}")
     results.setdefault("programs", {})["draw_events"] = seen
@@ -3711,9 +3824,12 @@ def run():
     results["ptxas"] = ptxas_report(os.path.join(backend.BUILD_DIR, "build.log"))
     for name, row in results["ptxas"].items():
         log(f"  {name}: {row}")
-    results["fmnmx"] = nan_minmax_report(backend.library_path())
+    results["fmnmx"], results["sass_instructions"] = sass_report(
+        backend.library_path())
     log("  SASS FMNMX .NAN / other per instance: "
         + ", ".join(f"{n} {v[0]}/{v[1]}" for n, v in results["fmnmx"].items()))
+    log("  SASS instructions per instance (to the last EXIT, no NOPs): "
+        + ", ".join(f"{n} {v}" for n, v in results["sass_instructions"].items()))
 
     # -- phase 2: entry scene through the CLI, CUDA vs CPU
     log("== phase 2: entry scene through the CLI")
@@ -3996,7 +4112,9 @@ def run():
     engine_programs(dev, results)
     # the draw kernel's row: its launches in the jitter frame of phase 6,
     # one band; JAX_DRAWS's checks were exact (max_abs_err 0); per frame,
-    # the draws' device ms timed in the counted frames of phase 6
+    # the draws' device ms timed with events in phase 6's eager frames (the
+    # same draws as inside the replayed graphs); the bound is the issue
+    # ceiling (phase 6b)
     rows.append({
         "name": "threefry", "route": "cuda", "source": SOURCES["threefry"],
         "replaces": REPLACES["threefry"],

@@ -7,12 +7,13 @@ On one card: profiles 5 runs each of the threefry jitter draw alone
 (``ops.camera.draw_jitter``, 8,388,608 floats: a full-width SSAA 2
 band), the same draw inside ``torch.profiler.record_function``, and a
 flat-mask launch (``ops.kernels.ray_mask``, a kernel of the same library
-launched the same way) as the control; for each run it prints the device
-events of ``prof.events()`` by name and the kernel names of the exported
-chrome trace (written under ``--out``), as one JSON line each.  Then the
-draw again (3 runs each) after a jittered 64x64 terrain frame has been
-captured and replayed as CUDA graphs, and after 20 more profiler
-sessions of that frame.
+launched the same way) as the control, and two draws in one window; for
+each run it prints the device events of ``prof.events()`` by name and the
+kernel names of the exported chrome trace (written under ``--out``), as
+one JSON line each.  Then a jittered 64x64 terrain frame at --ssaa 2 in
+4 bands, replayed as CUDA graphs (its band program draws in its
+prologue, 4 draws a frame), 3 runs; then the draw again (3 runs each)
+after that frame's replays, and after 20 more profiler sessions of it.
 """
 
 from __future__ import annotations
@@ -63,6 +64,10 @@ def main() -> int:
     def mask():
         return K.ray_mask(act, box, bundle)
 
+    def two_draws():
+        draw()
+        return draw()
+
     from raytracer_tpu_torch.models.bvh import build_bvh
     from raytracer_tpu_torch.models.clusters import build_clusters
     from raytracer_tpu_torch.pipeline import render_one_camera
@@ -74,7 +79,8 @@ def main() -> int:
 
     def frame():
         return render_one_camera(data, meta, meta.cameras[0], cset, ssaa=2,
-                                 ssaa_mode="jitter", device=dev)
+                                 ssaa_mode="jitter", chunk=128 * 32,
+                                 device=dev)
 
     def replays():
         for _ in range(3):
@@ -91,6 +97,8 @@ def main() -> int:
     stages = ((None, "draw", draw, 5),
               (None, "draw in record_function", draw_scoped, 5),
               (None, "ray_mask", mask, 5),
+              (None, "two draws", two_draws, 3),
+              (None, "frame of 4 bands", frame, 3),
               (replays, "draw after graph replays", draw, 3),
               (sessions, "draw after 20 profiled frames", draw, 3))
     for before, what, fn, runs in stages:
@@ -106,7 +114,8 @@ def main() -> int:
             events = collections.Counter(
                 ev.name[:60] for ev in prof.events()
                 if ev.device_type == DeviceType.CUDA)
-            path = os.path.join(args.out, f"profile_{what.split()[0]}_{i}.json")
+            path = os.path.join(args.out,
+                                f"profile_{what.replace(' ', '_')}_{i}.json")
             prof.export_chrome_trace(path)
             with open(path) as f:
                 trace = json.load(f)

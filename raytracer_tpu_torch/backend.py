@@ -60,9 +60,9 @@ SIGNATURES = {
     # nt, c; returns the chunks per block of a hierarchical mask launch
     # over nt tiles of c columns (a number, not an error)
     "rt_ray_mask_hier_group": [_i, _i],
-    # k0, k1, lo, hi, out, n, stream
-    "rt_threefry_uniform": [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float,
-                            ctypes.c_float, _vp, ctypes.c_longlong, _vp],
+    # key (2 int64 words on the device), lo, hi, out, n, stream
+    "rt_threefry_uniform": [_vp, ctypes.c_float, ctypes.c_float, _vp,
+                            ctypes.c_longlong, _vp],
 }
 
 _lock = threading.Lock()

@@ -21,11 +21,18 @@
 //
 // Design: one thread per element, 256-thread blocks; the counter is the
 // thread's flat index, so neighbouring threads store neighbouring floats
-// (coalesced 4-byte stores) and no thread reads memory.
+// (coalesced 4-byte stores).  The key is read from device memory, two
+// int64 words whose low 32 bits are k0 and k1 (each thread loads them
+// once; every thread of the grid reads the same 16 bytes, an L1/L2 hit):
+// the host writes them into a static tensor before a captured program
+// replays, so one CUDA graph draws every band's and every wave's offsets.
 //
-// What bounds it: the 4 n bytes it writes, or about 82 integer and float
-// operations an element (chip_smoke.py counts them), whichever is slower;
-// a full-width SSAA 2 band is 8,388,608 elements, 33.5 MB.
+// What bounds it: the 4 n bytes it writes, or its instructions, whichever
+// is slower.  It is integer work, so the ceiling is the issue rate (4 warp
+// instructions a clock on each SM), not the FP32 FMA rate; chip_smoke.py
+// counts the SASS instructions of threefry_uniform_kernel (cuobjdump) and
+// divides by 132 SMs x 4 x 32 lanes x the maximum SM clock.  A full-width
+// SSAA 2 band is 8,388,608 elements, 33.5 MB.
 
 #include <cstdint>
 
@@ -48,10 +55,12 @@ __device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
 #define RT_TF_GROUP_B RT_TF_ROUND(17) RT_TF_ROUND(29) RT_TF_ROUND(16) RT_TF_ROUND(24)
 
 __global__ void __launch_bounds__(kThreads) threefry_uniform_kernel(
-    uint32_t k0, uint32_t k1, float lo, float hi, float* __restrict__ out,
-    long long n) {
+    const long long* __restrict__ key, float lo, float hi,
+    float* __restrict__ out, long long n) {
   const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= n) return;
+  const uint32_t k0 = static_cast<uint32_t>(key[0]);
+  const uint32_t k1 = static_cast<uint32_t>(key[1]);
   const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
   uint32_t x0 = static_cast<uint32_t>(static_cast<unsigned long long>(i) >> 32) + k0;
   uint32_t x1 = static_cast<uint32_t>(i) + k1;
@@ -81,15 +90,15 @@ __global__ void __launch_bounds__(kThreads) threefry_uniform_kernel(
 
 }  // namespace
 
-// out: (n,) f32 on the device; lo, hi: the bounds as f32 (hi - lo is
-// rounded on the device, as jax.random.uniform rounds it).
-extern "C" int rt_threefry_uniform(unsigned k0, unsigned k1, float lo,
-                                   float hi, float* out, long long n,
-                                   void* stream) {
+// key: (2,) int64 on the device, the key words in their low 32 bits; out:
+// (n,) f32 on the device; lo, hi: the bounds as f32 (hi - lo is rounded on
+// the device, as jax.random.uniform rounds it).
+extern "C" int rt_threefry_uniform(const long long* key, float lo, float hi,
+                                   float* out, long long n, void* stream) {
   if (n <= 0) return static_cast<int>(cudaGetLastError());
   const long long blocks = (n + kThreads - 1) / kThreads;
   threefry_uniform_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(k0, k1, lo, hi,
-                                                                 out, n);
+                            static_cast<cudaStream_t>(stream)>>>(key, lo, hi, out,
+                                                                 n);
   return static_cast<int>(cudaGetLastError());
 }

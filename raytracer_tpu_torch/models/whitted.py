@@ -70,7 +70,8 @@ from raytracer_tpu_torch.models.scene import Camera, SceneData, SceneMeta
 from raytracer_tpu_torch.ops import cluster_trace as ctr
 from raytracer_tpu_torch.ops import shade, traverse
 from raytracer_tpu_torch.ops.camera import (
-    camera_vectors, draw_jitter, eye_rays_band, eye_rays_from,
+    camera_vectors, draw_jitter, draw_jitter_into, eye_rays_band,
+    eye_rays_from, write_jitter_keys,
 )
 from raytracer_tpu_torch.ops.image import (
     downsample_mean, downsample_parity, quantize,
@@ -769,19 +770,25 @@ class _Frame:
     ``render_band`` without a mesh) or the whole camera (``kind``
     "camera": ``render_camera``'s radiance, bh = h) as a program, the
     counterpart of ``_render_band_jit`` / ``_render_camera_jit``.  Its
-    static inputs ``vec`` (the (5, 3) camera vector), ``row0`` (f32) and
-    ``jitter`` ((bh, w, 2), jittered bands only) are copied in before each
-    run, so every band and camera of one shape shares one capture, as in
-    JAX, where they are traced.  Steps: a prologue (eye rays, the engine's
-    tile order, the rays' ``load``), the bounce steps of ``_Rays`` (chunk
-    by chunk when ``trace`` would cut the band), and an epilogue
-    (``_band_image``) into the static ``out``.  ``progs`` None: eager
-    steps."""
+    static inputs ``vec`` (the (5, 3) camera vector) and ``row0`` (f32)
+    are copied in before each run, so every band and camera of one shape
+    shares one capture, as in JAX, where they are traced.  A jittered band
+    (``jittered``) samples the offsets in its static ``jitter`` ((bh, w,
+    2)): with ``drawn`` the prologue draws them itself, as
+    ``_render_band_jit`` does, under the key words that each run writes
+    into the static ``key`` ((2,) int64, ``jitter_key(seed, ("band",
+    row0))``); otherwise they are given to each run and copied in (a
+    caller's ``jitter``).  Steps: a prologue (the draw, eye rays, the
+    engine's tile order, the rays' ``load``), the bounce steps of
+    ``_Rays`` (chunk by chunk when ``trace`` would cut the band), and an
+    epilogue (``_band_image``) into the static ``out``.  ``progs`` None:
+    eager steps."""
 
     def __init__(self, progs, data: SceneData, meta: SceneMeta, accel,
                  kind: str, h: int, w: int, bh: int, chunk: int, ssaa: int,
                  ssaa_mode: str, hdr: bool, jittered: bool, bfc: bool,
-                 relaxed: bool, device, engine: str = "cluster"):
+                 relaxed: bool, device, engine: str = "cluster",
+                 drawn: bool = False):
         self.kind, self.h, self.w, self.bh = kind, h, w, bh
         self.ssaa, self.ssaa_mode, self.hdr = ssaa, ssaa_mode, hdr
         self.engine = engine
@@ -791,6 +798,9 @@ class _Frame:
         self.vec = torch.zeros((5, 3), **f32)
         self.row0 = torch.zeros((), **f32)
         self.jitter = torch.zeros((bh, w, 2), **f32) if jittered else None
+        self.key = (torch.zeros((2,), dtype=torch.int64, device=device)
+                    if jittered and drawn else None)
+        self.key_words = None if self.key is None else list(self.key)
         s = max(ssaa, 1)
         self.out = torch.zeros((bh // s, w // s, 3), device=device,
                                dtype=torch.float32 if hdr else torch.uint8)
@@ -801,14 +811,18 @@ class _Frame:
             self.epilogue = progs.step(f"{kind} epilogue", self._epilogue)
 
     @torch.no_grad()
-    def __call__(self, vec, row0: int = 0, jitter=None) -> torch.Tensor:
+    def __call__(self, vec, row0: int = 0, jitter=None,
+                 seed: int = 0) -> torch.Tensor:
         """The band's image (the static ``out``: copy it before the next
-        run) for camera vector ``vec``, first row ``row0`` and offsets
-        ``jitter``."""
+        run) for camera vector ``vec`` and first row ``row0``, sampled at
+        the offsets ``jitter`` (given) or at the draw of ``seed`` (drawn;
+        OverflowError for a seed out of [0, 2**32), before any step)."""
+        if self.key is not None:
+            write_jitter_keys(self.key_words, seed, [("band", row0)])
+        elif self.jitter is not None:
+            self.jitter.copy_(jitter)
         self.vec.copy_(vec)
         self.row0.fill_(row0)
-        if self.jitter is not None:
-            self.jitter.copy_(jitter)
         self.prologue()
         self._trace()
         self.epilogue()
@@ -832,6 +846,8 @@ class _Frame:
         if self.kind == "camera":
             origin, dirs = eye_rays_from(self.vec, self.w, self.h)
         else:
+            if self.key is not None:
+                draw_jitter_into(self.key, self.jitter)
             origin, dirs = eye_rays_band(self.vec, self.w, self.h, self.row0,
                                          self.bh, jitter=self.jitter)
         self._load(origin, apply_tile_order(dirs, self.bh, self.w,
@@ -946,13 +962,17 @@ class _MeshFrame(_Frame):
 
 def _frame(progs, data, meta, accel, kind: str, h: int, w: int, bh: int,
            chunk: int, ssaa: int, ssaa_mode: str, hdr: bool, jittered: bool,
-           bfc: bool, relaxed: bool, engine: str, mesh=None) -> _Frame:
+           bfc: bool, relaxed: bool, engine: str, mesh=None,
+           drawn: bool = False) -> _Frame:
     """The scene's cached frame program of this engine and shape
-    (``_Frame``), over ``mesh`` when given (``_MeshFrame``, a band)."""
-    key = ("frame", kind, h, w, bh, chunk, ssaa, ssaa_mode, hdr, jittered,
+    (``_Frame``), over ``mesh`` when given (``_MeshFrame``, a band); a
+    jittered band's offsets ``drawn`` by its prologue or given to it are
+    two programs."""
+    jitter = ("drawn" if drawn else "given") if jittered else None
+    key = ("frame", kind, h, w, bh, chunk, ssaa, ssaa_mode, hdr, jitter,
            bfc, relaxed, engine, mesh)
     args = (kind, h, w, bh, chunk, ssaa, ssaa_mode, hdr, jittered, bfc,
-            relaxed, data.device, engine)
+            relaxed, data.device, engine, drawn)
     if mesh is None:
         return progs.program(key, lambda: _Frame(progs, data, meta, accel,
                                                  *args))
@@ -987,7 +1007,9 @@ def render_camera_streamed(data: SceneData, meta: SceneMeta, cam: Camera,
     is padded with virtual rows below the frame (the eye rays extrapolate
     the image plane), rendered and cropped.  On CUDA devices a band on the
     mesh replays as one program (``_MeshFrame``) as a band on one device
-    does (``_Frame``), on every engine."""
+    does (``_Frame``), on every engine; without ``jitter`` a jittered
+    band's program draws its offsets itself (on a mesh, on its first
+    device: every process draws the whole band)."""
     dev = _render_device(data, accel, device)
     engine = resolve_engine(engine, accel, meta)
     chunk = _cap_chunk_for_big_scenes(chunk, accel)
@@ -1013,19 +1035,20 @@ def render_camera_streamed(data: SceneData, meta: SceneMeta, cam: Camera,
     progs = (programs.scene_programs(data, meta, accel, dev)
              if all(_programs_on(d) for d in (mesh.devices if mesh else [dev]))
              else None)
+    drawn = jittered and progs is not None and jitter is None
     bands = []
     for row0 in range(0, hs, band_h):
         bh = min(band_h, hs - row0)
         if mesh is not None:
             bh = -(-bh // lcm) * lcm          # virtual rows below the frame
         offsets = None
-        if jittered:
+        if jittered and not drawn:
             offsets = draw_jitter(jitter, seed, ("band", row0), (bh, ws, 2), dev)
         if progs is not None:
-            bands.append(_frame(progs, data, meta, accel, "band", hs, ws, bh,
-                                chunk, ssaa, ssaa_mode, hdr, jittered, bfc,
-                                relaxed, engine, mesh)(vec, row0,
-                                                       offsets).clone())
+            frame = _frame(progs, data, meta, accel, "band", hs, ws, bh, chunk,
+                           ssaa, ssaa_mode, hdr, jittered, bfc, relaxed,
+                           engine, mesh, drawn=drawn)
+            bands.append(frame(vec, row0, offsets, seed).clone())
             continue
         with nan_site(f"band of rows {row0}-{row0 + bh - 1}"):
             bands.append(render_band(

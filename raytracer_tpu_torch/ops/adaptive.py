@@ -44,7 +44,8 @@ from raytracer_tpu_torch.models.whitted import (
     _tile_block_shape, nan_site, resolve_engine, trace,
 )
 from raytracer_tpu_torch.ops.camera import (
-    camera_vectors, draw_jitter, eye_rays_pixels,
+    camera_vectors, draw_jitter, draw_jitter_into, eye_rays_pixels,
+    write_jitter_keys,
 )
 from raytracer_tpu_torch.ops.tiling import block_permutation, divides, from_blocks
 
@@ -147,12 +148,17 @@ class _Adaptive:
     """The adaptive frame of an (h, w) camera as a program
     (``models.programs``), the counterpart of the JAX package's
     ``_adaptive_jit``.  Made once per scene and shape: the tile-ordered
-    pixel coordinates and ``inv`` are uploaded then; the camera vector and
-    each wave's jitter (drawn just before the wave, one threefry launch)
-    are copied into static buffers before each run.  Steps: the base
-    prologue (eye rays into the base wave), the base wave's bounce steps
-    (``_Rays`` on ``engine``, ``compact_mode="auto"``), the base epilogue
-    (the running statistics); per round a prologue (score, ``stable_topk``, the chosen
+    pixel coordinates and ``inv`` are uploaded then; the camera vector is
+    copied into a static buffer before each run.  Each wave samples the
+    offsets in its static jitter buffer: with ``drawn`` its prologue draws
+    them (one threefry launch inside the program, as ``_adaptive_jit``
+    draws), under the key words that each run writes into row i of the
+    static ``keys`` ((1 + rounds, 2) int64: the base wave, then each
+    round); otherwise a caller's ``jitter`` gives them, copied in before
+    the wave.  Steps: the base prologue (the draw, eye rays into the base
+    wave), the base wave's bounce steps (``_Rays`` on ``engine``,
+    ``compact_mode="auto"``), the base epilogue (the running statistics);
+    per round a prologue (score, ``stable_topk``, the draw, the chosen
     blocks' rays), the round wave's bounce steps (``"deep"``) and an
     epilogue (``_add_samples``); a final step (the mean, back to row order)
     into the static ``out``.  Every wave keeps its flags read between
@@ -160,7 +166,8 @@ class _Adaptive:
 
     def __init__(self, progs, data: SceneData, meta: SceneMeta, accel, h: int,
                  w: int, base_spp: int, per_round: tuple, k: int, bfc: bool,
-                 relaxed: bool, device, engine: str = "cluster"):
+                 relaxed: bool, device, engine: str = "cluster",
+                 drawn: bool = False):
         bh, bw = _tile_block_shape()
         self.tile = tile = bh * bw
         self.h, self.w, self.base_spp, self.per_round = h, w, base_spp, per_round
@@ -176,6 +183,10 @@ class _Adaptive:
         self.jitter = {("base", 0): torch.zeros((nblk, base_spp, tile, 2), **f32)}
         for rnd, spp in enumerate(per_round):
             self.jitter[("round", rnd)] = torch.zeros((k, spp, tile, 2), **f32)
+        self.keys = (torch.zeros((1 + len(per_round), 2), dtype=torch.int64,
+                                 device=device) if drawn else None)
+        self.key_words = (None if self.keys is None
+                          else list(self.keys.view(-1)))
         self.sum1 = torch.zeros((nblk, tile, 3), **f32)
         self.lsum = torch.zeros((nblk, tile), **f32)
         self.lsq = torch.zeros((nblk, tile), **f32)
@@ -189,7 +200,7 @@ class _Adaptive:
                          compact_mode, device, engine)
         self.base = rays(nblk * base_spp * tile, "auto")
         self.waves = {spp: rays(k * spp * tile, "deep") for spp in set(per_round)}
-        # the steps of each wave, drawn into its jitter buffer first
+        # the steps of each wave (its prologue draws into its jitter buffer)
         self.waves_steps = [(("base", 0), [
             progs.step("adaptive base prologue", self._base_prologue),
             self.base.run,
@@ -207,17 +218,24 @@ class _Adaptive:
     def __call__(self, vec, jitter, seed: int) -> torch.Tensor:
         """The frame's (h, w, 3) mean radiance (the static ``out``: copy
         it before the next run) for camera vector ``vec``, each wave's
-        jitter drawn just before it as ``draw_jitter`` draws it."""
+        jitter the draw of ``seed`` (drawn) or ``jitter``'s (given), as
+        ``draw_jitter`` gives it."""
+        if self.keys is not None:
+            write_jitter_keys(self.key_words, seed,
+                              [key for key, _ in self.waves_steps])
         self.vec.copy_(vec)
         for key, steps in self.waves_steps:
-            buf = self.jitter[key]
-            buf.copy_(draw_jitter(jitter, seed, key, buf.shape, buf.device))
+            if self.keys is None:
+                buf = self.jitter[key]
+                buf.copy_(draw_jitter(jitter, seed, key, buf.shape, buf.device))
             for step in steps:
                 step()
         self.final()
         return self.out
 
     def _base_prologue(self) -> None:
+        if self.keys is not None:
+            draw_jitter_into(self.keys[0], self.jitter[("base", 0)])
         self.base.load(*_wave_rays(self.vec, self.w, self.h, self.rows,
                                    self.cols, self.jitter[("base", 0)],
                                    self.tile, True))
@@ -233,6 +251,8 @@ class _Adaptive:
         sel = stable_topk(_score(self.lsum, self.lsq, self.counts),
                           self.sel.shape[0])
         self.sel.copy_(sel)
+        if self.keys is not None:
+            draw_jitter_into(self.keys[1 + rnd], self.jitter[("round", rnd)])
         self.waves[self.per_round[rnd]].load(*_wave_rays(
             self.vec, self.w, self.h, self.rows[sel], self.cols[sel],
             self.jitter[("round", rnd)], self.tile, False))
@@ -291,10 +311,12 @@ def render_camera_adaptive(data: SceneData, meta: SceneMeta, cam: Camera,
     vec = torch.from_numpy(camera_vectors(cam)).to(dev)
     if _programs_on(dev):
         progs = programs.scene_programs(data, meta, accel, dev)
+        drawn = jitter is None
         prog = progs.program(
-            ("adaptive", engine, h, w, base_spp, per_round, k, bfc, relaxed),
+            ("adaptive", engine, h, w, base_spp, per_round, k, bfc, relaxed,
+             "drawn" if drawn else "given"),
             lambda: _Adaptive(progs, data, meta, accel, h, w, base_spp,
-                              per_round, k, bfc, relaxed, dev, engine))
+                              per_round, k, bfc, relaxed, dev, engine, drawn))
         img = prog(vec, jitter, seed).clone()
     else:
         img = _adaptive_eager(data, meta, accel, vec, h, w, base_spp,

@@ -11,7 +11,9 @@ Sample jitter (the jitter and adaptive SSAA modes) comes from
 them, through ``ops.random`` (threefry2x32, the CUDA kernel
 ``csrc/threefry.cu`` on the card).  Integer arithmetic is exact, so a seed
 gives the JAX package's sample set bit for bit, and the same image on the
-CPU and on CUDA.
+CPU and on CUDA.  A captured program draws inside itself instead
+(``draw_jitter_into``): the host writes the draw's key words
+(``write_jitter_keys``) into a static tensor that the kernel reads.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch
 
 from raytracer_tpu_torch.backend import resolve_device
 from raytracer_tpu_torch.models.scene import Camera
-from raytracer_tpu_torch.ops import random
+from raytracer_tpu_torch.ops import kernels, random
 from raytracer_tpu_torch.ops.shade import cross
 
 
@@ -148,6 +150,28 @@ def draw_jitter(jitter, seed: int, key, shape, device) -> torch.Tensor:
         raise ValueError(f"jitter for {key}: shape {tuple(x.shape)}, "
                          f"expected {shape}")
     return x.to(device=device, dtype=torch.float32)
+
+
+def draw_jitter_into(key: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """``draw_jitter``'s offsets into the buffer ``out`` under the key
+    words that ``key`` ((2,) int64 on ``out``'s device, written through
+    ``write_jitter_keys``) holds: read on the device, so a captured program
+    replays the draw of the key written before the replay."""
+    return kernels.threefry_uniform_keyed(key, out, -0.5, 0.5)
+
+
+def write_jitter_keys(words, seed: int, draws) -> None:
+    """Write the threefry key words of the draws ``draws`` under ``seed``
+    (``jitter_key``; a band's seed out of [0, 2**32) raises OverflowError
+    before anything is written) through ``words``, the 0-dim views of an
+    int64 key tensor's words (draw i's at 2i and 2i + 1; a program makes
+    them once, as a view is a host op), one ``fill_`` each: a kernel launch
+    on the device's stream with the word as its argument, so it lands
+    before a later replay and nothing waits for the stream (a blocking copy
+    from host memory would; a reused pinned source would race)."""
+    values = [v for d in draws for v in jitter_key(seed, d)]
+    for word, value in zip(words, values, strict=True):
+        word.fill_(value)
 
 
 def jitter_key(seed: int, key) -> tuple:

@@ -13,8 +13,9 @@ shadow         csrc/shadow.cu               _shadow_kernel (:982) and
                                             _shadow_kernel_ml (:1135)
 any_hit        csrc/any.cu                  _any_kernel (:837)
 threefry_      csrc/threefry.cu             no Pallas kernel: XLA's draw
-uniform                                     of jax.random.uniform
-                                            (models/whitted.py:369)
+uniform_keyed                               of jax.random.uniform
+(threefry_                                  (models/whitted.py:369), its
+uniform)                                    key read from device memory
 =============  ===========================  ==============================
 
 Each wrapper dispatches on the device of its inputs: CPU tensors go to
@@ -552,27 +553,64 @@ def threefry_uniform(k0: int, k1: int, n: int, lo: float, hi: float,
                      device) -> torch.Tensor:
     """(n,) f32 on ``device``: element i is ``jax.random.uniform``'s draw i
     under the key (k0, k1) in [lo, hi), bit for bit (see the plain
-    version).  A CPU device takes the plain version, CUDA the kernel."""
+    version).  A CPU device takes the plain version; elsewhere the key is
+    written into a (2,) tensor on ``device`` and drawn by
+    :func:`threefry_uniform_keyed`."""
     device = torch.device(device)
     if device.type == "cpu":
         return threefry_uniform_plain(k0, k1, n, lo, hi, device)
+    # written by fills, the words as their kernels' arguments: nothing waits
+    # for the stream, as a copy from host memory can
+    key = torch.full((2,), k0 & _M32, dtype=torch.int64, device=device)
+    key[1].fill_(k1 & _M32)
     out = torch.empty((n,), dtype=torch.float32, device=device)
-    _launch("threefry_uniform", "threefry", out.device, k0 & _M32, k1 & _M32,
-            float(lo), float(hi), out, n)
+    return threefry_uniform_keyed(key, out, lo, hi)
+
+
+def threefry_uniform_keyed(key: torch.Tensor, out: torch.Tensor, lo: float,
+                           hi: float) -> torch.Tensor:
+    """``out`` (contiguous f32, any shape) filled with the draw of
+    :func:`threefry_uniform` of ``out.numel()`` elements under the key
+    words that the (2,) int64 tensor ``key`` holds in their low 32 bits;
+    returns ``out``.  The kernel reads the key from device memory, so a
+    captured program that calls this replays the draw of whatever key was
+    written into ``key`` before the replay, into the same buffer.  A CPU
+    ``out`` takes the plain version, a CUDA one the kernel."""
+    if out.device.type == "cpu":
+        return threefry_uniform_keyed_plain(key, out, lo, hi)
+    dev = out.device
+    _check("key", key, torch.int64, (2,), dev)
+    _check("out", out, torch.float32, out.shape, dev)
+    _launch("threefry_uniform", "threefry", dev, key, float(lo), float(hi),
+            out, out.numel())
     return out
 
 
 def threefry_uniform_plain(k0: int, k1: int, n: int, lo: float, hi: float,
                            device="cpu") -> torch.Tensor:
-    """Plain PyTorch version of :func:`threefry_uniform`: int64 tensor ops
-    masked to 32 bits.  The counter of element i is (i >> 32, i & M); its
-    bits are the xor of the two output words, their top 23 bits the
+    """Plain PyTorch version of :func:`threefry_uniform`: the keyed plain
+    version under a key tensor of (k0, k1) on ``device``."""
+    key = torch.tensor([k0 & _M32, k1 & _M32], dtype=torch.int64,
+                       device=device)
+    out = torch.empty((n,), dtype=torch.float32, device=device)
+    return threefry_uniform_keyed_plain(key, out, lo, hi)
+
+
+def threefry_uniform_keyed_plain(key: torch.Tensor, out: torch.Tensor,
+                                 lo: float, hi: float) -> torch.Tensor:
+    """Plain PyTorch version of :func:`threefry_uniform_keyed`: int64 tensor
+    ops on the key tensor's words (read on its device, nothing goes to the
+    host), masked to 32 bits.  The counter of element i is (i >> 32, i &
+    M); its bits are the xor of the two output words, their top 23 bits the
     mantissa of a float in [1, 2), less 1, then scaled to [lo, hi) in f32
-    and clamped below at lo (``jax.random.uniform``'s steps)."""
-    i = torch.arange(n, dtype=torch.int64, device=device)
-    x0, x1 = threefry2x32((k0 & _M32, k1 & _M32), i >> 32, i & _M32)
+    and clamped below at lo (``jax.random.uniform``'s steps), written into
+    ``out``."""
+    k = key & _M32
+    i = torch.arange(out.numel(), dtype=torch.int64, device=out.device)
+    x0, x1 = threefry2x32((k[0], k[1]), i >> 32, i & _M32)
     bits = ((x0 ^ x1) >> 9) | 0x3F800000
     f = bits.to(torch.int32).view(torch.float32) - 1.0
-    lo_t = torch.tensor(lo, dtype=torch.float32, device=device)
-    hi_t = torch.tensor(hi, dtype=torch.float32, device=device)
-    return torch.maximum(lo_t, f * (hi_t - lo_t) + lo_t)
+    lo_t = torch.tensor(lo, dtype=torch.float32, device=out.device)
+    hi_t = torch.tensor(hi, dtype=torch.float32, device=out.device)
+    return out.copy_(torch.maximum(lo_t, f * (hi_t - lo_t) + lo_t)
+                     .view(out.shape))

@@ -13,6 +13,9 @@ arithmetic, so the port reproduces ``jax.random`` bit for bit.
   the counter ``(i >> 32, i & 0xFFFFFFFF)``; the xor of the two words
   gives the float's bits (``ops.kernels.threefry_uniform``: the CUDA
   kernel ``csrc/threefry.cu`` on the card, the plain version on the CPU).
+- A captured program draws into its own buffer under key words that it
+  reads from device memory (``ops.kernels.threefry_uniform_keyed``,
+  through ``ops.camera.draw_jitter_into``).
 
 Keys are pairs of Python ints; the key algebra runs on the host.
 """

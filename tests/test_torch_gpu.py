@@ -330,6 +330,78 @@ def test_jitter_draws_on_card_equal_cpu(cuda, seed, key, shape):
     assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
 
 
+@pytest.mark.parametrize("seed,key,shape", [(7, ("band", 48), (48, 512, 2)),
+                                            (2**40 + 3, ("base", 0), (64, 4, 128, 2)),
+                                            (3, ("round", 1), (5, 7, 2))])
+def test_keyed_draw_on_card_equals_plain_and_host_key(cuda, seed, key, shape):
+    """The threefry kernel with its key read from device memory
+    (``threefry_uniform_keyed``, into a given buffer) equals its plain
+    version on the same key tensor and the host-key call on the same key
+    bit for bit: one launch each for the keyed and host-key calls."""
+    import math
+
+    from raytracer_tpu_torch.ops import kernels as K
+    from raytracer_tpu_torch.ops.camera import jitter_key
+
+    words = jitter_key(seed, key)
+    key_t = torch.tensor(words, dtype=torch.int64, device=cuda)
+    K.reset_launches()
+    out = torch.full(shape, float("nan"), device=cuda)
+    got = K.threefry_uniform_keyed(key_t, out, -0.5, 0.5)
+    host = K.threefry_uniform(*words, math.prod(shape), -0.5, 0.5, cuda)
+    plain = K.threefry_uniform_keyed_plain(key_t, torch.empty(shape, device=cuda),
+                                           -0.5, 0.5)
+    torch.cuda.synchronize()
+    assert got is out and K.launches["threefry"] == 2
+    for x in (host, plain):
+        assert torch.equal(got.view(-1).view(torch.int32),
+                           x.reshape(-1).view(torch.int32))
+
+
+def test_replayed_jitter_bands_equal_eager_on_card(cuda):
+    """A jittered 64x64 camera at --ssaa 2 in 4 bands of 32 rows, its band
+    program drawing in its prologue under the key written before each
+    replay: eager, captured, replayed, eager equal bit for bit with equal
+    launches (4 draws a frame); then other bands' key words written into
+    the captured program and its prologue replayed alone: the plain
+    version's draw of each key."""
+    from raytracer_tpu_torch.models import programs
+    from raytracer_tpu_torch.models.bvh import build_bvh
+    from raytracer_tpu_torch.models.clusters import build_clusters
+    from raytracer_tpu_torch.models.whitted import eager, render_camera_streamed
+    from raytracer_tpu_torch.ops import kernels as K
+    from raytracer_tpu_torch.ops.camera import jitter_key, write_jitter_keys
+    from raytracer_tpu_torch.utils import synth
+
+    data, meta = synth.terrain_scene(cells=16, res=64, mirror_stripes=True,
+                                     device=cuda)
+    cset = build_clusters(data, meta, build_bvh(data, meta))
+    cam = meta.cameras[0]
+    kw = dict(ssaa=2, ssaa_mode="jitter", seed=9, chunk=128 * 32, device=cuda)
+    out = []
+    for graphs in (False, True, True, False):
+        with contextlib.nullcontext() if graphs else eager():
+            K.reset_launches()
+            img = render_camera_streamed(data, meta, cam, cset, **kw)
+            torch.cuda.synchronize()
+            out.append((img.cpu(), dict(K.launches)))
+    for img, launches in out[1:]:
+        assert torch.equal(img, out[0][0]) and launches == out[0][1]
+    assert out[0][1]["threefry"] == 4
+    progs = programs.scene_programs(data, meta, cset, cuda)
+    [frame] = [f for k, f in progs.items() if k[0] == "frame" and k[9] == "drawn"]
+    assert frame.prologue.graph is not None
+    for seed, row0 in ((9, 96), (2**32 - 1, 32), (9, 0)):
+        write_jitter_keys(frame.key_words, seed, [("band", row0)])
+        frame.prologue()
+        want = K.threefry_uniform_plain(*jitter_key(seed, ("band", row0)),
+                                        frame.jitter.numel(), -0.5, 0.5)
+        torch.cuda.synchronize()
+        assert torch.equal(frame.jitter.cpu().view(-1).view(torch.int32),
+                           want.view(torch.int32)), (seed, row0)
+    programs.drop(data)
+
+
 def _train_step_both(cuda, engine, fields=("mat_diffuse", "light_int")):
     """One make_train_step on the card and on the CPU from the same
     perturbed terrain at 32x32 (target: the true radiance, rendered on
