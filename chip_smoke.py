@@ -3085,6 +3085,7 @@ def compare_programs(label, frame, image, results, key, pools=scene_pools,
     import numpy as np
     import torch
 
+    from raytracer_tpu_torch import tracing
     from raytracer_tpu_torch.models import programs
     from raytracer_tpu_torch.models.whitted import eager
     from raytracer_tpu_torch.ops import kernels as K
@@ -3099,12 +3100,13 @@ def compare_programs(label, frame, image, results, key, pools=scene_pools,
         eager_frame()
     torch.cuda.synchronize()
     s0 = dict(programs.stats)
+    capture_s0 = tracing.seconds("program.capture")
     t0 = time.perf_counter()
     frame()
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t0) * 1e3
     captures = programs.stats["captures"] - s0["captures"]
-    capture_ms = (programs.stats["capture_s"] - s0["capture_s"]) * 1e3
+    capture_ms = (tracing.seconds("program.capture") - capture_s0) * 1e3
     pool = pool_bytes(pools())
     out, prof = {}, {}
     for name, fn in (("eager", eager_frame), ("graph", frame)):

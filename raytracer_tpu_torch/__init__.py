@@ -23,6 +23,9 @@ counterpart is easy to find; it never imports JAX or ``raytracer_tpu``.
 - ``utils``: XML ingest, PPM I/O, the native host library, synthetic
   scenes.
 - ``backend``: device resolution and the kernel build.
+- ``tracing``: the port's spans and counters (recorded while a
+  ``torch.profiler`` records; set-up spans always), on the profiler's
+  clock.
 
 Entry points (``render.main``, ``train.main``, ``serve.main`` and
 ``serve.RenderServer``, ``pipeline.render_one_camera``,

@@ -21,9 +21,10 @@ import shutil
 import subprocess
 import tempfile
 import threading
-import time
 
 import torch
+
+from raytracer_tpu_torch import tracing
 
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -174,18 +175,19 @@ def load_library(path: str) -> ctypes.CDLL:
 
 
 def kernels() -> ctypes.CDLL:
-    """The loaded kernel library (built at first use)."""
+    """The loaded kernel library (built and loaded at first use, in the
+    set-up span ``backend.load``)."""
     with _lock:
         if "lib" not in _state:
-            t0 = time.perf_counter()
-            load_library(build())
-            _state["build_s"] = time.perf_counter() - t0
+            with tracing.setup_span("backend.load"):
+                load_library(build())
         return _state["lib"]
 
 
 def build_seconds() -> float:
-    """Seconds the first ``kernels()`` call took (build and load)."""
-    return _state.get("build_s", 0.0)
+    """Seconds the first ``kernels()`` call took (build and load): its
+    ``backend.load`` span."""
+    return tracing.seconds("backend.load")
 
 
 def launch_threads(nt: int) -> int:

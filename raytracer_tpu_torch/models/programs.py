@@ -52,6 +52,12 @@ bodies live in ``models.whitted`` (``_Wavefront``, ``_Rays``, ``_Frame``),
   iterations), as XLA's while_loop reads its predicate; ``stats`` counts
   the reads.
 
+Spans (``tracing``): ``program.step`` around a replay and
+``program.flags`` around a flag read, while a profiler records;
+``program.first`` (a step's first, eager run), ``program.capture`` and
+``program.make`` (``Programs.program``'s construction of a program)
+always, as set-up.  Each names its step or program in ``what``.
+
 A capture that fails raises, naming the step; nothing falls back to
 eager.  On the CPU there is nothing to capture: the caller asked for the
 CPU, and the bodies run eagerly on every run, kept nowhere.
@@ -62,11 +68,11 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
-import time
 from collections import OrderedDict
 
 import torch
 
+from raytracer_tpu_torch import tracing
 from raytracer_tpu_torch.ops import kernels
 
 # scenes whose programs are kept (least recently used first out)
@@ -78,10 +84,10 @@ _scenes: "OrderedDict[tuple, Programs]" = OrderedDict()
 # for at most 2 * MAX_SCENES sources (a scene and its accelerator each)
 _replicas: "OrderedDict[tuple, tuple]" = OrderedDict()
 
-# captures made in this process and the seconds they took (timed on the
-# host around each capture, the device synchronised first by the capture),
-# and the host's reads of a program's flags (``read_flags``)
-stats = {"captures": 0, "capture_s": 0.0, "flag_reads": 0}
+# captures made in this process and the host's reads of a program's flags
+# (``read_flags``); the captures' seconds are their ``program.capture``
+# spans' (``tracing.seconds``)
+stats = {"captures": 0, "flag_reads": 0}
 
 
 @contextlib.contextmanager
@@ -148,7 +154,8 @@ def read_flags(flags: torch.Tensor) -> list:
     counted in ``stats``: how a program decides between its steps, as
     XLA's while_loop reads its predicate on the host once an iteration."""
     stats["flag_reads"] += 1
-    return flags.tolist()
+    with tracing.span("program.flags"):
+        return flags.tolist()
 
 
 def run_while(flag: torch.Tensor, step) -> int:
@@ -177,19 +184,21 @@ class Step:
     def __call__(self) -> None:
         with _on(self.device):
             if self.graph is not None:
-                self.graph.replay()
+                with tracing.span("program.step", self.name):
+                    self.graph.replay()
                 for k, n in self.launches.items():
                     kernels.launches[k] += n
                 return
-            self.body()
+            with tracing.setup_span("program.first", self.name):
+                self.body()
             self._capture()
 
     def _capture(self) -> None:
         before = dict(kernels.launches)
         graph = self.new_graph()
-        t0 = time.perf_counter()
         try:
-            graph.capture(self.body)
+            with tracing.setup_span("program.capture", self.name):
+                graph.capture(self.body)
         except Exception as e:
             raise RuntimeError(f"capture of the step {self.name!r} failed: "
                                f"{type(e).__name__}: {e}") from e
@@ -197,7 +206,6 @@ class Step:
             added = {k: kernels.launches[k] - n for k, n in before.items()}
             kernels.launches.update(before)      # the capture ran nothing
         stats["captures"] += 1
-        stats["capture_s"] += time.perf_counter() - t0
         self.launches = {k: n for k, n in added.items() if n}
         self.graph = graph
 
@@ -228,7 +236,9 @@ class Programs(dict):
         """The program under ``key``, made by ``make()`` on first use."""
         prog = self.get(key)
         if prog is None:
-            prog = self[key] = make()
+            with tracing.setup_span("program.make",
+                                    " ".join(map(str, key[:2]))):
+                prog = self[key] = make()
         return prog
 
 

@@ -14,6 +14,8 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from raytracer_tpu_torch import tracing
+
 
 @dataclasses.dataclass(frozen=True)
 class SceneData:
@@ -207,7 +209,9 @@ def from_parsed(parsed: dict, device="cuda", pad_multiple: int = 8
 
 def load_scene(path: str, device="cuda", pad_multiple: int = 8
                ) -> Tuple[SceneData, SceneMeta]:
-    """Parse a CENG477 scene XML into (SceneData, SceneMeta)."""
+    """Parse a CENG477 scene XML into (SceneData, SceneMeta) (the set-up
+    span ``scene.ingest``)."""
     from raytracer_tpu_torch.utils.xml_ingest import parse_xml
 
-    return from_parsed(parse_xml(path), device, pad_multiple)
+    with tracing.setup_span("scene.ingest"):
+        return from_parsed(parse_xml(path), device, pad_multiple)

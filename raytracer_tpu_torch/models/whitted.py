@@ -61,6 +61,7 @@ import math
 
 import torch
 
+from raytracer_tpu_torch import tracing
 from raytracer_tpu_torch.backend import resolve_device
 from raytracer_tpu_torch.models import programs
 from raytracer_tpu_torch.models.bvh import DeviceBVH
@@ -246,12 +247,17 @@ class _Wavefront:
     ``dirs``; the carry (``color``, ``throughput``, ``active``,
     ``cur_org``, ``cur_dir``, ``idx``), which each bounce rewrites in
     place; and ``flags``, written at the end of every bounce but the last:
-    any ray still active, and the compaction gate of the next bounce, in
-    the float ops of the JAX package's gate (the cluster engine's; off for
+    the rays still active, the live 128-ray tiles (the cluster engine's;
+    0 on brute and bvh) and the compaction gate of the next bounce, in the
+    float ops of the JAX package's gate (the cluster engine's; off for
     brute and bvh, whose hits are refined from ids, as in the JAX
     package).  ``run`` reads the flags once between bounces, as XLA's
-    while_loop reads its predicate, so the early exit and both branches of
-    the gate stay: each bounce runs exactly the ops of the eager loop.
+    while_loop reads its predicate, so the early exit (no ray active) and
+    both branches of the gate stay: each bounce runs exactly the ops of
+    the eager loop.  While a profiler records, ``run`` samples
+    (``tracing.sample``) each bounce's ``wave.active``, the rays active
+    entering it, and on the cluster engine ``wave.lanes``, 128 x the live
+    tiles its kernels see (after a compaction's sort ceil(active / 128)).
 
     Steps: bounce 0 (on the cluster engine the shared-eye peel for a
     shared origin), bounce d plain or compacting (from _COMPACT_FROM), and
@@ -290,7 +296,7 @@ class _Wavefront:
         self.cur_dir = torch.zeros((r, 3), **f32)
         self.active = torch.zeros((r,), dtype=torch.bool, device=device)
         self.idx = torch.arange(r, device=device)
-        self.flags = torch.zeros((2,), dtype=torch.bool, device=device)
+        self.flags = torch.zeros((3,), dtype=torch.int64, device=device)
         nl, i64 = meta.n_lights, dict(dtype=torch.int64, device=device)
         if engine == "bvh":
             bvh = traverse._device_bvh(accel)
@@ -322,20 +328,31 @@ class _Wavefront:
     @torch.no_grad()
     def run(self) -> torch.Tensor:
         """Trace the loaded rays; returns the ``color`` buffer (R, 3)."""
+        sampled = not self.record and tracing.recording()
+        if sampled:
+            self._sample(self.r, -(-self.r // TILE))
         self._run(0, False)
         compacted = False
         for depth in range(1, self.meta.max_depth + 1):
-            scattered = False
+            take = False
             if not self.record:
-                alive, scattered = programs.read_flags(self.flags)
-                if not alive:
+                active, tiles, scattered = programs.read_flags(self.flags)
+                if not active:
                     break
-            take = self.compact and depth >= _COMPACT_FROM and scattered
+                take = (self.compact and depth >= _COMPACT_FROM
+                        and scattered > 0)
+                if sampled:
+                    self._sample(active, -(-active // TILE) if take else tiles)
             self._run(depth, take)
             compacted |= take
         if compacted:
             self._run("uncompact", True)
         return self.color
+
+    def _sample(self, active: int, tiles: int) -> None:
+        tracing.sample("wave.active", active)
+        if self.engine == "cluster":
+            tracing.sample("wave.lanes", TILE * tiles)
 
     def _run(self, depth, compacted: bool) -> None:
         steps = self.steps.get((depth, compacted))
@@ -403,15 +420,18 @@ class _Wavefront:
 
     def _flags(self, depth: int, active) -> None:
         if depth < self.meta.max_depth:
-            alive = active.any()
-            if self.compact and depth + 1 >= _COMPACT_FROM:
-                act_f = active.to(torch.float32).mean()
-                live_f = active.reshape(-1, TILE).any(1).to(
-                    torch.float32).mean()
-                scattered = live_f - act_f > _COMPACT_SCATTER
-            else:
-                scattered = torch.zeros_like(alive)
-            self.flags.copy_(torch.stack([alive, scattered]))
+            count = active.sum()
+            tiles = scattered = torch.zeros_like(count)
+            if self.engine == "cluster":
+                pad = (-self.r) % TILE   # the kernels pad with inactive rays
+                live = (torch.nn.functional.pad(active, (0, pad)) if pad
+                        else active).reshape(-1, TILE).any(1)
+                tiles = live.sum()
+                if self.compact and depth + 1 >= _COMPACT_FROM:
+                    act_f = active.to(torch.float32).mean()
+                    live_f = live.to(torch.float32).mean()
+                    scattered = live_f - act_f > _COMPACT_SCATTER
+            self.flags.copy_(torch.stack([count, tiles, scattered]))
 
     def _bounce_body(self, depth: int, compacted: bool):
         def body():
@@ -1009,7 +1029,13 @@ def render_camera_streamed(data: SceneData, meta: SceneMeta, cam: Camera,
     mesh replays as one program (``_MeshFrame``) as a band on one device
     does (``_Frame``), on every engine; without ``jitter`` a jittered
     band's program draws its offsets itself (on a mesh, on its first
-    device: every process draws the whole band)."""
+    device: every process draws the whole band).
+
+    Spans (``tracing``, while a profiler records): ``pipeline.upload``
+    (the camera vector's upload and the programs' lookup),
+    ``pipeline.band`` (each band, its first row in ``what``),
+    ``pipeline.assemble`` (a band's copy out of its program; the bands'
+    ``cat`` and crop)."""
     dev = _render_device(data, accel, device)
     engine = resolve_engine(engine, accel, meta)
     chunk = _cap_chunk_for_big_scenes(chunk, accel)
@@ -1030,30 +1056,39 @@ def render_camera_streamed(data: SceneData, meta: SceneMeta, cam: Camera,
     # compaction on, each wavefront compacts only its own rays, which can
     # change only which of two exactly equally near primitives wins (the
     # exact-t tie class).
-    vec = torch.from_numpy(camera_vectors(cam)).to(dev)
     jittered = ssaa_mode == "jitter" and ssaa > 1
-    progs = (programs.scene_programs(data, meta, accel, dev)
-             if all(_programs_on(d) for d in (mesh.devices if mesh else [dev]))
-             else None)
+    with tracing.span("pipeline.upload"):
+        vec = torch.from_numpy(camera_vectors(cam)).to(dev)
+        progs = (programs.scene_programs(data, meta, accel, dev)
+                 if all(_programs_on(d)
+                        for d in (mesh.devices if mesh else [dev]))
+                 else None)
     drawn = jittered and progs is not None and jitter is None
     bands = []
     for row0 in range(0, hs, band_h):
         bh = min(band_h, hs - row0)
         if mesh is not None:
             bh = -(-bh // lcm) * lcm          # virtual rows below the frame
-        offsets = None
-        if jittered and not drawn:
-            offsets = draw_jitter(jitter, seed, ("band", row0), (bh, ws, 2), dev)
-        if progs is not None:
-            frame = _frame(progs, data, meta, accel, "band", hs, ws, bh, chunk,
-                           ssaa, ssaa_mode, hdr, jittered, bfc, relaxed,
-                           engine, mesh, drawn=drawn)
-            bands.append(frame(vec, row0, offsets, seed).clone())
-            continue
-        with nan_site(f"band of rows {row0}-{row0 + bh - 1}"):
-            bands.append(render_band(
-                data, meta, accel, vec, hs, ws, row0, bh, ssaa=ssaa,
-                ssaa_mode=ssaa_mode, hdr=hdr, chunk=chunk, jitter=offsets,
-                bfc=bfc, relaxed=relaxed, engine=engine, mesh=mesh))
-    out = torch.cat(bands)
-    return out[:cam.height] if out.shape[0] != cam.height else out
+        with tracing.span("pipeline.band", row0):
+            offsets = None
+            if jittered and not drawn:
+                offsets = draw_jitter(jitter, seed, ("band", row0),
+                                      (bh, ws, 2), dev)
+            if progs is None:
+                with nan_site(f"band of rows {row0}-{row0 + bh - 1}"):
+                    band = render_band(
+                        data, meta, accel, vec, hs, ws, row0, bh, ssaa=ssaa,
+                        ssaa_mode=ssaa_mode, hdr=hdr, chunk=chunk,
+                        jitter=offsets, bfc=bfc, relaxed=relaxed,
+                        engine=engine, mesh=mesh)
+            else:
+                band = _frame(progs, data, meta, accel, "band", hs, ws, bh,
+                              chunk, ssaa, ssaa_mode, hdr, jittered, bfc,
+                              relaxed, engine, mesh, drawn=drawn)(
+                                  vec, row0, offsets, seed)
+        with tracing.span("pipeline.assemble"):
+            # a program's band is its static output: copied out
+            bands.append(band if progs is None else band.clone())
+    with tracing.span("pipeline.assemble"):
+        out = torch.cat(bands)
+        return out[:cam.height] if out.shape[0] != cam.height else out

@@ -31,6 +31,7 @@ from typing import NamedTuple
 
 import torch
 
+from raytracer_tpu_torch import tracing
 from raytracer_tpu_torch.backend import resolve_device
 from raytracer_tpu_torch.models import programs
 from raytracer_tpu_torch.models.scene import SceneData, SceneMeta
@@ -277,9 +278,10 @@ def make_train_step(meta: SceneMeta, lr: float = 3e-2, engine: str = "brute",
             stale = prog is not None
             for group in state.opt.param_groups:
                 group["lr"] = lr
-            prog = kept[key] = _TrainProgram(
-                state, data, meta, origin, dirs, target, accel, local, mesh,
-                versions, programs.graph_class(dev), engine)
+            with tracing.setup_span("program.make", "train"):
+                prog = kept[key] = _TrainProgram(
+                    state, data, meta, origin, dirs, target, accel, local,
+                    mesh, versions, programs.graph_class(dev), engine)
             if len(kept) > MAX_TRAIN_PROGRAMS:
                 kept.popitem(last=False)
                 stale = True

@@ -2,7 +2,12 @@
 route of a render request (adaptive sampling, or row bands of about the
 ray chunk), then the SSAA reduction, tone curve and quantization, with
 the same semantics on both routes, through the brute, BVH or cluster
-engine, on one device or split over a device mesh (``parallel.mesh``)."""
+engine, on one device or split over a device mesh (``parallel.mesh``).
+
+Spans (``tracing``, while a profiler records): ``pipeline.frame`` around
+``render_one_camera``, ``pipeline.to_host`` around the image's copy to
+the host, ``pipeline.write`` around ``write_image``; the bands' spans are
+``render_camera_streamed``'s."""
 
 from __future__ import annotations
 
@@ -11,6 +16,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from raytracer_tpu_torch import tracing
 from raytracer_tpu_torch.backend import resolve_device
 from raytracer_tpu_torch.models.whitted import (
     _tile_block_shape, render_camera_streamed, resolve_engine,
@@ -61,36 +67,40 @@ def render_one_camera(data, meta, cam, accel, *, ssaa: int = 1,
         raise ValueError(f"unknown ssaa_mode {ssaa_mode!r}; one of {SSAA_MODES}")
     if tone not in TONE_MODES:
         raise ValueError(f"unknown tone {tone!r}; one of {TONE_MODES}")
-    device = resolve_device(device)
-    want_float = hdr or tone != "none"
-    stats = None
-    if mesh is not None:
-        block_w = (_tile_block_shape()[1]
-                   if resolve_engine(engine, accel, meta) == "cluster" else 1)
-        if (mesh.size == 1 or ssaa_mode == "adaptive"
-                or (cam.width * ssaa) % block_w):
-            mesh = None
-    if ssaa_mode == "adaptive":
-        # variance needs >= 2 samples: at ssaa 1 adaptive still supersamples
-        base = max(2, ssaa * ssaa)
-        color, stats = render_camera_adaptive(
-            data, meta, cam, accel, base_spp=base,
-            extra_spp=adaptive_extra if adaptive_extra is not None else 3 * base,
-            refine_frac=adaptive_frac, seed=seed, bfc=bfc,
-            rounds=adaptive_rounds, relaxed=relaxed, device=device,
-            engine=engine)
-        img = (color if hdr else tone_map(color, tone) if want_float
-               else quantize(color))
-    else:
-        # row bands: ray state stays about one chunk, the SSAA reduction
-        # runs per band, and jittered samples are drawn per band
-        img = render_camera_streamed(
-            data, meta, cam, accel, chunk=chunk, bfc=bfc, ssaa=ssaa,
-            ssaa_mode=ssaa_mode, hdr=want_float, seed=seed, relaxed=relaxed,
-            device=device, engine=engine, mesh=mesh)
-        if want_float and not hdr:
-            img = tone_map(img, tone)
-    return img.cpu().numpy(), stats
+    with tracing.span("pipeline.frame", ssaa_mode):
+        device = resolve_device(device)
+        want_float = hdr or tone != "none"
+        stats = None
+        if mesh is not None:
+            cluster = resolve_engine(engine, accel, meta) == "cluster"
+            block_w = _tile_block_shape()[1] if cluster else 1
+            if (mesh.size == 1 or ssaa_mode == "adaptive"
+                    or (cam.width * ssaa) % block_w):
+                mesh = None
+        if ssaa_mode == "adaptive":
+            # variance needs >= 2 samples: at ssaa 1 adaptive still
+            # supersamples
+            base = max(2, ssaa * ssaa)
+            extra = adaptive_extra if adaptive_extra is not None else 3 * base
+            color, stats = render_camera_adaptive(
+                data, meta, cam, accel, base_spp=base, extra_spp=extra,
+                refine_frac=adaptive_frac, seed=seed, bfc=bfc,
+                rounds=adaptive_rounds, relaxed=relaxed, device=device,
+                engine=engine)
+            img = (color if hdr else tone_map(color, tone) if want_float
+                   else quantize(color))
+        else:
+            # row bands: ray state stays about one chunk, the SSAA
+            # reduction runs per band, and jittered samples are drawn per
+            # band
+            img = render_camera_streamed(
+                data, meta, cam, accel, chunk=chunk, bfc=bfc, ssaa=ssaa,
+                ssaa_mode=ssaa_mode, hdr=want_float, seed=seed,
+                relaxed=relaxed, device=device, engine=engine, mesh=mesh)
+            if want_float and not hdr:
+                img = tone_map(img, tone)
+        with tracing.span("pipeline.to_host"):
+            return img.cpu().numpy(), stats
 
 
 def write_image(out_dir: str, image_name: str, img: np.ndarray,
@@ -100,20 +110,21 @@ def write_image(out_dir: str, image_name: str, img: np.ndarray,
     extension."""
     if fmt not in FORMATS:
         raise ValueError(f"unknown format {fmt!r}; one of {FORMATS}")
-    stem = image_name.rsplit(".", 1)[0]
-    if fmt == "png":
-        from raytracer_tpu_torch.utils.png import write_png
+    with tracing.span("pipeline.write", fmt):
+        stem = image_name.rsplit(".", 1)[0]
+        if fmt == "png":
+            from raytracer_tpu_torch.utils.png import write_png
 
-        path = os.path.join(out_dir, f"{stem}.png")
-        write_png(path, img)
-    elif fmt == "exr":
-        from raytracer_tpu_torch.utils.exr import write_exr
+            path = os.path.join(out_dir, f"{stem}.png")
+            write_png(path, img)
+        elif fmt == "exr":
+            from raytracer_tpu_torch.utils.exr import write_exr
 
-        path = os.path.join(out_dir, f"{stem}.exr")
-        write_exr(path, img)
-    else:
-        from raytracer_tpu_torch.utils.ppm import write_ppm
+            path = os.path.join(out_dir, f"{stem}.exr")
+            write_exr(path, img)
+        else:
+            from raytracer_tpu_torch.utils.ppm import write_ppm
 
-        path = os.path.join(out_dir, image_name)
-        write_ppm(path, img)
-    return path
+            path = os.path.join(out_dir, image_name)
+            write_ppm(path, img)
+        return path

@@ -14,8 +14,16 @@ golden-parity mode.  Runs on the GPU unless ``--device cpu``.
 after bringing up ``torch.distributed`` when torchrun's environment is
 set (``parallel.distributed.initialize``); every rank then holds the
 whole image and rank 0 alone writes it.  ``--profile DIR`` writes a
-``torch.profiler`` trace of the render loop into DIR.  ``--debug-nans``
-checks every wave's radiance (``models.whitted.debug_nans``).
+``torch.profiler`` trace of the render loop into DIR
+(``trace_rank<R>.json``), with the port's spans (``tracing``) merged in
+as ``X`` events on the main thread's row and its wave counters as ``C``
+events: ``pipeline.frame``, ``.upload``, ``.band``, ``.assemble``,
+``.to_host``, ``.write``; ``program.step`` (a replay, its step's name in
+``args``), ``program.flags`` (a flag read, one device sync),
+``program.make``, ``.first``, ``.capture`` (construction, a step's
+first eager run, its capture); ``backend.load``; the counters
+``wave.active`` and ``wave.lanes``.  ``--debug-nans`` checks every
+wave's radiance (``models.whitted.debug_nans``).
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ import time
 
 import torch
 
+from raytracer_tpu_torch import tracing
 from raytracer_tpu_torch.backend import resolve_device
 from raytracer_tpu_torch.models.bvh import build_bvh, device_bvh
 from raytracer_tpu_torch.models.clusters import build_clusters
@@ -67,15 +76,17 @@ def accel_for(path, data, meta, dev, save: bool = True):
 def engine_accel(engine, cache, data, meta, dev, save: bool = True):
     """The accelerator of ``engine``: the clusters (``accel_for``, with
     the accel cache) for cluster and auto, the BVH with its octant threads
-    on ``dev`` for bvh, None for brute."""
+    on ``dev`` for bvh, None for brute; built in the set-up span
+    ``accel.build``."""
     if engine == "brute":
         return None
-    if engine == "bvh":
-        if cache:
-            print("note: --accel-cache is read and written by the cluster "
-                  "engine only")
-        return device_bvh(build_bvh(data, meta, ordered=True), dev)
-    return accel_for(cache, data, meta, dev, save)
+    with tracing.setup_span("accel.build", engine):
+        if engine == "bvh":
+            if cache:
+                print("note: --accel-cache is read and written by the "
+                      "cluster engine only")
+            return device_bvh(build_bvh(data, meta, ordered=True), dev)
+        return accel_for(cache, data, meta, dev, save)
 
 
 def render_camera_cli(args, data, meta, cam, accel, engine, dev, mesh,
@@ -189,7 +200,8 @@ def main(argv=None) -> None:
                          "card and rank 0 writes the images")
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="write a torch.profiler trace of the render loop "
-                         "into DIR (trace_rank<R>.json)")
+                         "into DIR (trace_rank<R>.json), the port's spans "
+                         "and wave counters merged in")
     ap.add_argument("--debug-nans", action="store_true",
                     help="check every wave's radiance after each bounce and "
                          "raise FloatingPointError naming the band and bounce "
@@ -240,7 +252,9 @@ def main(argv=None) -> None:
         os.makedirs(args.profile, exist_ok=True)
         path = os.path.join(args.profile, f"trace_rank{rank}.json")
         prof.export_chrome_trace(path)
-        print(f"Wrote the profiler trace to {path}")
+        added = tracing.merge_chrome_trace(path)
+        print(f"Wrote the profiler trace to {path} ({added} spans and "
+              "counter samples of the port)")
     print(f"Rendered in {t_render / args.repeat:.3f} seconds.")
     print(f"Total: {t_render / args.repeat + (t1 - t0):.3f} seconds.")
 

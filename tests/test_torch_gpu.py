@@ -1001,3 +1001,48 @@ def test_two_process_bvh_programs_on_card(tmp_path):
     from test_torch_mesh_programs import run_two_ranks
 
     run_two_ranks(tmp_path, "cuda", timeout=600, engine="bvh")
+
+
+def test_flag_spans_enclose_their_copies_on_card(cuda):
+    """The port's spans share the profiler's clock on the card: each
+    ``program.flags`` span of a profiled replayed frame (a terrain at max
+    depth 3 that compacts) encloses the host event of its copy, and the
+    wave counters sample every bounce the frame traced."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from raytracer_tpu_torch import tracing
+    from raytracer_tpu_torch.models import programs
+    from raytracer_tpu_torch.models.bvh import build_bvh
+    from raytracer_tpu_torch.models.clusters import build_clusters
+    from raytracer_tpu_torch.pipeline import render_one_camera
+    from raytracer_tpu_torch.utils import synth
+
+    data, meta = synth.terrain_scene(cells=16, res=64, mirror_stripes=True,
+                                     max_depth=3, device=cuda)
+    cset = build_clusters(data, meta, build_bvh(data, meta))
+    cam = meta.cameras[0]
+
+    def frame():
+        return render_one_camera(data, meta, cam, cset, ssaa=2,
+                                 device=cuda)[0]
+
+    want = frame()
+    tracing.clear()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got = frame()
+    assert (got == want).all()
+    copies = [(e.start_ns(), e.start_ns() + e.duration_ns())
+              for e in prof.profiler.kineto_results.events()
+              if e.name() in ("cudaMemcpyAsync", "aten::_local_scalar_dense")]
+    flags = [s for s in tracing.spans if s.name == "program.flags"]
+    steps = [s for s in tracing.spans if s.name == "program.step"]
+    assert flags and steps
+    for s in flags:
+        assert any(s.start <= a and b <= s.end for a, b in copies), s
+    bounces = [s for s in steps if s.what.startswith("bounce")]
+    active = [c for c in tracing.samples if c.name == "wave.active"]
+    lanes = [c for c in tracing.samples if c.name == "wave.lanes"]
+    assert len(active) == len(lanes) == len(bounces)
+    assert active[0].value == lanes[0].value == (cam.width * 2) ** 2
+    programs.drop(data)
