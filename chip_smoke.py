@@ -234,6 +234,9 @@ OUT = os.path.join(REPO, "smoke_out")
 # cores and HBM3 bandwidth
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+# the FP32 issue rate (132 SMs x 128 lanes x 1980 MHz): the rate of one
+# float operation a lane a clock, with no FMA to count twice
+PEAK_ISSUE = 33.454e12
 
 # float operations per (ray, primitive-or-box) pair, counted from the
 # kernel sources: csrc/ray_mask.cu (6 mul, 6 sub, 4 min/max with the near
@@ -270,6 +273,10 @@ REPLACES = {
     "shadow": "raytracer_tpu/ops/cluster_trace.py:1135",
     "any": "raytracer_tpu/ops/cluster_trace.py:837",
     "threefry": "raytracer_tpu/models/whitted.py:369",
+    "hit_record": "raytracer_tpu/ops/cluster_trace.py:1603 (XLA's fusion "
+                  "after the kernel) and raytracer_tpu/ops/shade.py",
+    "shade_bounce": "raytracer_tpu/ops/shade.py shade_local, "
+                    "reflection_rays; raytracer_tpu/models/whitted.py _shade",
 }
 SOURCES = {
     "ray_mask": "raytracer_tpu_torch/csrc/ray_mask.cu",
@@ -279,7 +286,22 @@ SOURCES = {
     "shadow": "raytracer_tpu_torch/csrc/shadow.cu",
     "any": "raytracer_tpu_torch/csrc/any.cu",
     "threefry": "raytracer_tpu_torch/csrc/threefry.cu",
+    "hit_record": "raytracer_tpu_torch/csrc/shade.cu",
+    "shade_bounce": "raytracer_tpu_torch/csrc/shade.cu",
 }
+
+# float operations of the forward bounce epilogue (csrc/shade.cu), counted
+# from the source, a library call (sqrtf, acosf, powf) as one: hit_record
+# 17 a ray (point, offset, |d|^2 of the sphere test), 30 a (ray, small
+# sphere) pair (the closest kernel's sphere test and the merge), 18 a
+# (ray, light) pair (the relevance test); shade_bounce 42 a ray that hits
+# (ambient, the two normalizations, color, reflection, throughput), 62 a
+# (hit, light) pair (the relevance test again, the segment, Blinn-Phong,
+# the sum).  Left out, so the bound stays below the work: a sphere hit's
+# normal (15) and the segment test of a relevant pair against each small
+# sphere (29)
+OPS_EPILOGUE = {"ray": 17, "sphere_pair": 30, "light": 18, "hit": 42,
+                "hit_light": 62}
 
 # jax.random.uniform(key, shape, float32, -0.5, 0.5) of JAX 0.9.0
 # (threefry2x32, partitionable), as the JAX package keys it (the port's
@@ -703,7 +725,8 @@ def kernel_instance(mangled):
     ``..14closest_kernelILb1ELb0ELi4EE..``), or None."""
     import re
 
-    k = re.search(r"\d(closest|any|shadow|ray_mask_hier|ray_mask|threefry_uniform)_kernel"
+    k = re.search(r"\d(closest|any|shadow|ray_mask_hier|ray_mask|threefry_uniform"
+                  r"|hit_record|shade_bounce)_kernel"
                   r"((?:I(?:L[a-z]\d+E)+E)?)", mangled)
     if k is None:
         return None
@@ -748,7 +771,7 @@ def ptxas_report(path):
     check(out and all("registers" in r for r in out.values()),
           f"build log: no registers for some kernel instance: {out}")
     for kname in ("closest", "any", "shadow", "ray_mask_hier", "ray_mask",
-                  "threefry_uniform"):
+                  "threefry_uniform", "hit_record", "shade_bounce"):
         check(any(n.split("<")[0] == kname for n in out),
               f"build log: no instance of {kname}_kernel: {sorted(out)}")
     return out
@@ -1116,7 +1139,9 @@ EVENT_ROWS = (("ray_mask_hier_kernel", "ray_mask_hier"),
               ("closest_kernel<true", "closest_shared"),
               ("closest_kernel<false", "closest"),
               ("shadow_kernel", "shadow"), ("any_kernel", "any"),
-              ("threefry_uniform_kernel", "threefry"))
+              ("threefry_uniform_kernel", "threefry"),
+              ("hit_record_kernel", "hit_record"),
+              ("shade_bounce_kernel", "shade_bounce"))
 
 
 def kernel_of(event_name):
@@ -2194,6 +2219,7 @@ def treelet_frame(dev, results, checked):
     from raytracer_tpu_torch.models.bvh import build_bvh
     from raytracer_tpu_torch.models.clusters import build_clusters
     from raytracer_tpu_torch.models.whitted import eager
+    from raytracer_tpu_torch.ops import cluster_trace as ctr
     from raytracer_tpu_torch.ops import kernels as K
     from raytracer_tpu_torch.pipeline import render_one_camera
     from raytracer_tpu_torch.utils.synth import terrain_scene
@@ -2271,6 +2297,140 @@ def example_on_card(results):
         f"{wall:.2f} s; launches {launches}; its last lines: "
         + " | ".join(out.splitlines()[-2:]))
     results["example"] = {"losses": losses, "wall_s": wall, "launches": launches}
+
+
+def _cloned(x):
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple):
+        return type(x)(*map(_cloned, x)) if hasattr(x, "_fields") else \
+            tuple(map(_cloned, x))
+    return x
+
+
+def epilogue_work(name, args):
+    """(float operations, bytes) of one epilogue call: OPS_EPILOGUE over
+    its rays, hits and pairs; the bytes the kernel has to move: what it
+    reads of every ray, what it reads of a hit ray only (the record past
+    the hit flag, the occlusion bits) and of a ray that stops only (its
+    own origin), the slot table's rows of the slots hit once each, and
+    what it writes."""
+    import torch
+
+    from raytracer_tpu_torch.ops import cluster_trace as ctr
+
+    data, meta, cset = args[:3]
+    nl, ns = meta.n_lights, ctr._n_small(cset)
+    if name == "hit_record":
+        t, slot, origin, dirs, active = args[3:]
+        r = dirs.shape[0]
+        h, mask = ctr.hit_record(*args)
+        hit_slots = torch.unique(slot[:r][slot[:r] >= 0])
+        ops = r * (OPS_EPILOGUE["ray"] + ns * OPS_EPILOGUE["sphere_pair"]
+                   + nl * OPS_EPILOGUE["light"])
+        read = nbytes(t[:r], slot[:r], origin, dirs, active) \
+            + 32 * hit_slots.numel() + 16 * ns + 12 * nl
+        return ops, read + nbytes(*h, mask)
+    carry, h, occ = args[3], args[4], args[5]
+    r, hits = h.hit.shape[0], int(h.hit.sum())
+    ops = hits * (OPS_EPILOGUE["hit"] + nl * OPS_EPILOGUE["hit_light"])
+    going = int((carry[2] & h.hit & data.mat_is_mirror[h.mat]).sum())
+    org = carry[3]
+    read = nbytes(*carry[:3], carry[4], h.hit) \
+        + (12 * (r - going) if org.dim() == 2 else nbytes(org)) \
+        + hits * nbytes(h.normal[0], h.mat[0], h.offset[0]) \
+        + (hits * (nbytes(h.point[0]) + nl) if nl else 0)
+    return ops, read + nbytes(*carry[:3], carry[4], carry[4])
+
+
+def epilogue_on_card(dev, results):
+    """Phase 5b: the forward bounce epilogue (csrc/shade.cu) at the busiest
+    calls of the horse31k benchmark frame (1440x720 at SSAA 2, 4,147,200
+    rays; 2 small spheres, 2 lights): bounce 0's, all rays active.  Each
+    kernel equals its plain version there, is timed on the device (10
+    launches behind a spin) against its bound and the plain version; its
+    device ms and launches in one replayed frame (profiled).  Returns the
+    two kernel rows."""
+    import torch
+
+    from benchmark import sceneio
+    from benchmark.paths import Bench
+    from raytracer_tpu_torch.models.scene import from_parsed
+    from raytracer_tpu_torch.models.whitted import eager
+    from raytracer_tpu_torch.ops import cluster_trace as ctr
+    from raytracer_tpu_torch.ops import kernels as K
+    from raytracer_tpu_torch.pipeline import render_one_camera
+    from raytracer_tpu_torch.render import engine_accel
+
+    bench = Bench(REPO)
+    tr = bench.traffic("frame-ssaa2")
+    data, meta = from_parsed(
+        sceneio.generate(bench, bench.config("horse31k"), 1), dev)
+    accel = engine_accel(tr["engine"], None, data, meta, dev)
+
+    def frame():
+        return render_one_camera(data, meta, meta.cameras[tr["camera"]], accel,
+                                 ssaa=tr["ssaa"], ssaa_mode=tr["ssaa_mode"],
+                                 chunk=tr["chunk"], device=dev)[0]
+
+    calls = {"hit_record": [], "shade_bounce": []}
+
+    def keep(name):
+        def wrap(f):
+            def kept(*a, out=None, **kw):
+                calls[name].append(_cloned(a))
+                return f(*a, **kw) if out is None else f(*a, out=out, **kw)
+            return kept
+        return wrap
+
+    with patched(ctr, "hit_record", keep("hit_record")), \
+            patched(ctr, "shade_bounce", keep("shade_bounce")), eager():
+        frame()
+    K.reset_launches()
+    frame()                                  # captures
+    K.reset_launches()
+    frame()                                  # a replay
+    launches = dict(K.launches)
+    profile_frame(frame, results, "epilogue_profile")
+    by_kernel = results.get("epilogue_profile", {}).get("by_kernel", {})
+    rows = []
+    for name, plain in (("hit_record", ctr.hit_record_plain),
+                        ("shade_bounce", ctr.shade_bounce_plain)):
+        active = (lambda a: a[7]) if name == "hit_record" else \
+            (lambda a: a[3][2])
+        args = max(calls[name], key=lambda a: int(active(a).sum()))
+        got, want = getattr(ctr, name)(*_cloned(args)), plain(*_cloned(args))
+        flat = [x for o in (got, want) for x in
+                (o if isinstance(o, tuple) else (o,))]
+        flat = [x for o in flat for x in (o if isinstance(o, tuple) else (o,))
+                if x is not None]
+        half = len(flat) // 2
+        check(all(equal_nan(a, b) for a, b in zip(flat[:half], flat[half:])),
+              f"{name}: the kernel differs from its plain version at the "
+              "horse frame's busiest call")
+        ms = time_call(getattr(ctr, name), args, 10)
+        plain_ms = time_once(plain, _cloned(args))
+        ops, byt = epilogue_work(name, args)
+        t_ops, t_bytes = ops / PEAK_ISSUE * 1e3, byt / PEAK_BYTES * 1e3
+        dev_ms, n = by_kernel.get(name, [None, 0])
+        row = {"name": name, "route": "cuda", "source": SOURCES[name],
+               "replaces": REPLACES[name], "launches": launches[name],
+               "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "library_ms": None, "ops": ops, "bytes": byt,
+               "frames": {"horse31k": {"device_ms": dev_ms, "launches": n}}}
+        log(f"  {name} (horse frame's busiest call, {int(active(args).sum())} "
+            f"active rays): {ms:.4f} ms/launch, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}: {ops:.3e} ops, {byt:.3e} bytes), "
+            f"{row['bound_ms'] / ms:.3f} of the bound, plain {plain_ms:.2f} ms; "
+            f"a replayed frame: {launches[name]} launches, device "
+            f"{dev_ms if dev_ms is None else round(dev_ms, 4)} ms")
+        rows.append(row)
+    results["epilogue"] = rows
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -2844,6 +3004,7 @@ def serve_on_card(dev, results, checked):
 
     from raytracer_tpu_torch.models.scene import load_scene
     from raytracer_tpu_torch.models.whitted import eager
+    from raytracer_tpu_torch.ops import cluster_trace as ctr
     from raytracer_tpu_torch.ops import kernels as K
     from raytracer_tpu_torch.pipeline import render_one_camera
     from raytracer_tpu_torch.render import engine_accel
@@ -4073,6 +4234,8 @@ def run():
             f"plain {plain_ms:.2f} ms")
         results.setdefault("shadow_1_light", []).append(
             {"where": label, "ms": ms, "bound_ms": bound_ms, "plain_ms": plain_ms})
+    log("== phase 5b: the forward bounce epilogue at the horse frame's shapes")
+    rows += epilogue_on_card(dev, results)
     log("  library_ms: null for every kernel; no single PyTorch call computes "
         "a slab mask over cluster shortlists (flat or gated by superclusters), "
         "a shortlist closest hit, a plane-table shadow test or a shortlist "
@@ -4129,7 +4292,8 @@ def run():
                    for f in ("jitter_ssaa2", "adaptive")},
     })
     for row in rows:
-        row["path_launches"] = {k: v[row["name"]] for k, v in path_launches.items()}
+        row["path_launches"] = {k: v.get(row["name"], 0)
+                                for k, v in path_launches.items()}
         row["max_abs_err"] = max_err.get(row["name"], row["max_abs_err"])
     results["kernels"] = rows
     results["card"] = smi

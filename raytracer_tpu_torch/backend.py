@@ -64,6 +64,16 @@ SIGNATURES = {
     # key (2 int64 words on the device), lo, hi, out, n, stream
     "rt_threefry_uniform": [_vp, ctypes.c_float, ctypes.c_float, _vp,
                             ctypes.c_longlong, _vp],
+    # t, slot, origin, dirs, active, pack, sph, lps, hit, normal, mat,
+    # point, offset, mask, r, pt, ps, n_small, nl, shared_origin, eps,
+    # relevant_cos, stream
+    "rt_hit_record": [_vp] * 14 + [_i] * 6 + [ctypes.c_float] * 2 + [_vp],
+    # color, tp, active, org, dir (in), hit, normal, mat, point, offset,
+    # occ, mat_ambient, mat_diffuse, mat_specular, mat_mirror, mat_phong,
+    # mat_is_mirror, lps, lint, ambient_light, background, sph, color, tp,
+    # active, org, dir (out), r, nl, ps, n_small, shared_origin, first,
+    # inplace, relaxed, relevant_cos, rad_to_deg, gate_deg, stream
+    "rt_shade_bounce": [_vp] * 27 + [_i] * 8 + [ctypes.c_float] * 3 + [_vp],
 }
 
 _lock = threading.Lock()

@@ -14,7 +14,14 @@ Background only for a depth-0 miss, black for deeper misses; ambient
 re-added at every bounce; the loop ends after depth max_depth or when no
 lane is active (the differentiable path runs all max_depth + 1 bounces).
 On the cluster engine's forward path bounce 0 of an eye wavefront is
-peeled out so the closest-hit kernel can use the shared origin.
+peeled out so the closest-hit kernel can use the shared origin, and a
+bounce is four kernels around the shortlists (``_fused_bounce``): the
+closest kernel, ``cluster_trace.hit_record`` (the hit record and the
+shadow mask), the occlusion route, ``cluster_trace.shade_bounce`` (the
+shading, the reflection and the carry, written into the wavefront's
+buffers).  The brute and BVH engines and every differentiable path
+refine their hits and shade with PyTorch ops (``refine_hit``,
+``_shade``), which autograd needs.
 
 Cluster-engine shadows: per-light plane tables and the shadow kernel
 while a table fits ``SHADOW_PLANES_BYTES_MAX``, else the generic any-hit
@@ -78,9 +85,8 @@ from raytracer_tpu_torch.ops.image import (
     downsample_mean, downsample_parity, quantize,
 )
 from raytracer_tpu_torch.ops.kernels import TILE
-from raytracer_tpu_torch.ops.shade import (
-    Hit, refine_hit, reflection_rays, shade_local, shadow_query,
-)
+from raytracer_tpu_torch.ops.shade import Hit, refine_hit, shadow_query
+from raytracer_tpu_torch.ops.shade import shade_local  # noqa: F401 (re-export)
 from raytracer_tpu_torch.ops.tiling import (
     apply_tile_order, block_permutation, divides, undo_tile_order,
 )
@@ -167,9 +173,12 @@ def _occlusion(data: SceneData, meta: SceneMeta, accel, engine: str,
     nl = meta.n_lights
     shadow_fn = shadow_multi_fn = None
 
-    def occluded_fn(org, seg, t_max, mask):
+    # small_spheres (cluster engine): False leaves out the dense test of a
+    # scene's few spheres, which the forward bounce's kernel makes
+    def occluded_fn(org, seg, t_max, mask, small_spheres=True):
         return traverse.any_hit(data, org, seg, t_max, accel, engine,
-                                active=mask, bfc=bfc, relaxed=relaxed)
+                                active=mask, bfc=bfc, relaxed=relaxed,
+                                small_spheres=small_spheres)
 
     if engine == "cluster" and nl > 0:
         pt = accel.tri_verts.shape[1]
@@ -177,66 +186,93 @@ def _occlusion(data: SceneData, meta: SceneMeta, accel, engine: str,
             planes = [ctr.build_shadow_planes(accel, data.light_pos[l], bfc=bfc)
                       for l in range(nl)]
 
-            def shadow_fn(org, sdir, mask, l):
+            def shadow_fn(org, sdir, mask, l, small_spheres=True):
                 return ctr.cluster_shadow(accel, planes[l], org, sdir,
                                           data.light_pos[l], active=mask,
-                                          relaxed=relaxed)
+                                          relaxed=relaxed,
+                                          small_spheres=small_spheres)
 
             # all lights in ONE kernel launch while every table fits together
             if nl >= 2 and nl * pt * 64 <= ctr.SHADOW_PLANES_BYTES_MAX:
-                def shadow_multi_fn(org, masks):
+                def shadow_multi_fn(org, masks, small_spheres=True):
                     return ctr.cluster_shadow_multi(
                         accel, planes, org, data.light_pos[:nl], masks,
-                        relaxed=relaxed)
+                        relaxed=relaxed, small_spheres=small_spheres)
     return shadow_fn, shadow_multi_fn, occluded_fn
 
 
 def _bounce(data: SceneData, meta: SceneMeta, accel, engine: str, bfc: bool,
-            fns, carry, origin=None, shared_eye: bool = False, prim=None):
+            fns, carry, prim=None):
     """One bounce of the carry (depth, color, throughput, active, cur_org,
-    cur_dir, idx); ``depth`` is a Python int.  The cluster engine's
-    forward path (``origin`` given: the wavefront's shared (3,) origin,
-    used by the peeled eye bounce, ``shared_eye``) takes its hits from the
-    kernel's slot table; otherwise the engine's primitive ids (``prim``,
-    when given: recorded ones) are refined differentiably
-    (``refine_hit``)."""
+    cur_dir, idx), differentiable; ``depth`` is a Python int.  The
+    engine's primitive ids (``prim``, when given: recorded ones) are
+    refined (``refine_hit``) and shaded by ``_shade``.  The cluster
+    engine's forward bounces take ``_fused_bounce``."""
     depth, color, throughput, active, cur_org, cur_dir, idx = carry
-    if origin is not None:
-        fhit, t, normal, mat, point, offset, _ = ctr.cluster_closest_hit(
-            accel, origin if shared_eye else cur_org, cur_dir,
-            meta.shadow_eps, active=active, bfc=bfc,
-            shared_origin=shared_eye)
-        h = Hit(hit=fhit & active, t=t, normal=normal, mat=mat,
-                point=point, offset=offset)
-    else:
-        if prim is None:
-            prim = traverse.closest_hit(data, cur_org, cur_dir, accel, engine,
-                                        active=active, bfc=bfc)
-        prim = torch.where(active, prim, traverse.MISS)
-        h = refine_hit(data, meta, cur_org, cur_dir, prim)
+    if prim is None:
+        prim = traverse.closest_hit(data, cur_org, cur_dir, accel, engine,
+                                    active=active, bfc=bfc)
+    prim = torch.where(active, prim, traverse.MISS)
+    h = refine_hit(data, meta, cur_org, cur_dir, prim)
     return _shade(data, meta, fns, carry, h)
 
 
-def _shade(data: SceneData, meta: SceneMeta, fns, carry, h: Hit):
-    """The rest of a bounce from its hits ``h``: the background of a depth-0
-    miss, the local shading (occlusion through ``fns``), the mirror
-    reflection; returns the next carry."""
+def _fused_bounce(data: SceneData, meta: SceneMeta, accel, bfc: bool, fns,
+                  carry, shared, relaxed: bool, out):
+    """The cluster engine's forward bounce of the carry (as ``_bounce``'s):
+    the closest kernel (``cluster_trace.cluster_closest_slots``; from the
+    ``shared`` (3,) origin when given), the hit record
+    (``cluster_trace.hit_record``), the occlusion route of ``fns`` without
+    its small-sphere test, then the shading and the next carry
+    (``cluster_trace.shade_bounce``, ``relaxed`` its sphere test's, into
+    the buffers ``out``)."""
     depth, color, throughput, active, cur_org, cur_dir, idx = carry
-    if depth == 0:
-        color = color + torch.where((~h.hit & active)[:, None],
-                                    data.background[None, :], 0.0)
+    org = cur_org if shared is None else shared
+    t, slot = ctr.cluster_closest_slots(accel, org, cur_dir, active=active,
+                                        bfc=bfc,
+                                        shared_origin=shared is not None)
+    h, mask = ctr.hit_record(data, meta, accel, t, slot, org, cur_dir, active)
+    occ = _occluded(data, meta, fns, h.offset, mask)
+    color, throughput, active, cur_org, cur_dir = ctr.shade_bounce(
+        data, meta, accel, (color, throughput, active, org, cur_dir), h, occ,
+        depth == 0, relaxed, out=out)
+    _check_radiance(color, depth)
+    return depth + 1, color, throughput, active, cur_org, cur_dir, idx
+
+
+def _occluded(data: SceneData, meta: SceneMeta, fns, offset, mask):
+    """(R, L) occlusion of the segments from the offset points to each
+    light where ``mask`` (hit and relevant), through the route of ``fns``
+    (``_occlusion``) without its small-sphere test; None without lights."""
+    nl = meta.n_lights
+    if nl == 0:
+        return None
     shadow_fn, shadow_multi_fn, occluded_fn = fns
-    local = shade_local(data, meta, cur_dir, h, shadow_fn=shadow_fn,
-                        shadow_multi_fn=shadow_multi_fn,
-                        occluded_fn=occluded_fn)
-    color = color + throughput * torch.where(h.hit[:, None], local, 0.0)
+    if shadow_multi_fn is not None:
+        return shadow_multi_fn(offset, mask, small_spheres=False)
+    if shadow_fn is not None:
+        return torch.stack([
+            shadow_fn(offset, data.light_pos[l] - offset, mask[:, l], l,
+                      small_spheres=False)
+            for l in range(nl)], dim=1)
+    to_off = data.light_pos[:nl][None, :, :] - offset[:, None, :]
+    return occluded_fn(*shade.segments(offset, to_off, mask),
+                       small_spheres=False).reshape(nl, -1).T.contiguous()
+
+
+def _check_radiance(color, depth: int) -> None:
     if _debug["nans"] and not bool(torch.isfinite(color).all()):
         raise FloatingPointError(f"radiance not finite after bounce {depth}")
-    refl_org, refl_dir, tint, is_mirror = reflection_rays(data, cur_dir, h)
-    active = active & is_mirror
-    throughput = torch.where(active[:, None], throughput * tint, 0.0)
-    cur_org = torch.where(active[:, None], refl_org, cur_org)
-    cur_dir = torch.where(active[:, None], refl_dir, cur_dir)
+
+
+def _shade(data: SceneData, meta: SceneMeta, fns, carry, h: Hit):
+    """The rest of a bounce from its hits ``h`` (``shade.bounce``: the
+    background of a depth-0 miss, the local shading, occlusion through
+    ``fns``, the mirror reflection); returns the next carry."""
+    depth, idx = carry[0], carry[-1]
+    color, throughput, active, cur_org, cur_dir = shade.bounce(
+        data, meta, carry[1:6], h, depth == 0, fns=fns)
+    _check_radiance(color, depth)
     return depth + 1, color, throughput, active, cur_org, cur_dir, idx
 
 
@@ -257,7 +293,9 @@ class _Wavefront:
     the eager loop.  While a profiler records, ``run`` samples
     (``tracing.sample``) each bounce's ``wave.active``, the rays active
     entering it, and on the cluster engine ``wave.lanes``, 128 x the live
-    tiles its kernels see (after a compaction's sort ceil(active / 128)).
+    tiles its kernels see (after a compaction's sort ceil(active / 128));
+    after a bounce whose step went through ``_fused_bounce`` (``fused``,
+    noted as the body runs), ``wave.fused``, its active rays again.
 
     Steps: bounce 0 (on the cluster engine the shared-eye peel for a
     shared origin), bounce d plain or compacting (from _COMPACT_FROM), and
@@ -283,6 +321,7 @@ class _Wavefront:
                  device, step, engine: str = "cluster", record: bool = False):
         self.data, self.meta, self.accel, self.bfc = data, meta, accel, bfc
         self.r, self.shared, self.engine, self.record = r, shared, engine, record
+        self.relaxed = relaxed
         self.compact = (engine == "cluster"
                         and (meta.max_depth >= _COMPACT_MIN_DEPTH
                              or compact_mode == "deep") and r % TILE == 0)
@@ -319,6 +358,7 @@ class _Wavefront:
         self.step = step
         self.steps = {}
         self.blocks = {}
+        self.fused = set()   # the (depth, compacted) steps of _fused_bounce
 
     @torch.no_grad()
     def load(self, origin, dirs) -> None:
@@ -332,6 +372,8 @@ class _Wavefront:
         if sampled:
             self._sample(self.r, -(-self.r // TILE))
         self._run(0, False)
+        if sampled:
+            self._sample_fused((0, False), self.r)
         compacted = False
         for depth in range(1, self.meta.max_depth + 1):
             take = False
@@ -344,6 +386,8 @@ class _Wavefront:
                 if sampled:
                     self._sample(active, -(-active // TILE) if take else tiles)
             self._run(depth, take)
+            if sampled:
+                self._sample_fused((depth, take), active)
             compacted |= take
         if compacted:
             self._run("uncompact", True)
@@ -353,6 +397,12 @@ class _Wavefront:
         tracing.sample("wave.active", active)
         if self.engine == "cluster":
             tracing.sample("wave.lanes", TILE * tiles)
+
+    def _sample_fused(self, key, active: int) -> None:
+        """``wave.fused``: the bounce's ``active`` rays, where its step
+        (``key``) went through ``_fused_bounce``."""
+        if key in self.fused:
+            tracing.sample("wave.fused", active)
 
     def _run(self, depth, compacted: bool) -> None:
         steps = self.steps.get((depth, compacted))
@@ -438,11 +488,15 @@ class _Wavefront:
             carry = self._carry(depth)
             if compacted:
                 carry = _compact_carry(carry)
-            cluster = self.engine == "cluster"
-            carry = _bounce(self.data, self.meta, self.accel, self.engine,
-                            self.bfc, self.fns, carry,
-                            origin=self.origin if cluster else None,
-                            shared_eye=depth == 0 and self.shared)
+            if self.engine == "cluster":
+                shared = self.origin if depth == 0 and self.shared else None
+                carry = _fused_bounce(self.data, self.meta, self.accel,
+                                      self.bfc, self.fns, carry, shared,
+                                      self.relaxed, self._buffers(depth)[1:6])
+                self.fused.add((depth, compacted))
+            else:
+                carry = _bounce(self.data, self.meta, self.accel, self.engine,
+                                self.bfc, self.fns, carry)
             self._store(carry)
             self._flags(depth, carry[3])
         return body

@@ -16,6 +16,17 @@ Per trace call:
 3. The ``closest``, ``shadow`` or ``any_hit`` kernel visits each tile's
    candidates.
 
+Scenes with 1 to SMALL_SPH spheres test them densely over all rays
+instead.  On the forward bounces that test, the closest kernel's hit
+record (``slot_hits``) and the shading run in the epilogue kernels
+(``hit_record``, ``shade_bounce``: scene-level entry points whose CPU
+tensors take the plain versions beside them, their CUDA tensors
+``kernels.hit_record`` and ``kernels.shade_bounce``): the forward path
+calls ``cluster_closest_slots`` and the occlusion routes with
+``small_spheres`` False.  ``cluster_closest_hit`` and the routes at their
+default keep the dense test and the record in PyTorch ops (the
+differentiable path's visibility, the tests).
+
 Visibility carries no gradient: the entry points (and the plane-table
 build) run under ``torch.no_grad()`` on detached inputs, where the JAX
 package calls ``stop_gradient``; the differentiable path re-derives hits
@@ -33,7 +44,7 @@ from __future__ import annotations
 import torch
 
 from raytracer_tpu_torch.models.clusters import ClusterSet
-from raytracer_tpu_torch.ops import kernels
+from raytracer_tpu_torch.ops import kernels, shade
 from raytracer_tpu_torch.ops.kernels import MAX_SPH_LIST, MAX_TRI_LIST, TILE
 from raytracer_tpu_torch.ops.shade import cross
 
@@ -405,27 +416,35 @@ def cluster_closest(cset: ClusterSet, origin, dirs, active=None,
 
 
 @torch.no_grad()
-def cluster_closest_hit(cset: ClusterSet, origin, dirs, shadow_eps: float,
-                        active=None, bfc: bool = False,
-                        shared_origin: bool = False):
-    """Closest hit with shading info from the kernel's (t, slot) and ONE
-    gather of the per-slot table.  ``origin``: (3,) with
-    ``shared_origin`` (eye wavefronts: interval tile mask and the shared-
-    origin kernel), else (R, 3).  Returns (hit, t, normal, mat, point,
-    offset, prim)."""
+def cluster_closest_slots(cset: ClusterSet, origin, dirs, active=None,
+                          bfc: bool = False, shared_origin: bool = False):
+    """(t, slot) of the closest kernel ((R_pad,): the rays padded to whole
+    tiles) for rays ``origin`` + t ``dirs``: the tile masks and the
+    shortlists, then the kernel.  ``origin``: (3,) with ``shared_origin``
+    (eye wavefronts: interval tile mask and the shared-origin kernel),
+    else (R, 3)."""
     shared = shared_origin and origin.dim() == 1
     org1 = origin.reshape(3).contiguous() if shared else None
     origin = origin.expand(dirs.shape).contiguous()
     r, origin, dirs, active = _pad_rays(origin, dirs.contiguous(), active)
     mask_fn = tile_cluster_mask if shared else ray_cluster_mask
     thit, shit = _cluster_masks(cset, origin, dirs, active, None, mask_fn)
-    t, slot = kernels.closest(*_lists(thit, shit),
-                              org1 if shared else origin, dirs,
-                              cset.tri_dat, cset.sph_dat, bfc)
+    return kernels.closest(*_lists(thit, shit),
+                           org1 if shared else origin, dirs,
+                           cset.tri_dat, cset.sph_dat, bfc)
+
+
+@torch.no_grad()
+def slot_hits(cset: ClusterSet, origin, dirs, t, slot, shadow_eps: float):
+    """The hit record of rays ``origin`` ((3,) or (R, 3)) + t ``dirs``
+    (R, 3) from the closest kernel's (t, slot) (R or more, padded): the
+    dense small-sphere merge, then ONE gather of the per-slot table.
+    Returns (hit, t, normal, mat, point, offset, prim)."""
+    r = dirs.shape[0]
+    origin = origin.expand(dirs.shape)
+    t, slot = t[:r], slot[:r]
     if 0 < cset.n_sph <= SMALL_SPH:
         t, slot = _merge_small_spheres(cset, origin, dirs, t, slot)
-    t, slot = t[:r], slot[:r]
-    origin, dirs = origin[:r], dirs[:r]
     hit = slot >= 0
     sslot = torch.where(hit, slot, 0).long()
     pt = cset.tri_dat.shape[1]
@@ -449,11 +468,102 @@ def cluster_closest_hit(cset: ClusterSet, origin, dirs, shadow_eps: float,
 
 
 @torch.no_grad()
+def cluster_closest_hit(cset: ClusterSet, origin, dirs, shadow_eps: float,
+                        active=None, bfc: bool = False,
+                        shared_origin: bool = False):
+    """Closest hit with shading info from the kernel's (t, slot) and ONE
+    gather of the per-slot table (``cluster_closest_slots``, then
+    ``slot_hits``).  ``origin``: (3,) with ``shared_origin``, else (R, 3).
+    Returns (hit, t, normal, mat, point, offset, prim).  The forward
+    bounces take the same record from :func:`hit_record`."""
+    t, slot = cluster_closest_slots(cset, origin, dirs, active, bfc,
+                                    shared_origin)
+    return slot_hits(cset, origin, dirs, t, slot, shadow_eps)
+
+
+def _n_small(cset: ClusterSet) -> int:
+    """The spheres of a scene with 1 to SMALL_SPH of them, which are tested
+    densely over all rays; 0 otherwise."""
+    return cset.n_sph if 0 < cset.n_sph <= SMALL_SPH else 0
+
+
+@torch.no_grad()
+def hit_record(data, meta, cset: ClusterSet, t, slot, origin, dirs, active):
+    """(Hit, mask (R, L) bool) of a forward bounce's rays ``origin`` ((3,)
+    shared or (R, 3)) + t ``dirs`` (R, 3) from the closest kernel's (t,
+    slot) (``cluster_closest_slots``): the record of :func:`slot_hits`
+    with its hit ANDed with ``active`` (R,) bool and no ``t`` (nothing
+    after it reads one), and the shadow pass's mask hit & relevant per
+    light (``shade.light_terms``).  CPU tensors take the plain version,
+    CUDA ones ``kernels.hit_record``."""
+    if dirs.device.type == "cpu":
+        return hit_record_plain(data, meta, cset, t, slot, origin, dirs,
+                                active)
+    hit, normal, mat, point, offset, mask = kernels.hit_record(
+        t, slot, origin, dirs, active, cset.slot_pack, cset.sph_dat,
+        data.light_pos[:meta.n_lights], _n_small(cset), meta.shadow_eps,
+        shade.RELEVANT_COS)
+    return shade.Hit(hit=hit, t=None, normal=normal, mat=mat, point=point,
+                     offset=offset), mask
+
+
+def hit_record_plain(data, meta, cset: ClusterSet, t, slot, origin, dirs,
+                     active):
+    """Plain PyTorch version of :func:`hit_record`: :func:`slot_hits`, then
+    ``shade.light_terms``."""
+    hit, _, normal, mat, point, offset, _ = slot_hits(cset, origin, dirs, t,
+                                                      slot, meta.shadow_eps)
+    h = shade.Hit(hit=hit & active, t=None, normal=normal, mat=mat,
+                  point=point, offset=offset)
+    return h, h.hit[:, None] & shade.light_terms(data, meta, h)[3]
+
+
+@torch.no_grad()
+def shade_bounce(data, meta, cset: ClusterSet, carry, h, occ, first: bool,
+                 relaxed: bool = False, out=None):
+    """The next (color, throughput, active, cur_org, cur_dir) of a forward
+    bounce's ``carry`` (the same five; ``cur_org`` may be the shared (3,)
+    origin) from its record ``h`` (:func:`hit_record`) and ``occ`` (R, L)
+    bool, the occlusion route's bits without the small-sphere test (None
+    without lights): that test ORed in, then ``shade.bounce`` (the
+    background of a ``first`` bounce's misses, ambient and Blinn-Phong,
+    color += throughput * local, the mirror reflection and the carry).
+    CPU tensors take the plain version, which returns new tensors; CUDA
+    ones ``kernels.shade_bounce``, which writes ``out`` (five tensors of R
+    rays, the carry's own buffers for an update in place) when given."""
+    if h.normal.device.type == "cpu":
+        return shade_bounce_plain(data, meta, cset, carry, h, occ, first,
+                                  relaxed)
+    nl = meta.n_lights
+    return kernels.shade_bounce(
+        carry, (h.hit, h.normal, h.mat, h.point, h.offset), occ,
+        (data.mat_ambient, data.mat_diffuse, data.mat_specular,
+         data.mat_mirror, data.mat_phong, data.mat_is_mirror),
+        data.light_pos[:nl], data.light_int[:nl], data.ambient_light,
+        data.background, cset.sph_dat, _n_small(cset), first, relaxed,
+        shade.RELEVANT_COS, shade.RAD_TO_DEG, shade.SPEC_GATE_DEG, out=out)
+
+
+def shade_bounce_plain(data, meta, cset: ClusterSet, carry, h, occ,
+                       first: bool, relaxed: bool = False):
+    """Plain PyTorch version of :func:`shade_bounce`: the occlusion routes'
+    small-sphere test (``_small_sphere_test_multi``), then ``shade.bounce``
+    on those bits."""
+    if occ is not None and _n_small(cset):
+        lps = data.light_pos[:meta.n_lights].reshape(-1)
+        occ = occ | _small_sphere_test_multi(cset, h.offset, lps, relaxed)
+    return shade.bounce(data, meta, carry, h, first, occ=occ)
+
+
+@torch.no_grad()
 def cluster_shadow(cset: ClusterSet, planes, origin, dirs, light_pos,
-                   active=None, relaxed: bool = False):
+                   active=None, relaxed: bool = False,
+                   small_spheres: bool = True):
     """Occlusion of the segments origin -> light_pos (t < 1) for ONE light;
     ``dirs`` is the unnormalized segment light_pos - origin (it shapes the
-    tile shortlists; the kernel tests origins against ``planes``)."""
+    tile shortlists; the kernel tests origins against ``planes``).
+    ``small_spheres`` False leaves out the dense test of a scene's 1 to
+    SMALL_SPH spheres (:func:`shade_bounce` makes it)."""
     r, origin, dirs, active = _pad_rays(origin.detach().contiguous(),
                                         dirs.detach().contiguous(), active)
     ones = torch.ones((origin.shape[0],), device=origin.device)
@@ -463,17 +573,18 @@ def cluster_shadow(cset: ClusterSet, planes, origin, dirs, light_pos,
     found = kernels.shadow(*lists, lp, origin, planes[None], cset.sph_dat,
                            relaxed)
     occ = (found & 1) != 0
-    if 0 < cset.n_sph <= SMALL_SPH:
+    if small_spheres and 0 < cset.n_sph <= SMALL_SPH:
         occ = occ | _small_sphere_occluded(cset, origin, dirs, relaxed)
     return occ[:r]
 
 
 @torch.no_grad()
 def cluster_shadow_multi(cset: ClusterSet, planes_list, origin, light_pos,
-                         active_per_light, relaxed: bool = False):
+                         active_per_light, relaxed: bool = False,
+                         small_spheres: bool = True):
     """Occlusion toward ALL lights in ONE kernel launch: light_pos (L, 3),
     active_per_light (R, L) bool; returns (R, L) bool, per light equal to
-    :func:`cluster_shadow`."""
+    :func:`cluster_shadow` (``small_spheres`` as there)."""
     nl = len(planes_list)
     lp = light_pos.detach().to(torch.float32).reshape(-1).contiguous()
     origin = origin.detach().contiguous()
@@ -489,18 +600,20 @@ def cluster_shadow_multi(cset: ClusterSet, planes_list, origin, light_pos,
     found = kernels.shadow(*lists, lp, origin, torch.stack(planes_list),
                            cset.sph_dat, relaxed)
     occ = torch.stack([(found >> l) & 1 for l in range(nl)], dim=1) != 0
-    if 0 < cset.n_sph <= SMALL_SPH:
+    if small_spheres and 0 < cset.n_sph <= SMALL_SPH:
         occ = occ | _small_sphere_test_multi(cset, origin, lp, relaxed)
     return occ[:r]
 
 
 @torch.no_grad()
 def cluster_any(cset: ClusterSet, origin, dirs, t_max, active=None,
-                bfc: bool = False, relaxed: bool = False):
+                bfc: bool = False, relaxed: bool = False,
+                small_spheres: bool = True):
     """(R,) bool: some accepted hit with t < t_max on origin + t dirs (the
     ``any_hit`` kernel; shadow segments pass t_max 1).  ``origin``: (3,)
     or (R, 3); ``t_max``: (R,); ``active`` (R,) bool marks the lanes whose
-    result is read (it shapes the shortlists)."""
+    result is read (it shapes the shortlists); ``small_spheres`` as in
+    :func:`cluster_shadow`."""
     dirs = dirs.detach().contiguous()
     origin = origin.detach().expand(dirs.shape).contiguous()
     r, origin, dirs, active, t_max = _pad_rays(origin, dirs, active,
@@ -510,7 +623,7 @@ def cluster_any(cset: ClusterSet, origin, dirs, t_max, active=None,
     found = kernels.any_hit(*_lists(thit, shit), origin, dirs, t_max,
                             cset.tri_dat, cset.sph_dat, bfc, relaxed)
     occ = found != 0
-    if 0 < cset.n_sph <= SMALL_SPH:
+    if small_spheres and 0 < cset.n_sph <= SMALL_SPH:
         occ = occ | _small_sphere_occluded(cset, origin, dirs, relaxed,
                                            t_max[:, None])
     return occ[:r]

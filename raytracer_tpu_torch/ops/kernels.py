@@ -16,6 +16,14 @@ threefry_      csrc/threefry.cu             no Pallas kernel: XLA's draw
 uniform_keyed                               of jax.random.uniform
 (threefry_                                  (models/whitted.py:369), its
 uniform)                                    key read from device memory
+hit_record     csrc/shade.cu                no Pallas kernel: XLA's fusion
+                                            of cluster_closest_hit after
+                                            its kernel (:1603) and the
+                                            shadow mask (ops/shade.py)
+shade_bounce   csrc/shade.cu                no Pallas kernel: XLA's fusion
+                                            of shade_local, reflection_rays
+                                            (ops/shade.py) and _shade's
+                                            carry (models/whitted.py)
 =============  ===========================  ==============================
 
 Each wrapper dispatches on the device of its inputs: CPU tensors go to
@@ -37,6 +45,13 @@ in the scene, a tile with any sphere candidate visits every sphere
 cluster, ascending.  The closest hit is the lexicographic minimum of
 (t, lane, visit), which is what the TPU kernel's lanewise accumulator
 and first-lane argmin give.
+
+The forward bounce epilogue (``hit_record``, ``shade_bounce``) runs one
+thread a ray, and its wrappers take CUDA tensors only: the scene-level
+entry points ``cluster_trace.hit_record`` and ``shade_bounce`` send CPU
+tensors to their plain versions there (``slot_hits``, ``shade.bounce``),
+which the kernels follow op for op, summing in the order PyTorch's CUDA
+reductions do.
 """
 
 from __future__ import annotations
@@ -52,7 +67,8 @@ MAX_SPH_LIST = 8
 DENSE_SPH_ROWS = 8   # scenes with <= this many sphere clusters visit all
 
 launches = {"ray_mask": 0, "ray_mask_hier": 0, "closest_shared": 0,
-            "closest": 0, "shadow": 0, "any": 0, "threefry": 0}
+            "closest": 0, "shadow": 0, "any": 0, "threefry": 0,
+            "hit_record": 0, "shade_bounce": 0}
 
 # tiles per step of the plain versions: bounds their (tiles, 128, 128)
 # and (tiles, 128, C) temporaries
@@ -614,3 +630,124 @@ def threefry_uniform_keyed_plain(key: torch.Tensor, out: torch.Tensor,
     hi_t = torch.tensor(hi, dtype=torch.float32, device=out.device)
     return out.copy_(torch.maximum(lo_t, f * (hi_t - lo_t) + lo_t)
                      .view(out.shape))
+
+
+# ---------------------------------------------------------------------------
+# hit_record, shade_bounce: the cluster engine's forward bounce epilogue,
+# before and after the occlusion pass (on the card only: their plain
+# versions, on the scene's arrays, are cluster_trace.hit_record_plain and
+# shade_bounce_plain)
+# ---------------------------------------------------------------------------
+
+def _cuda(name: str, x: torch.Tensor) -> torch.device:
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} runs on the card; {x.device} tensors take "
+                         "its plain version (ops/cluster_trace.py)")
+    return x.device
+
+
+def hit_record(t, slot, origin, dirs, active, slot_pack, sph_dat, light_pos,
+               n_small: int, eps: float, relevant_cos: float):
+    """(hit (R,) bool, normal (R, 3), mat (R,) int64, point (R, 3), offset
+    (R, 3), mask (R, L) bool) of rays ``origin`` ((3,) shared or (R, 3)) +
+    t ``dirs`` (R, 3) from the closest kernel's (t, slot) ((R_pad,),
+    padded to whole tiles): the first ``n_small`` spheres of ``sph_dat``
+    (4, Ps) tested densely and merged, the hit's ``slot_pack`` (Pt + Ps,
+    8) row, its hit ANDed with ``active`` (R,) bool, and the shadow
+    pass's mask hit & (cos_theta >= relevant_cos) toward each of
+    ``light_pos`` (L, 3)."""
+    dev = _cuda("hit_record", dirs)
+    r, nl = dirs.shape[0], light_pos.shape[0]
+    rp = -(-r // TILE) * TILE
+    pt, ps = slot_pack.shape[0] - sph_dat.shape[1], sph_dat.shape[1]
+    shared = origin.dim() == 1
+    _check("t", t, torch.float32, (rp,), dev)
+    _check("slot", slot, torch.int32, (rp,), dev)
+    _check("origin", origin, torch.float32, (3,) if shared else (r, 3), dev)
+    _check("dirs", dirs, torch.float32, (r, 3), dev)
+    _check("active", active, torch.bool, (r,), dev)
+    _check("slot_pack", slot_pack, torch.float32, (pt + ps, 8), dev)
+    _check("sph_dat", sph_dat, torch.float32, (4, ps), dev)
+    _check("light_pos", light_pos, torch.float32, (nl, 3), dev)
+    if slot_pack.data_ptr() % 16:
+        raise ValueError("slot_pack must be 16-byte aligned (float4 rows)")
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = (torch.empty((r,), dtype=torch.bool, device=dev),
+           torch.empty((r, 3), **f32),
+           torch.empty((r,), dtype=torch.int64, device=dev),
+           torch.empty((r, 3), **f32), torch.empty((r, 3), **f32),
+           torch.empty((r, nl), dtype=torch.bool, device=dev))
+    _launch("hit_record", "hit_record", dev, t, slot, origin, dirs, active,
+            slot_pack, sph_dat, light_pos, *out, r, pt, ps, n_small, nl,
+            int(shared), float(eps), float(relevant_cos))
+    return out
+
+
+def shade_bounce(carry, record, occ, materials, light_pos, light_int,
+                 ambient_light, background, sph_dat, n_small: int,
+                 first: bool, relaxed: bool, relevant_cos: float,
+                 rad_to_deg: float, gate_deg: float, out=None):
+    """The next (color, throughput, active, cur_org, cur_dir) of a forward
+    bounce's ``carry`` (the same five; ``cur_org`` may be the shared (3,)
+    origin) from its ``record`` (hit, normal, mat, point, offset of
+    :func:`hit_record`) and ``occ`` (R, L) bool, the occlusion pass's bits
+    (None without lights), ORed with the segment test of the first
+    ``n_small`` spheres of ``sph_dat``: the background of a ``first``
+    bounce's misses, ambient and Blinn-Phong from ``materials`` (ambient,
+    diffuse, specular, mirror (M, 3); phong (M,); is_mirror (M,) bool),
+    the lights (L, 3) and ``ambient_light`` (3,), color += throughput *
+    local, the mirror reflection and the carry.  Writes ``out`` (five
+    tensors of R rays; the carry's own buffers for an update in place,
+    where an inactive lane returns after its flag) when given, else new
+    tensors; returns them."""
+    color, throughput, active, cur_org, cur_dir = carry
+    hit, normal, mat, point, offset = record
+    ambient, diffuse, specular, mirror, phong, is_mirror = materials
+    dev = _cuda("shade_bounce", cur_dir)
+    r, nl, m = cur_dir.shape[0], light_pos.shape[0], phong.shape[0]
+    ps = sph_dat.shape[1]
+    shared = cur_org.dim() == 1
+    f32, b8 = torch.float32, torch.bool
+    for name, x, dtype, shape in (
+            ("color", color, f32, (r, 3)),
+            ("throughput", throughput, f32, (r, 3)),
+            ("active", active, b8, (r,)),
+            ("cur_org", cur_org, f32, (3,) if shared else (r, 3)),
+            ("cur_dir", cur_dir, f32, (r, 3)),
+            ("hit", hit, b8, (r,)),
+            ("normal", normal, f32, (r, 3)),
+            ("mat", mat, torch.int64, (r,)),
+            ("point", point, f32, (r, 3)),
+            ("offset", offset, f32, (r, 3)),
+            ("mat_ambient", ambient, f32, (m, 3)),
+            ("mat_diffuse", diffuse, f32, (m, 3)),
+            ("mat_specular", specular, f32, (m, 3)),
+            ("mat_mirror", mirror, f32, (m, 3)),
+            ("mat_phong", phong, f32, (m,)),
+            ("mat_is_mirror", is_mirror, b8, (m,)),
+            ("light_pos", light_pos, f32, (nl, 3)),
+            ("light_int", light_int, f32, (nl, 3)),
+            ("ambient_light", ambient_light, f32, (3,)),
+            ("background", background, f32, (3,)),
+            ("sph_dat", sph_dat, f32, (4, ps))):
+        _check(name, x, dtype, shape, dev)
+    if nl:
+        _check("occ", occ, torch.bool, (r, nl), dev)
+    elif occ is not None:
+        raise ValueError("occ is given for a scene without lights")
+    if out is None:
+        out = (torch.empty_like(color), torch.empty_like(throughput),
+               torch.empty_like(active), torch.empty_like(cur_dir),
+               torch.empty_like(cur_dir))
+    for name, x, like in zip(("color", "throughput", "active", "cur_org",
+                              "cur_dir"), out, (color, throughput, active,
+                                                cur_dir, cur_dir)):
+        _check("out " + name, x, like.dtype, like.shape, dev)
+    # every lane's carry in its own buffer: an inactive lane keeps it as it is
+    inplace = all(o.data_ptr() == c.data_ptr() for o, c in zip(out, carry))
+    _launch("shade_bounce", "shade_bounce", dev, *carry, *record,
+            occ if nl else 0, *materials, light_pos, light_int, ambient_light,
+            background, sph_dat, *out, r, nl, ps, n_small, int(shared),
+            int(first), int(inplace), int(relaxed), float(relevant_cos),
+            float(rad_to_deg), float(gate_deg))
+    return tuple(out)

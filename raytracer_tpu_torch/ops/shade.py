@@ -14,6 +14,11 @@ point; cosTheta from the UNOFFSET point; diffuse with clamp(cosTheta, 0,
 reference's literal constants); mirror direction d + n*2(-d.n) from the
 offset point, tinted by mat.mirror.
 
+``bounce`` is the rest of a bounce from its hits: the brute and BVH
+engines' and the differentiable path's, and the plain version of the
+cluster engine's forward epilogue kernels (``cluster_trace.hit_record``
+and ``shade_bounce``, ``csrc/shade.cu``), which compute the same per ray.
+
 Material rows (and refine_hit's vertices and radii) are gathered with
 ``torch.index_select``: the same values as the JAX package's select chain
 (``_mat_lookup``, which exists for XLA's fusion) bit for bit, and a
@@ -125,7 +130,7 @@ def refine_hit(data: SceneData, meta: SceneMeta, origin, dirs, prim) -> Hit:
                offset=offset)
 
 
-def _light_terms(data: SceneData, meta: SceneMeta, h: Hit):
+def light_terms(data: SceneData, meta: SceneMeta, h: Hit):
     """(to_off (R, L, 3), light_dist (R, L), cos_theta (R, L), relevant
     (R, L)) of each hit and light: the segment from the offset point to
     the light, its length, the cosine at the unoffset point, and whether
@@ -141,23 +146,24 @@ def _light_terms(data: SceneData, meta: SceneMeta, h: Hit):
     return to_off, light_dist, cos_theta, relevant
 
 
-def _segments(h: Hit, to_off, relevant):
-    """The generic any-hit's query (org, seg, t_max, mask) of L*R shadow
-    segments, light-major, so each light's segments keep the rays' tile
-    order."""
-    r, nl = relevant.shape
-    return (h.offset[None].expand(nl, r, 3).reshape(nl * r, 3),
+def segments(offset, to_off, mask):
+    """The generic any-hit's query (org, seg, t_max, mask) of the L*R
+    shadow segments from the offset points (R, 3) (``to_off`` (R, L, 3),
+    ``mask`` (R, L): the hit and relevant pairs), light-major, so each
+    light's segments keep the rays' tile order."""
+    r, nl = mask.shape
+    return (offset[None].expand(nl, r, 3).reshape(nl * r, 3),
             to_off.transpose(0, 1).reshape(nl * r, 3),
             torch.ones((nl * r,), dtype=torch.float32, device=to_off.device),
-            (h.hit[:, None] & relevant).T.reshape(nl * r))
+            mask.T.reshape(nl * r))
 
 
 def shadow_query(data: SceneData, meta: SceneMeta, h: Hit):
     """The arguments ``shade_local`` passes its ``occluded_fn`` for the hits
     ``h`` (meta.n_lights > 0), so that a caller can trace the occlusion
     ahead of the shading (the BVH walk between program steps)."""
-    to_off, _, _, relevant = _light_terms(data, meta, h)
-    return _segments(h, to_off, relevant)
+    to_off, _, _, relevant = light_terms(data, meta, h)
+    return segments(h.offset, to_off, h.hit[:, None] & relevant)
 
 
 def shade_local(
@@ -168,10 +174,12 @@ def shade_local(
     shadow_fn: Optional[Callable] = None,
     shadow_multi_fn: Optional[Callable] = None,
     occluded_fn: Optional[Callable] = None,
+    occ: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Ambient + per-light diffuse/specular; (R, 3), zero on miss lanes.
 
-    Occlusion, the first that is given: shadow_multi_fn(org, masks (R, L))
+    Occlusion, the first that is given: ``occ`` (R, L) bool, the bits
+    themselves; shadow_multi_fn(org, masks (R, L))
     -> (R, L) bool tests every light in one kernel launch;
     shadow_fn(org, seg, mask, l) -> (R,) bool tests light l;
     occluded_fn(org, seg, t_max, mask) -> (N,) bool is the generic any-hit,
@@ -192,20 +200,21 @@ def shade_local(
     n_unit = normalize(h.normal)
 
     lint = data.light_int[:nl]
-    to_off, light_dist, cos_theta, relevant = _light_terms(data, meta, h)
+    to_off, light_dist, cos_theta, relevant = light_terms(data, meta, h)
     sdir = to_off / light_dist[..., None]
 
     # occlusion is tested on the UNNORMALIZED segment light - origin with
     # t < 1, the reference's t < dist test in other units
-    if shadow_multi_fn is not None:
+    if occ is None and shadow_multi_fn is not None:
         occ = shadow_multi_fn(h.offset, h.hit[:, None] & relevant)
-    elif shadow_fn is not None:
+    elif occ is None and shadow_fn is not None:
         occ = torch.stack([
             shadow_fn(h.offset, to_off[:, l], h.hit & relevant[:, l], l)
             for l in range(nl)
         ], dim=1)
-    else:
-        occ = occluded_fn(*_segments(h, to_off, relevant)).reshape(
+    elif occ is None:
+        occ = occluded_fn(*segments(h.offset, to_off,
+                                    h.hit[:, None] & relevant)).reshape(
             nl, dirs.shape[0]).T
     lit = h.hit[:, None] & relevant & ~occ
     irr = lint[None] / (light_dist * light_dist)[..., None]  # (R, L, 3)
@@ -229,3 +238,27 @@ def reflection_rays(data: SceneData, dirs: torch.Tensor, h: Hit):
     tint = torch.index_select(data.mat_mirror, 0, h.mat)
     is_mirror = data.mat_is_mirror[h.mat] & h.hit
     return h.offset, refl_dir, tint, is_mirror
+
+
+def bounce(data: SceneData, meta: SceneMeta, carry, h: Hit, first: bool,
+           fns=(None, None, None), occ: Optional[torch.Tensor] = None):
+    """The rest of a bounce from its hits ``h``: the background of a depth-0
+    (``first``) miss, the local shading (occlusion from ``occ`` or through
+    ``fns``, the (shadow_fn, shadow_multi_fn, occluded_fn) of
+    ``shade_local``), the mirror reflection.  ``carry``: (color,
+    throughput, active, cur_org, cur_dir); returns the next."""
+    color, throughput, active, cur_org, cur_dir = carry
+    if first:
+        color = color + torch.where((~h.hit & active)[:, None],
+                                    data.background[None, :], 0.0)
+    shadow_fn, shadow_multi_fn, occluded_fn = fns
+    local = shade_local(data, meta, cur_dir, h, shadow_fn=shadow_fn,
+                        shadow_multi_fn=shadow_multi_fn,
+                        occluded_fn=occluded_fn, occ=occ)
+    color = color + throughput * torch.where(h.hit[:, None], local, 0.0)
+    refl_org, refl_dir, tint, is_mirror = reflection_rays(data, cur_dir, h)
+    active = active & is_mirror
+    throughput = torch.where(active[:, None], throughput * tint, 0.0)
+    cur_org = torch.where(active[:, None], refl_org, cur_org)
+    cur_dir = torch.where(active[:, None], refl_dir, cur_dir)
+    return color, throughput, active, cur_org, cur_dir

@@ -323,17 +323,20 @@ def closest_hit(data: SceneData, origin, dirs, accel, engine: str,
 
 
 def any_hit(data: SceneData, origin, dirs, t_max, accel, engine: str,
-            active=None, bfc: bool = False, relaxed: bool = False):
+            active=None, bfc: bool = False, relaxed: bool = False,
+            small_spheres: bool = True):
     """(R,) bool occlusion through ``engine``, False on the lanes that
     ``active`` (when given) leaves out; ``relaxed`` (sqrt- and
-    division-free sphere sign tests) applies to the cluster engine only."""
+    division-free sphere sign tests) and ``small_spheres`` (False: without
+    the dense test of a scene's few spheres, ``cluster_any``) apply to the
+    cluster engine only."""
     if engine == "cluster":
         from raytracer_tpu_torch.ops.cluster_trace import cluster_any
 
         if accel is None:
             raise ValueError("the cluster engine needs a built ClusterSet")
         return cluster_any(accel, origin, dirs, t_max, active=active, bfc=bfc,
-                           relaxed=relaxed)
+                           relaxed=relaxed, small_spheres=small_spheres)
     if engine == "bvh":
         return bvh_any(data, _device_bvh(accel), origin, dirs, t_max, bfc=bfc,
                        active=active)

@@ -92,6 +92,78 @@ def _render_and_compare(cuda, scene, kw, names, treelet=False, **render_kw):
             assert torch.equal(a, b), name
 
 
+HIT_FIELDS = ("hit", "normal", "mat", "point", "offset", "mask")
+CARRY_FIELDS = ("color", "throughput", "active", "cur_org", "cur_dir")
+
+
+def _equal_fields(got, want, names, what):
+    for name, a, b in zip(names, got, want):
+        if not torch.equal(a, b):
+            d = (a.double() - b.double()).abs()
+            raise AssertionError(
+                f"{what}: {name} differs on {int((a != b).sum())} of "
+                f"{a.numel()}, by at most {float(d.max())}")
+
+
+@pytest.mark.parametrize("scene", ["terrain2sph", "terrain7l", "mirror_field",
+                                   "entry", "nolight", "any"])
+def test_epilogue_kernels_equal_plain_on_card(cuda, scene, monkeypatch):
+    """The forward bounce epilogue's kernels on every call of a 64x64 frame
+    (two small spheres and two lights, the shadow_multi route; the same
+    with seven lights, one below the terrain, up to six lit on a lane, so
+    the kernel's light accumulators 0 and 1 each add two lights; mirror
+    spheres at depth 4, compacted; one light, per light; no light; the
+    any-hit route): each output equals the plain version's on every lane.
+    Each shade_bounce call runs twice, into new buffers and in place (an
+    inactive lane returns after its flag), where its carry came in its
+    own buffers; their inactive lanes carry throughput 0, which the early
+    return rests on."""
+    from torch_port_util import epilogue_calls, epilogue_scene
+
+    from raytracer_tpu_torch.models.bvh import build_bvh
+    from raytracer_tpu_torch.models.clusters import build_clusters
+    from raytracer_tpu_torch.models.whitted import eager, render_camera
+    from raytracer_tpu_torch.ops import cluster_trace as ctr
+    from raytracer_tpu_torch.ops import kernels as K
+
+    if scene == "any":
+        monkeypatch.setattr(ctr, "SHADOW_PLANES_BYTES_MAX", 0)
+    data, meta = epilogue_scene(scene, cuda)
+    cset = build_clusters(data, meta, build_bvh(data, meta))
+    before = dict(K.launches)
+    with epilogue_calls() as calls, eager():
+        render_camera(data, meta, meta.cameras[0], cset, device=cuda)
+    assert K.launches["hit_record"] - before["hit_record"] == \
+        K.launches["shade_bounce"] - before["shade_bounce"] == len(calls) // 2
+    inplace = inactive = 0
+    for i, call in enumerate(calls):
+        what = f"{call.name} call {i}"
+        if call.name == "hit_record":
+            h, mask = ctr.hit_record(*call.again())
+            h_p, mask_p = ctr.hit_record_plain(*call.again())
+            assert h.t is h_p.t is None, what
+            _equal_fields((h.hit, *h[2:], mask), (h_p.hit, *h_p[2:], mask_p),
+                          HIT_FIELDS, what)
+            continue
+        want = ctr.shade_bounce_plain(*call.again())
+        _equal_fields(ctr.shade_bounce(*call.again()), want, CARRY_FIELDS,
+                      what + " into new buffers")
+        if call.inplace:
+            args = call.again()
+            carry = args[3]
+            idle = ~carry[2]
+            assert bool((carry[1][idle] == 0).all()), what
+            got = ctr.shade_bounce(*args, out=carry)
+            assert all(g is c for g, c in zip(got, carry))
+            _equal_fields(got, want, CARRY_FIELDS, what + " in place")
+            inplace += 1
+            inactive += int(idle.sum())
+    assert inplace and (inactive or meta.max_depth == 0)
+    if scene == "mirror_field":
+        assert any(not c.inplace and not c.args[6] for c in calls
+                   if c.name == "shade_bounce"), "no compacted bounce"
+
+
 @pytest.mark.parametrize("width", ["16-warp", "4-warp"])
 def test_tie_case_kernels_equal_plain_on_card(cuda, width):
     """The exact-tie case (tests/torch_tie_case.py: duplicated and

@@ -141,7 +141,8 @@ def test_wrappers_dispatch_on_tensor_device(monkeypatch):
                 torch.zeros((4, 128)))
     K.reset_launches()
     assert set(K.launches) == {"ray_mask", "ray_mask_hier", "closest_shared",
-                               "closest", "shadow", "any", "threefry"}
+                               "closest", "shadow", "any", "threefry",
+                               "hit_record", "shade_bounce"}
     hit, ent = K.ray_mask(act, box, bundle)
     assert hit.shape == (1, 3) and ent.dtype == torch.float32
     hit, ent = K.ray_mask_hier(act, sup, box, bundle)

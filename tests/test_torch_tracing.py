@@ -14,7 +14,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from torch_port_util import (  # noqa: F401 (stub_graphs: a fixture)
-    ENTRY_XML, port_scene, stub_graphs,
+    ENTRY_XML, epilogue_calls, port_scene, stub_graphs,
 )
 
 HOT = ("pipeline.", "program.step", "program.flags")
@@ -162,15 +162,15 @@ def test_wave_samples_equal_counts_from_the_carry(tracing, monkeypatch,
     if not shared:
         origin = origin.expand(dirs.shape[0], 3).contiguous()
     seen, compacted = [], []
-    bounce, compact = whitted._bounce, whitted._compact_carry
+    bounce, compact = whitted._fused_bounce, whitted._compact_carry
 
-    def spy(data, meta, accel, engine, bfc, fns, carry, **kw):
+    def spy(data, meta, accel, bfc, fns, carry, *a):
         act = carry[3]
         seen.append((int(act.sum()),
                      TILE * int(act.reshape(-1, TILE).any(1).sum())))
-        return bounce(data, meta, accel, engine, bfc, fns, carry, **kw)
+        return bounce(data, meta, accel, bfc, fns, carry, *a)
 
-    monkeypatch.setattr(whitted, "_bounce", spy)
+    monkeypatch.setattr(whitted, "_fused_bounce", spy)
     monkeypatch.setattr(whitted, "_compact_carry",
                         lambda c: compacted.append(c[0]) or compact(c))
     want = whitted.render_rays(data, meta, origin, dirs, cs)
@@ -202,6 +202,35 @@ def test_brute_engine_samples_active_rays_only(tracing):
     assert tracing.samples[0].value == dirs.shape[0]
 
 
+@pytest.mark.parametrize("engine", ["cluster", "brute", "bvh"])
+def test_wave_fused_sampled_on_each_cluster_forward_bounce(tracing, engine):
+    """``wave.fused`` (rays active entering a bounce whose epilogue ran
+    through ``cluster_trace.hit_record`` and ``cluster_trace.shade_bounce``)
+    after each ``wave.active`` of the cluster engine's bounces, equal to
+    it; the brute and BVH engines sample none."""
+    from raytracer_tpu_torch.models import whitted
+    from raytracer_tpu_torch.ops import kernels as K
+    from raytracer_tpu_torch.ops.camera import camera_vectors, eye_rays_from
+    from raytracer_tpu_torch.render import engine_accel
+
+    data, meta = port_scene("terrain16d3")
+    accel = engine_accel(engine, None, data, meta, "cpu")
+    cam = meta.cameras[0]
+    origin, dirs = eye_rays_from(torch.from_numpy(camera_vectors(cam)),
+                                 cam.width, cam.height)
+    with profile(activities=[ProfilerActivity.CPU]), epilogue_calls() as calls:
+        whitted.render_rays(data, meta, origin, dirs, accel, engine=engine)
+    fused = [s.value for s in tracing.samples if s.name == "wave.fused"]
+    active = [s.value for s in tracing.samples if s.name == "wave.active"]
+    shaded = sum(c.name == "shade_bounce" for c in calls)
+    assert len(active) >= 2
+    if engine == "cluster":
+        assert fused == active and shaded == len(active)
+    else:
+        assert fused == [] and shaded == 0
+    assert K.launches["shade_bounce"] == 0
+
+
 def test_render_cli_profile_merges_spans_and_counters(tracing, tmp_path):
     from raytracer_tpu_torch import render
 
@@ -218,7 +247,7 @@ def test_render_cli_profile_merges_spans_and_counters(tracing, tmp_path):
                     "pipeline.to_host", "pipeline.write",
                     "program.flags"} <= names
     counters = {e["name"] for e in port if e["ph"] == "C"}
-    assert counters == {"wave.active", "wave.lanes"}
+    assert counters == {"wave.active", "wave.lanes", "wave.fused"}
     # on the main thread's row, on the kineto events' time base
     assert {e["tid"] for e in spans} <= {e["tid"] for e in ops}
     def inside(op, name):

@@ -19,9 +19,11 @@ exactly where the JAX side can run op by op (eager jnp).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import os
+from typing import NamedTuple
 
 import numpy as np
 import pytest
@@ -45,6 +47,125 @@ SYNTH = {
     "terrain64": ("terrain_scene", dict(cells=64, res=64, mirror_stripes=True)),
 }
 HOST_SCENES = ["entry", "terrain16", "spheres600", "spheres1200"]
+
+
+# scenes of the forward bounce epilogue's tests (cluster_trace.hit_record,
+# cluster_trace.shade_bounce), one a route of the occlusion pass: 2 small
+# spheres and 2 lights (shadow_multi); the same with 7 lights, one below
+# the terrain (shadow_multi; up to 6 lit on a lane, so the kernel's light
+# accumulators 0 and 1 each add two lights); a field of mirror spheres at
+# depth 4 (the compaction); one light (per light); no light; and (the
+# tests patch SHADOW_PLANES_BYTES_MAX to 0) the any-hit route
+EPILOGUE_SCENES = ["terrain2sph", "terrain7l", "mirror_field", "entry",
+                   "nolight", "any"]
+
+
+def _mat(ambient, diffuse, specular, mirror, phong):
+    return {"is_mirror": max(mirror) > 0, "ambient": [ambient] * 3,
+            "diffuse": diffuse, "specular": [specular] * 3,
+            "mirror": mirror, "phong": phong}
+
+
+def epilogue_scene(name, device="cpu"):
+    """(data, meta) of ``EPILOGUE_SCENES``' ``name``, 64x64."""
+    from raytracer_tpu_torch.models.scene import from_parsed, load_scene
+
+    if name == "entry":
+        return load_scene(ENTRY_XML, device=device)
+    lights = [([0.0, 60.0, 0.0], [2.5e5, 2.5e5, 2.4e5]),
+              ([50.0, 40.0, 50.0], [1.2e5, 1.1e5, 1.0e5])]
+    if name == "terrain7l":
+        lights += [([-45.0, 30.0, 20.0], [6.0e4, 7.0e4, 9.0e4]),
+                   ([20.0, 8.0, -40.0], [3.0e4, 2.5e4, 2.0e4]),
+                   ([-10.0, 15.0, 35.0], [4.0e4, 4.0e4, 3.5e4]),
+                   ([30.0, 45.0, -15.0], [5.0e4, 6.0e4, 5.0e4]),
+                   ([5.0, -30.0, 0.0], [9.0e4, 9.0e4, 9.0e4])]
+    camera = {"position": [0.0, 35.0, 75.0], "gaze": [0.0, -0.45, -1.0],
+              "up": [0.0, 1.0, 0.0], "near_plane": [-1.0, 1.0, -1.0, 1.0],
+              "near_distance": 1.0, "width": 64, "height": 64,
+              "image_name": f"{name}.ppm"}
+    materials = [_mat(0.1, [0.7, 0.6, 0.5], 0.2, [0.0, 0.0, 0.0], 20.0),
+                 _mat(0.05, [0.2, 0.2, 0.25], 0.3, [0.6, 0.6, 0.65], 60.0),
+                 _mat(0.05, [0.3, 0.2, 0.2], 0.5, [0.8, 0.7, 0.7], 35.0)]
+    rng = np.random.default_rng(5)
+    if name == "mirror_field":
+        ii, jj = np.divmod(np.arange(144), 12)
+        centers = np.stack([(ii - 5.5) * 8.0 + rng.normal(0, 1, 144),
+                            3.0 + 2.0 * rng.random(144),
+                            (jj - 5.5) * 8.0 + rng.normal(0, 1, 144)], 1)
+        spheres = [(2 + k % 2, k + 1, 2.5 + rng.random())
+                   for k in range(144)]
+        verts, meshes, depth = centers, [], 4
+    else:
+        cells, n = 16, 17
+        xg, zg = np.meshgrid(np.linspace(-50, 50, n), np.linspace(-50, 50, n),
+                             indexing="ij")
+        y = 4.0 * np.sin(xg / 7.0) * np.cos(zg / 9.0) + rng.normal(0, 0.15,
+                                                                   xg.shape)
+        grid = np.stack([xg, y, zg], -1).reshape(-1, 3)
+        a = (np.arange(cells)[:, None] * n + np.arange(cells)[None, :]).ravel() + 1
+        faces = np.concatenate([np.stack([a, a + 1, a + n], 1),
+                                np.stack([a + 1, a + n + 1, a + n], 1)])
+        stripe = (faces[:, 0] - 1) // n % 5 == 0
+        meshes = [(2, [tuple(f) for f in faces[stripe]]),
+                  (1, [tuple(f) for f in faces[~stripe]])]
+        verts = np.concatenate([grid, [[-12.0, 12.0, 5.0], [10.0, 10.0, -4.0]]])
+        spheres = [(1, n * n + 1, 8.0), (3, n * n + 2, 7.0)]
+        depth = 2
+    parsed = {"background": [20, 30, 60], "shadow_eps": 1e-3,
+              "max_depth": depth, "cameras": [camera],
+              "ambient_light": [40.0, 40.0, 40.0],
+              "point_lights": [] if name == "nolight" else lights,
+              "materials": materials, "vertices": verts.ravel().tolist(),
+              "meshes": meshes, "triangles": [], "spheres": spheres}
+    return from_parsed(parsed, device)
+
+
+def _cloned(x):
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple):
+        return type(x)(*map(_cloned, x)) if hasattr(x, "_fields") else \
+            tuple(map(_cloned, x))
+    return x
+
+
+class EpilogueCall(NamedTuple):
+    name: str        # hit_record or shade_bounce
+    args: tuple      # the positional arguments, tensors cloned at the call
+    inplace: bool    # shade_bounce writing the carry's own buffers
+
+    def again(self):
+        """The arguments cloned once more (a call may write into them)."""
+        return _cloned(self.args)
+
+
+@contextlib.contextmanager
+def epilogue_calls():
+    """Keeps every call of ``cluster_trace.hit_record`` and
+    ``cluster_trace.shade_bounce`` inside the block as an ``EpilogueCall``
+    (the frame must run eagerly: a replayed graph calls neither)."""
+    from raytracer_tpu_torch.ops import cluster_trace as ctr
+
+    calls = []
+    wrapped = {n: getattr(ctr, n) for n in ("hit_record", "shade_bounce")}
+
+    def spy(name):
+        def f(*a, out=None, **kw):
+            inplace = out is not None and all(
+                o.data_ptr() == c.data_ptr() for o, c in zip(out, a[3]))
+            calls.append(EpilogueCall(name, _cloned(a), inplace))
+            return wrapped[name](*a, out=out, **kw) if out is not None \
+                else wrapped[name](*a, **kw)
+        return f
+
+    for n in wrapped:
+        setattr(ctr, n, spy(n))
+    try:
+        yield calls
+    finally:
+        for n, f in wrapped.items():
+            setattr(ctr, n, f)
 
 
 def jax_scene(name):
