@@ -295,7 +295,16 @@ class _Wavefront:
     entering it, and on the cluster engine ``wave.lanes``, 128 x the live
     tiles its kernels see (after a compaction's sort ceil(active / 128));
     after a bounce whose step went through ``_fused_bounce`` (``fused``,
-    noted as the body runs), ``wave.fused``, its active rays again.
+    noted as the body runs), ``wave.fused``, its active rays again.  On a
+    scene whose masks take the hierarchical route
+    (``cluster_trace.hierarchical``) ``flags`` holds two running sums
+    more, ``masks``, which every bounce's mask calls add to
+    (``cluster_trace.counting_masks``): their active tiles and the live
+    (tile, chunk) pairs of their supercluster pass.  At each read in a
+    sampled run the host samples what they grew by since its last read
+    (``mask.tiles``, ``mask.chunks``); a run's last bounce, which no read
+    follows, is counted at the next run's first, so a stretch of sampled
+    runs loses only its final bounce, and no read or sync is added.
 
     Steps: bounce 0 (on the cluster engine the shared-eye peel for a
     shared origin), bounce d plain or compacting (from _COMPACT_FROM), and
@@ -335,7 +344,11 @@ class _Wavefront:
         self.cur_dir = torch.zeros((r, 3), **f32)
         self.active = torch.zeros((r,), dtype=torch.bool, device=device)
         self.idx = torch.arange(r, device=device)
-        self.flags = torch.zeros((3,), dtype=torch.int64, device=device)
+        hier = engine == "cluster" and not record and ctr.hierarchical(accel)
+        self.flags = torch.zeros((5 if hier else 3,), dtype=torch.int64,
+                                 device=device)
+        self.masks = self.flags[3:] if hier else None
+        self.masks_seen = [0, 0]   # ``masks`` at the last sampled read
         nl, i64 = meta.n_lights, dict(dtype=torch.int64, device=device)
         if engine == "bvh":
             bvh = traverse._device_bvh(accel)
@@ -371,6 +384,8 @@ class _Wavefront:
         sampled = not self.record and tracing.recording()
         if sampled:
             self._sample(self.r, -(-self.r // TILE))
+        else:
+            self.masks_seen = None
         self._run(0, False)
         if sampled:
             self._sample_fused((0, False), self.r)
@@ -378,7 +393,10 @@ class _Wavefront:
         for depth in range(1, self.meta.max_depth + 1):
             take = False
             if not self.record:
-                active, tiles, scattered = programs.read_flags(self.flags)
+                active, tiles, scattered, *masks = programs.read_flags(
+                    self.flags)
+                if sampled and masks:
+                    self._sample_masks(masks)
                 if not active:
                     break
                 take = (self.compact and depth >= _COMPACT_FROM
@@ -397,6 +415,15 @@ class _Wavefront:
         tracing.sample("wave.active", active)
         if self.engine == "cluster":
             tracing.sample("wave.lanes", TILE * tiles)
+
+    def _sample_masks(self, masks: list) -> None:
+        """``mask.tiles`` and ``mask.chunks``: what the running sums
+        ``masks`` (as read) grew by since the last sampled read; the first
+        read after an unsampled run only sets the base."""
+        seen, self.masks_seen = self.masks_seen, masks
+        if seen is not None:
+            tracing.sample("mask.tiles", masks[0] - seen[0])
+            tracing.sample("mask.chunks", masks[1] - seen[1])
 
     def _sample_fused(self, key, active: int) -> None:
         """``wave.fused``: the bounce's ``active`` rays, where its step
@@ -481,7 +508,8 @@ class _Wavefront:
                     act_f = active.to(torch.float32).mean()
                     live_f = live.to(torch.float32).mean()
                     scattered = live_f - act_f > _COMPACT_SCATTER
-            self.flags.copy_(torch.stack([count, tiles, scattered]))
+            flags = self.flags if self.masks is None else self.flags[:3]
+            flags.copy_(torch.stack([count, tiles, scattered]))
 
     def _bounce_body(self, depth: int, compacted: bool):
         def body():
@@ -490,9 +518,11 @@ class _Wavefront:
                 carry = _compact_carry(carry)
             if self.engine == "cluster":
                 shared = self.origin if depth == 0 and self.shared else None
-                carry = _fused_bounce(self.data, self.meta, self.accel,
-                                      self.bfc, self.fns, carry, shared,
-                                      self.relaxed, self._buffers(depth)[1:6])
+                with ctr.counting_masks(self.masks):
+                    carry = _fused_bounce(self.data, self.meta, self.accel,
+                                          self.bfc, self.fns, carry, shared,
+                                          self.relaxed,
+                                          self._buffers(depth)[1:6])
                 self.fused.add((depth, compacted))
             else:
                 carry = _bounce(self.data, self.meta, self.accel, self.engine,

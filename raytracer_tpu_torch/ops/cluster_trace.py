@@ -41,6 +41,9 @@ the unsegmented one.
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 
 from raytracer_tpu_torch.models.clusters import ClusterSet
@@ -68,6 +71,39 @@ SHADOW_PLANES_BYTES_MAX = 8 << 20
 # The JAX package's threshold, without its environment override.
 _SUPER = 128
 SUPER_MIN_CPAD = 512
+
+# the (2,) int64 buffer that counting_masks sets for this thread
+_counting = threading.local()
+
+
+def _hierarchical(c: int) -> bool:
+    """Whether a mask over ``c`` cluster columns takes the hierarchical
+    route."""
+    return -(-c // _SUPER) * _SUPER > SUPER_MIN_CPAD
+
+
+def hierarchical(cset: ClusterSet) -> bool:
+    """Whether the scene's exact masks (``_cluster_masks``: its triangle
+    clusters, and its sphere clusters beyond SMALL_SPH spheres) take the
+    hierarchical route."""
+    c = cset.tri_cmin.shape[0]
+    if cset.n_sph > SMALL_SPH:
+        c += cset.sph_cmin.shape[0]
+    return _hierarchical(c)
+
+
+@contextlib.contextmanager
+def counting_masks(counts):
+    """Inside the block, each hierarchical ``ray_cluster_mask`` call of
+    this thread adds [its active tiles, the live (tile, 128-cluster chunk)
+    pairs its supercluster pass hands ``ray_mask_hier``] to ``counts``
+    ((2,) int64 on the rays' device; None counts nothing)."""
+    outer = getattr(_counting, "counts", None)
+    _counting.counts = counts
+    try:
+        yield
+    finally:
+        _counting.counts = outer
 
 
 def _interval_mul(alo, ahi, blo, bhi):
@@ -212,13 +248,17 @@ def ray_cluster_mask(origin, dirs, active, cmin, cmax, t_hi, tile: int):
     t window folded with the active mask) are precomputed here into the
     kernel's (8, R) bundle.  Above SUPER_MIN_CPAD columns the hierarchical
     route gives the same result: the ``ray_mask`` kernel against the
-    supercluster boxes (``_super_boxes``), then ``ray_mask_hier``."""
+    supercluster boxes (``_super_boxes``), then ``ray_mask_hier``, its
+    work counted inside ``counting_masks``."""
     act, bundle = _mask_bundle(origin, dirs, active, t_hi, tile)
     c = cmin.shape[0]
-    cpad = -(-c // _SUPER) * _SUPER
-    if cpad > SUPER_MIN_CPAD:
+    if _hierarchical(c):
+        cpad = -(-c // _SUPER) * _SUPER
         sup, _ = kernels.ray_mask(act, _box_table(*_super_boxes(cmin, cmax, cpad)),
                                   bundle)
+        counts = getattr(_counting, "counts", None)
+        if counts is not None:
+            counts.add_(torch.stack([act.sum(), sup.sum()]))
         hit, ent = kernels.ray_mask_hier(act, sup.reshape(-1), _box_table(cmin, cmax),
                                          bundle)
     else:

@@ -19,7 +19,10 @@ thread.  Two kinds:
 
 ``sample(name, value)`` records a counter's value at an instant while a
 profiler records: the wavefront's ``wave.active`` (rays active entering a
-bounce) and ``wave.lanes`` (128 x the live tiles its kernels see).
+bounce) and ``wave.lanes`` (128 x the live tiles its kernels see); on a
+scene whose masks take the hierarchical route, ``mask.tiles`` (the active
+tiles entering its mask calls) and ``mask.chunks`` (the live (tile,
+128-cluster chunk) pairs their supercluster pass hands ``ray_mask_hier``).
 
 Stamps are ``time.time_ns()``: Unix-epoch ns, the clock kineto stamps
 host events on, so spans and samples line up with a profiler's events.
