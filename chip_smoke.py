@@ -77,7 +77,11 @@ then:
    on the device behind a spin;
    each kernel's device ms and launches in each profiled frame, and each
    frame's ranking of the kernels by the device time they lose against
-   their bounds;
+   their bounds; 5b the forward bounce epilogue and 5c the shortlist
+   compaction (``csrc/compact.cu``) at the busiest calls of the horse31k
+   (and, for 5c, terrain524k) benchmark frames: equal to the plain version,
+   timed against the byte bound and (5c) the plain version's torch.sort
+   route on the card, launches and device ms in a replayed frame;
 6. the render modes beyond one band, on the full-width terrain through
    ``render_one_camera``: streamed at --ssaa 4 parity (16,777,216 rays in
    4 bands), --ssaa 2 jitter and adaptive (4 base samples a pixel, 12
@@ -277,6 +281,8 @@ REPLACES = {
                   "after the kernel) and raytracer_tpu/ops/shade.py",
     "shade_bounce": "raytracer_tpu/ops/shade.py shade_local, "
                     "reflection_rays; raytracer_tpu/models/whitted.py _shade",
+    "compact": "raytracer_tpu/ops/cluster_trace.py _compact (lax.top_k and "
+               "the bit packing)",
 }
 SOURCES = {
     "ray_mask": "raytracer_tpu_torch/csrc/ray_mask.cu",
@@ -288,6 +294,7 @@ SOURCES = {
     "threefry": "raytracer_tpu_torch/csrc/threefry.cu",
     "hit_record": "raytracer_tpu_torch/csrc/shade.cu",
     "shade_bounce": "raytracer_tpu_torch/csrc/shade.cu",
+    "compact": "raytracer_tpu_torch/csrc/compact.cu",
 }
 
 # float operations of the forward bounce epilogue (csrc/shade.cu), counted
@@ -1141,7 +1148,8 @@ EVENT_ROWS = (("ray_mask_hier_kernel", "ray_mask_hier"),
               ("shadow_kernel", "shadow"), ("any_kernel", "any"),
               ("threefry_uniform_kernel", "threefry"),
               ("hit_record_kernel", "hit_record"),
-              ("shade_bounce_kernel", "shade_bounce"))
+              ("shade_bounce_kernel", "shade_bounce"),
+              ("compact_kernel", "compact"))
 
 
 def kernel_of(event_name):
@@ -2431,6 +2439,116 @@ def epilogue_on_card(dev, results):
         rows.append(row)
     results["epilogue"] = rows
     return rows
+
+
+def compact_work(args, out):
+    """Bytes the compaction call ``args`` (hit, entry, max_list) has to
+    move: every hit byte of its rows, the entry of each hit column, and its
+    outputs ``out``."""
+    hit, _, _ = args
+    return hit.numel() + 4 * int(hit.sum()) + nbytes(*out)
+
+
+def compact_on_card(dev, results):
+    """Phase 5c: the shortlist compaction (csrc/compact.cu) at the busiest
+    call (the most hit columns) of the horse31k and terrain524k benchmark
+    frames (SSAA 2; the big frame in 32 bands).  At each, the kernel equals
+    its plain version (on the CPU: words and counts, ids and entries below
+    min(count, max_list)) and is timed on the device (10 launches behind a
+    spin) against its byte bound and against the plain version's
+    torch.sort route on the card (the library yardstick); its device ms and
+    launches in one replayed frame (profiled).  Returns the kernel row."""
+    import torch
+
+    from benchmark import sceneio
+    from benchmark.paths import Bench
+    from raytracer_tpu_torch.models import programs
+    from raytracer_tpu_torch.models.scene import from_parsed
+    from raytracer_tpu_torch.models.whitted import eager
+    from raytracer_tpu_torch.ops import cluster_trace as ctr
+    from raytracer_tpu_torch.ops import kernels as K
+    from raytracer_tpu_torch.pipeline import render_one_camera
+    from raytracer_tpu_torch.render import engine_accel
+
+    bench = Bench(REPO)
+    tr = bench.traffic("frame-ssaa2")
+    frames = {}
+    row = None
+    for config in ("horse31k", "terrain524k"):
+        data, meta = from_parsed(
+            sceneio.generate(bench, bench.config(config), 1), dev)
+        accel = engine_accel(tr["engine"], None, data, meta, dev)
+
+        def frame():
+            return render_one_camera(
+                data, meta, meta.cameras[tr["camera"]], accel, ssaa=tr["ssaa"],
+                ssaa_mode=tr["ssaa_mode"], chunk=tr["chunk"], device=dev)[0]
+
+        best = {}
+
+        def keep(f):
+            def kept(hit, entry, max_list):
+                n = int(hit.sum())
+                if n > best.get("hits", -1):
+                    best.update(hits=n, args=(hit.clone(), entry.clone(),
+                                              max_list))
+                return f(hit, entry, max_list)
+            return kept
+
+        with patched(ctr, "_compact", keep), eager():
+            frame()
+        frame()                                  # captures
+        K.reset_launches()
+        frame()                                  # a replay
+        launches = K.launches["compact"]
+        profile_frame(frame, results, f"compact_profile_{config}")
+        by_kernel = results.get(f"compact_profile_{config}", {}).get(
+            "by_kernel", {})
+        args = best["args"]
+        got = K.compact(*args)
+        want = K.compact_plain(args[0].cpu(), args[1].cpu(), args[2])
+        cnt = torch.clamp(want[3], max=args[2])
+        keep_pos = (torch.arange(args[2])[None] < cnt[:, None]).reshape(-1)
+        check(torch.equal(got[0].cpu(), want[0])
+              and torch.equal(got[3].cpu(), want[3])
+              and torch.equal(got[1].cpu()[keep_pos], want[1][keep_pos])
+              and torch.equal(got[2].cpu()[keep_pos].view(torch.int32),
+                              want[2][keep_pos].view(torch.int32)),
+              f"compact: the kernel differs from its plain version at the "
+              f"{config} frame's busiest call")
+        ms = time_call(K.compact, args, 10)
+        library_ms = time_call(K.compact_plain, args, 10)
+        plain_ms = time_once(K.compact_plain, args)
+        byt = compact_work(args, got)
+        bound_ms = byt / PEAK_BYTES * 1e3
+        nt, c = args[0].shape
+        dev_ms, n = by_kernel.get("compact", [None, 0])
+        frames[config] = {"device_ms": dev_ms, "launches": n,
+                          "replayed_launches": launches, "ms": ms,
+                          "bound_ms": bound_ms, "library_ms": library_ms,
+                          "plain_ms": plain_ms, "bytes": byt, "tiles": nt,
+                          "columns": c, "hits": best["hits"],
+                          "max_list": args[2]}
+        log(f"  compact ({config} frame's busiest call: {nt} tiles x {c} "
+            f"columns, {best['hits']} hits, max_list {args[2]}): {ms:.4f} "
+            f"ms/launch, bound {bound_ms:.4f} ms (bytes: {byt:.3e}), "
+            f"{bound_ms / ms:.3f} of the bound; the torch.sort route "
+            f"{library_ms:.4f} ms, plain once {plain_ms:.2f} ms; a replayed "
+            f"frame: {launches} launches, device "
+            f"{dev_ms if dev_ms is None else round(dev_ms, 4)} ms ({n} events)")
+        check(launches > 0, f"{config}: the replayed frame launched no compact")
+        if row is None:
+            row = {"name": "compact", "route": "cuda",
+                   "source": SOURCES["compact"], "replaces": REPLACES["compact"],
+                   "launches": launches, "max_abs_err": 0.0, "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": "bytes", "library_ms": library_ms,
+                   "ops": 0, "bytes": byt}
+        programs.drop(data)
+        del data, accel, best
+    row["frames"] = frames
+    results["compact"] = row
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -4236,6 +4354,9 @@ def run():
             {"where": label, "ms": ms, "bound_ms": bound_ms, "plain_ms": plain_ms})
     log("== phase 5b: the forward bounce epilogue at the horse frame's shapes")
     rows += epilogue_on_card(dev, results)
+    log("== phase 5c: the shortlist compaction at the horse and big frames' "
+        "busiest calls")
+    rows.append(compact_on_card(dev, results))
     log("  library_ms: null for every kernel; no single PyTorch call computes "
         "a slab mask over cluster shortlists (flat or gated by superclusters), "
         "a shortlist closest hit, a plane-table shadow test or a shortlist "

@@ -46,6 +46,10 @@ SIGNATURES = {
     "rt_ray_mask": [_vp] * 5 + [_i] * 3 + [_vp],
     # act, sup, box, bundle, hit, ent, nt, c, r, stream
     "rt_ray_mask_hier": [_vp] * 6 + [_i] * 3 + [_vp],
+    # hit, hit row stride, entry, entry row stride, words, ids, elist,
+    # counts, nt, c, max_list, stream
+    "rt_compact": [_vp, ctypes.c_longlong, _vp, ctypes.c_longlong]
+                  + [_vp] * 4 + [_i] * 3 + [_vp],
     # tw, tl, tc, sw, sl, sc, origin, dirs, tri_dat, sph_dat, t, slot,
     # nt, ct, cs, pt, ps, wt, ws, shared_origin, bfc, stream
     "rt_closest": [_vp] * 12 + [_i] * 9 + [_vp],

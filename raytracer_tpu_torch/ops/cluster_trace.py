@@ -9,8 +9,8 @@ Per trace call:
    ``ray_mask_hier`` on the chunks the tile crosses), or for shared-origin
    eye tiles the interval-arithmetic tile test (``tile_cluster_mask``,
    plain PyTorch).
-2. ``_compact``: the mask becomes a front-to-back id list per tile (stable
-   descending sort of -entry: ties keep the lower cluster id, like
+2. ``_compact`` (the ``compact`` kernel): the mask becomes a
+   front-to-back id list per tile (ties keep the lower cluster id, like
    ``lax.top_k``), an unclamped count and a bitmask for tiles whose list
    overflows.
 3. The ``closest``, ``shadow`` or ``any_hit`` kernel visits each tile's
@@ -273,26 +273,9 @@ def _compact(hit, entry, max_list: int):
     ``ids`` holds each tile's first max_list candidates sorted FRONT TO
     BACK by slab entry (the order decides exact-t ties in the closest
     kernel); ``counts`` is unclamped, so a kernel can see the overflow and
-    scan the bitmask ``words`` instead."""
-    nt, c = hit.shape
-    dev = hit.device
-    counts = hit.sum(1).to(torch.int32)
-    k = min(max_list, c)
-    keys = torch.where(hit, -entry, -_INF)
-    vals, ids = torch.sort(keys, dim=1, descending=True, stable=True)
-    ids = ids[:, :k].to(torch.int32)
-    elist = -vals[:, :k]
-    if k < max_list:
-        ids = torch.nn.functional.pad(ids, (0, max_list - k))
-        elist = torch.nn.functional.pad(elist, (0, max_list - k), value=_INF)
-    w = -(-c // 32)
-    hp = torch.nn.functional.pad(hit, (0, w * 32 - c))
-    weights = torch.ones((), dtype=torch.int64, device=dev) << torch.arange(
-        32, dtype=torch.int64, device=dev)
-    words = (hp.reshape(nt, w, 32).to(torch.int64) * weights).sum(-1)
-    words = torch.where(words >= 1 << 31, words - (1 << 32), words)
-    return (words.reshape(-1).to(torch.int32), ids.reshape(-1).contiguous(),
-            elist.reshape(-1), counts)
+    scan the bitmask ``words`` instead.  CUDA tensors take the ``compact``
+    kernel, CPU tensors its plain version (``kernels.compact``)."""
+    return kernels.compact(hit, entry, max_list)
 
 
 def _lists(thit, shit):

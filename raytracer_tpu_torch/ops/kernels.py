@@ -7,6 +7,9 @@ wrapper        CUDA source                  replaces (raytracer_tpu/ops/
 =============  ===========================  ==============================
 ray_mask       csrc/ray_mask.cu             _ray_mask_kernel (:305)
 ray_mask_hier  csrc/ray_mask.cu             _ray_mask_kernel_hier (:242)
+compact        csrc/compact.cu              no Pallas kernel: XLA's
+                                            lax.top_k and bit packing in
+                                            _compact
 closest        csrc/closest.cu              _closest_kernel (:720), shared
                                             origin and per-ray origin
 shadow         csrc/shadow.cu               _shadow_kernel (:982) and
@@ -68,7 +71,7 @@ DENSE_SPH_ROWS = 8   # scenes with <= this many sphere clusters visit all
 
 launches = {"ray_mask": 0, "ray_mask_hier": 0, "closest_shared": 0,
             "closest": 0, "shadow": 0, "any": 0, "threefry": 0,
-            "hit_record": 0, "shade_bounce": 0}
+            "hit_record": 0, "shade_bounce": 0, "compact": 0}
 
 # tiles per step of the plain versions: bounds their (tiles, 128, 128)
 # and (tiles, 128, C) temporaries
@@ -86,14 +89,19 @@ def reset_launches() -> None:
 # launch plumbing
 # ---------------------------------------------------------------------------
 
-def _check(name: str, x: torch.Tensor, dtype, shape, device) -> None:
+def _check(name: str, x: torch.Tensor, dtype, shape, device,
+           rows: bool = False) -> None:
+    """Device, dtype, shape and a contiguous layout; with ``rows`` only a
+    unit column stride (a matrix's rows may lie apart)."""
     if x.device != device:
         raise ValueError(f"{name} is on {x.device}, expected {device}")
     if x.dtype != dtype:
         raise ValueError(f"{name} has dtype {x.dtype}, expected {dtype}")
     if tuple(x.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
-    if not x.is_contiguous():
+    if rows and x.shape[1] > 1 and x.stride(1) != 1:
+        raise ValueError(f"{name} must have unit column stride")
+    if not rows and not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
 
@@ -306,6 +314,62 @@ def ray_mask_hier_plain(act: torch.Tensor, sup: torch.Tensor,
                             bundle) for j in range(s)]
     return (torch.cat([p[0] for p in parts], 1),
             torch.cat([p[1] for p in parts], 1))
+
+
+# ---------------------------------------------------------------------------
+# compact: a tile mask's shortlists (what the visiting kernels read)
+# ---------------------------------------------------------------------------
+
+def compact(hit: torch.Tensor, entry: torch.Tensor, max_list: int):
+    """(words (nt*W,) i32, ids (nt*max_list,) i32, elist (nt*max_list,)
+    f32, counts (nt,) i32) of a tile mask ``hit`` (nt, C) bool and its slab
+    entries ``entry`` (nt, C) f32, W = ceil(C / 32): bit b of word w is
+    column 32w + b; each tile's first max_list hit columns by ascending
+    entry (equal entries: the lower column first, -0 as +0) and their
+    entries; the unclamped hit count.  Equal to the plain version on words
+    and counts, and on ids and elist below min(count, max_list), which is
+    all a visiting kernel reads (past it the kernel writes 0 and +inf).
+    Rows need only a unit column stride."""
+    if hit.device.type == "cpu":
+        return compact_plain(hit, entry, max_list)
+    nt, c = hit.shape
+    dev = hit.device
+    _check("hit", hit, torch.bool, (nt, c), dev, rows=True)
+    _check("entry", entry, torch.float32, (nt, c), dev, rows=True)
+    if not 1 <= max_list <= 64:
+        raise ValueError(f"max_list {max_list} is outside [1, 64]")
+    words = torch.empty((nt * -(-c // 32),), dtype=torch.int32, device=dev)
+    ids = torch.empty((nt * max_list,), dtype=torch.int32, device=dev)
+    elist = torch.empty((nt * max_list,), dtype=torch.float32, device=dev)
+    counts = torch.empty((nt,), dtype=torch.int32, device=dev)
+    _launch("compact", "compact", dev, hit, hit.stride(0), entry,
+            entry.stride(0), words, ids, elist, counts, nt, c, max_list)
+    return words, ids, elist, counts
+
+
+def compact_plain(hit: torch.Tensor, entry: torch.Tensor, max_list: int):
+    """Plain PyTorch version of :func:`compact`: a stable descending sort
+    of -entry over every column (ties keep the lower column id, like
+    ``lax.top_k``) and the bitmask summed in int64."""
+    nt, c = hit.shape
+    dev = hit.device
+    counts = hit.sum(1).to(torch.int32)
+    k = min(max_list, c)
+    keys = torch.where(hit, -entry, -_INF)
+    vals, ids = torch.sort(keys, dim=1, descending=True, stable=True)
+    ids = ids[:, :k].to(torch.int32)
+    elist = -vals[:, :k]
+    if k < max_list:
+        ids = torch.nn.functional.pad(ids, (0, max_list - k))
+        elist = torch.nn.functional.pad(elist, (0, max_list - k), value=_INF)
+    w = -(-c // 32)
+    hp = torch.nn.functional.pad(hit, (0, w * 32 - c))
+    weights = torch.ones((), dtype=torch.int64, device=dev) << torch.arange(
+        32, dtype=torch.int64, device=dev)
+    words = (hp.reshape(nt, w, 32).to(torch.int64) * weights).sum(-1)
+    words = torch.where(words >= 1 << 31, words - (1 << 32), words)
+    return (words.reshape(-1).to(torch.int32), ids.reshape(-1).contiguous(),
+            elist.reshape(-1), counts)
 
 
 # ---------------------------------------------------------------------------

@@ -335,6 +335,130 @@ def test_hier_case_equals_plain_on_card(cuda):
         assert torch.equal(a, b)
 
 
+def _compact_inputs(rng, nt, c, density, offset):
+    """(hit, entry) (nt, offset + c + 3): random hits at ``density``; tile 0
+    all hit (full, overflowing), tile 1 empty, tile 2 one hit; entries
+    integer-valued in even tiles (heavy ties), normal in odd ones, tile 3
+    a row of random -0 and +0."""
+    import numpy as np
+
+    width = offset + c + 3
+    hit = rng.random((nt, width)) < density
+    hit[0] = True
+    hit[1] = False
+    hit[2] = False
+    hit[2, offset + c // 2] = c > 0
+    entry = rng.normal(size=(nt, width)).astype(np.float32)
+    entry[::2] = rng.integers(0, 5, (-(-nt // 2), width))
+    entry[3] = np.where(rng.random(width) < 0.5, -0.0, 0.0)
+    return hit, entry
+
+
+@pytest.mark.parametrize("density", [0.01, 0.3, 1.0])
+@pytest.mark.parametrize("max_list", [8, 48])
+@pytest.mark.parametrize("c", [0, 1, 6, 37, 247, 256, 650, 4096, 4099])
+def test_compact_equals_plain_on_card(cuda, c, max_list, density):
+    """The compaction kernel against its plain version (on the CPU: the
+    stable sort that orders -0 and +0 as equal) on a contiguous mask and on
+    its column slice of a wider one, read in place (rows off 16-byte
+    boundaries): words and counts everywhere, ids and entries (bit for
+    bit) below min(count, max_list)."""
+    import numpy as np
+
+    from raytracer_tpu_torch.ops import kernels as K
+
+    rng = np.random.default_rng(c * 7 + max_list + int(density * 100))
+    nt = 64
+    hit, entry = _compact_inputs(rng, nt, c, density, 13)
+    h, e = torch.from_numpy(hit).to(cuda), torch.from_numpy(entry).to(cuda)
+    for offset, contiguous in ((0, True), (13, False)):
+        th = h[:, offset:offset + c]
+        te = e[:, offset:offset + c]
+        if contiguous:
+            th, te = th.contiguous(), te.contiguous()
+        before = K.launches["compact"]
+        got = K.compact(th, te, max_list)
+        assert K.launches["compact"] == before + 1
+        want = K.compact_plain(th.cpu(), te.cpu(), max_list)
+        words, ids, elist, counts = (x.cpu() for x in got)
+        what = f"C={c} max_list={max_list} offset={offset}"
+        assert torch.equal(words, want[0]), what + ": words"
+        assert torch.equal(counts, want[3]), what + ": counts"
+        keep = (torch.arange(max_list)[None]
+                < torch.clamp(counts, max=max_list)[:, None]).reshape(-1)
+        assert torch.equal(ids[keep], want[1][keep]), what + ": ids"
+        assert torch.equal(elist[keep].view(torch.int32),
+                           want[2][keep].view(torch.int32)), what + ": entries"
+        assert int(counts[0]) == c and int(counts[1]) == 0
+
+
+def _compact_scene(name, cuda):
+    from torch_port_util import epilogue_scene
+
+    from raytracer_tpu_torch.utils import synth
+
+    if name == "terrain2sph":
+        return epilogue_scene(name, cuda)
+    if name == "spheres":
+        return synth.sphere_field(n_spheres=600, res=64, device=cuda)
+    return synth.terrain_scene(cells=40, res=64, mirror_stripes=True,
+                               device=cuda)
+
+
+@pytest.mark.parametrize("scene", ["terrain2sph", "terrain_hier", "spheres"])
+def test_compact_frames_equal_sort_route_on_card(cuda, scene, monkeypatch):
+    """Replayed 64x64 frames with the compaction kernel equal the same
+    frames with the compaction by the plain version's sort on the card:
+    two small spheres and two lights (an empty sphere side, as the horse
+    frame has), the terrain on the hierarchical mask, and a sphere field
+    (the triangle and sphere slices of one concatenated mask).  The
+    replayed frame launches the kernel once for each compaction of the
+    eager frame's shortlists."""
+    import numpy as np
+
+    from raytracer_tpu_torch.models import programs
+    from raytracer_tpu_torch.models.bvh import build_bvh
+    from raytracer_tpu_torch.models.clusters import build_clusters
+    from raytracer_tpu_torch.models.whitted import eager, render_camera
+    from raytracer_tpu_torch.ops import cluster_trace as ctr
+    from raytracer_tpu_torch.ops import kernels as K
+
+    if scene == "terrain_hier":
+        monkeypatch.setattr(ctr, "SUPER_MIN_CPAD", 0)
+    data, meta = _compact_scene(scene, cuda)
+    cset = build_clusters(data, meta, build_bvh(data, meta))
+    cam = meta.cameras[0]
+
+    def replayed():
+        programs.drop(data)
+        render_camera(data, meta, cam, cset, device=cuda)    # captures
+        K.reset_launches()
+        img = render_camera(data, meta, cam, cset, device=cuda)
+        torch.cuda.synchronize()
+        return img.cpu(), dict(K.launches)
+
+    compact = ctr._compact
+    with monkeypatch.context() as m:
+        m.setattr(ctr, "_compact", K.compact_plain)
+        want, sort_launches = replayed()
+    got, launches = replayed()
+    assert sort_launches["compact"] == 0
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    calls = []
+
+    def counted(*a):
+        calls.append(a[0].is_contiguous())
+        return compact(*a)
+
+    with monkeypatch.context() as m, eager():
+        m.setattr(ctr, "_compact", counted)
+        K.reset_launches()
+        render_camera(data, meta, cam, cset, device=cuda)
+    assert calls and launches["compact"] == len(calls) == K.launches["compact"]
+    assert all(calls) == (scene != "spheres")     # slices read in place
+    programs.drop(data)
+
+
 def _terrain_both(cuda):
     """(meta, camera, CPU (data, cset), CUDA (data, cset)) of one terrain."""
     from raytracer_tpu_torch.models.bvh import build_bvh

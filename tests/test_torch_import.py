@@ -142,8 +142,10 @@ def test_wrappers_dispatch_on_tensor_device(monkeypatch):
     K.reset_launches()
     assert set(K.launches) == {"ray_mask", "ray_mask_hier", "closest_shared",
                                "closest", "shadow", "any", "threefry",
-                               "hit_record", "shade_bounce"}
+                               "hit_record", "shade_bounce", "compact"}
     hit, ent = K.ray_mask(act, box, bundle)
+    words, ids, elist, counts = K.compact(hit != 0, ent, 48)
+    assert words.shape == (1,) and ids.shape == elist.shape == (48,)
     assert hit.shape == (1, 3) and ent.dtype == torch.float32
     hit, ent = K.ray_mask_hier(act, sup, box, bundle)
     assert hit.shape == (1, 3) and ent.dtype == torch.float32
@@ -168,4 +170,6 @@ def test_wrappers_dispatch_on_tensor_device(monkeypatch):
         K.any_hit(*[x.to("meta") for x in any_args])
     with pytest.raises(RuntimeError, match="nvcc"):
         K.threefry_uniform(0, 3, 10, -0.5, 0.5, "meta")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        K.compact((hit != 0).to("meta"), ent.to("meta"), 48)
     assert sum(K.launches.values()) == 0

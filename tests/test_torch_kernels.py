@@ -110,21 +110,32 @@ def test_tile_mask_equals_jax():
     assert not ph[:2].any()
 
 
-@pytest.mark.parametrize("c,max_list", [(5, 8), (37, 8), (70, 48)])
-def test_compact_equals_jax(c, max_list):
+@pytest.mark.parametrize("c,max_list,offset", [
+    pytest.param(5, 8, 0, id="5-8"), pytest.param(37, 8, 0, id="37-8"),
+    pytest.param(70, 48, 0, id="70-48"), pytest.param(0, 8, 0, id="0-8"),
+    pytest.param(20, 48, 0, id="20-48"), pytest.param(4099, 48, 0, id="4099-48"),
+    pytest.param(70, 48, 13, id="70-48-slice")])
+def test_compact_equals_jax(c, max_list, offset):
     """Front-to-back lists with ties (lower cluster id first, like
-    lax.top_k), unclamped counts and the bitmask words."""
+    lax.top_k), unclamped counts and the bitmask words; no columns, fewer
+    columns than the list holds, a partial last word, and (``offset``) the
+    mask as a column slice of a wider one, read in place, as the triangle
+    and sphere slices of one concatenated mask are."""
     rng = np.random.default_rng(c)
     nt = 16
-    hit = rng.random((nt, c)) < 0.6
+    width = offset + c + (5 if offset else 0)
+    hit = rng.random((nt, width)) < 0.6
     hit[0] = True          # overflows small lists
     hit[1] = False         # empty tile
-    entry = rng.integers(0, 6, (nt, c)).astype(np.float32)  # many ties
-    entry[2] = -0.0
+    entry = rng.integers(0, 6, (nt, width)).astype(np.float32)  # many ties
+    entry[2] = -0.0        # (lax.top_k orders -0 before +0; the port as equal)
+    th, te = torch.from_numpy(hit), torch.from_numpy(entry)
+    hit, entry = hit[:, offset:offset + c], entry[:, offset:offset + c]
+    th, te = th[:, offset:offset + c], te[:, offset:offset + c]
+    assert th.is_contiguous() == (offset == 0)
     with jax.disable_jit():
         jw, jids, jel, jcnt = jct._compact(jnp.asarray(hit), jnp.asarray(entry), max_list)
-    pw, pids, pel, pcnt = pct._compact(torch.from_numpy(hit), torch.from_numpy(entry),
-                                       max_list)
+    pw, pids, pel, pcnt = pct._compact(th, te, max_list)
     assert_same(pw.numpy(), jw, "words")
     assert_same(pcnt.numpy(), jcnt, "counts")
     cnt = np.minimum(np.asarray(jcnt), max_list)
@@ -133,6 +144,19 @@ def test_compact_equals_jax(c, max_list):
                 np.asarray(jids).reshape(nt, -1)[keep], "ids")
     assert_same(pel.numpy().reshape(nt, -1)[keep],
                 np.asarray(jel).reshape(nt, -1)[keep], "entries")
+
+
+def test_compact_cpu_takes_plain_version():
+    """CPU tensors take the plain version (the stable sort) and count no
+    kernel launch; so does the engine's ``_compact``."""
+    rng = np.random.default_rng(3)
+    hit = torch.from_numpy(rng.random((8, 300)) < 0.2)
+    entry = torch.from_numpy(rng.integers(0, 9, (8, 300)).astype(np.float32))
+    before = dict(K.launches)
+    for got in (K.compact(hit, entry, 48), pct._compact(hit, entry, 48)):
+        for a, b in zip(got, K.compact_plain(hit, entry, 48)):
+            assert torch.equal(a, b)
+    assert K.launches == before and "compact" in K.launches
 
 
 def _rays(scene, shared, seed):
