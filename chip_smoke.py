@@ -1864,14 +1864,16 @@ def patched(module, name, wrap):
 
 @contextlib.contextmanager
 def instrumented(cap):
-    """One frame's bands, jitter draws and waves, inside ``cap``: yields
-    {"bands": ray count of every band render_camera_streamed renders,
-    "draws": (offsets, ms) of every jitter draw, device-timed (CUDA
-    events around it, queued behind a spin), "late_draws": those whose
-    spin ended before the draw was queued (their ms hold a host gap),
-    "compactions": activity compactions}; the kernel calls of adaptive
-    sampling's refinement waves are kept under the tag "@refine", and
-    those after a compaction under "@compacted" too."""
+    """One eager frame's bands, jitter draws and waves, inside ``cap``:
+    yields {"bands": ray count of every band program run
+    (``whitted._Frame``), "draws": (offsets, ms) of every jitter draw
+    (``draw_jitter_into``, in a band's or wave's prologue), device-timed
+    (CUDA events around it, queued behind a spin), "late_draws": those
+    whose spin ended before the draw was queued (their ms hold a host
+    gap), "compactions": activity compactions}; the kernel calls of
+    adaptive sampling's refinement waves (its ``_Rays`` of
+    ``compact_mode="deep"``) are kept under the tag "@refine", and those
+    after a compaction under "@compacted" too."""
     import torch
 
     from raytracer_tpu_torch.models import whitted
@@ -1880,13 +1882,13 @@ def instrumented(cap):
     seen = {"bands": [], "draws": [], "late_draws": 0, "compactions": 0}
 
     def band(f):
-        def counted(*a, **kw):
-            seen["bands"].append(a[5] * a[7])          # ws * bh
-            return f(*a, **kw)
+        def counted(self, *a):
+            seen["bands"].append(self.w * self.bh)
+            return f(self, *a)
         return counted
 
     def draw(f):
-        def timed(jitter, seed, key, shape, device):
+        def timed(key, out):
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             # the host enqueues while the card spins (~8 ms: long enough for
@@ -1894,23 +1896,29 @@ def instrumented(cap):
             # otherwise fall between the events)
             torch.cuda._sleep(1 << 24)
             e0.record()
-            x = f(jitter, seed, key, shape, device)
+            x = f(key, out)
             late = e0.query()   # the card reached e0 before the draw was queued
             e1.record()
             e1.synchronize()
-            seen["draws"].append((math.prod(shape), e0.elapsed_time(e1)))
+            seen["draws"].append((out.numel(), e0.elapsed_time(e1)))
             seen["late_draws"] += late
             return x
         return timed
 
     def wave(f):
-        def tagged(*a, compact_mode="auto", **kw):
-            cap.tag = "@refine" if compact_mode == "deep" else ""
-            try:
-                return f(*a, compact_mode=compact_mode, **kw)
-            finally:
-                cap.tag = ""
-        return tagged
+        def made(*a, compact_mode="auto", **kw):
+            rays = f(*a, compact_mode=compact_mode, **kw)
+            run = rays.run
+
+            def tagged():
+                cap.tag = "@refine" if compact_mode == "deep" else ""
+                try:
+                    run()
+                finally:
+                    cap.tag = ""
+            rays.run = tagged
+            return rays
+        return made
 
     def compact(f):
         def tagged(carry):
@@ -1921,17 +1929,17 @@ def instrumented(cap):
         return tagged
 
     def ray_wave(f):
-        def untagged(*a, **kw):
+        def untagged(self):
             cap.tag = cap.tag.replace("@compacted", "")
-            return f(*a, **kw)
+            return f(self)
         return untagged
 
     with contextlib.ExitStack() as stack:
-        for mod, name, wrap in ((whitted, "render_band", band),
-                                (whitted, "draw_jitter", draw),
-                                (adaptive, "draw_jitter", draw),
-                                (adaptive, "trace", wave),
-                                (whitted, "render_rays", ray_wave),
+        for mod, name, wrap in ((whitted._Frame, "__call__", band),
+                                (whitted, "draw_jitter_into", draw),
+                                (adaptive, "draw_jitter_into", draw),
+                                (adaptive, "_Rays", wave),
+                                (whitted._Wavefront, "run", ray_wave),
                                 (whitted, "_compact_carry", compact)):
             stack.enter_context(patched(mod, name, wrap))
         yield seen
@@ -2559,19 +2567,19 @@ FRAME_MUST = ("ray_mask", "closest_shared", "closest", "shadow")
 
 
 def frame_rays(fn):
-    """(fn(), the ray count of every wavefront ``whitted.trace`` traced
-    in it): the shards of each band."""
+    """(fn(), the ray count of every mesh shard (``whitted._Shard``)
+    traced in it): the shards of each band."""
     from raytracer_tpu_torch.models import whitted
 
     traced = []
 
     def count(f):
-        def counted(data, meta, origin, dirs, *a, **kw):
-            traced.append(dirs.shape[0])
-            return f(data, meta, origin, dirs, *a, **kw)
+        def counted(self):
+            traced.append(self.src.shape[0])
+            return f(self)
         return counted
 
-    with patched(whitted, "trace", count):
+    with patched(whitted._Shard, "__call__", count):
         return fn(), traced
 
 

@@ -16,7 +16,9 @@ one CUDA graph of it serves every later run of the same shape.  The
 bodies live in ``models.whitted`` (``_Wavefront``, ``_Rays``, ``_Frame``),
 ``ops.adaptive`` (``_Adaptive``) and ``parallel.train``
 (``_TrainProgram``), the mesh band in ``models.whitted``
-(``_MeshFrame``); this module holds what they share:
+(``_MeshFrame``); this module holds what they share.  Every render runs
+these program objects, one route run two ways: kept and captured on a
+CUDA device, made anew and run in place elsewhere.
 
 - ``Step``: one body.  Its first run is eager: it computes the result and
   warms every kernel instance the body launches (the kernel library's
@@ -36,6 +38,12 @@ bodies live in ``models.whitted`` (``_Wavefront``, ``_Rays``, ``_Frame``),
   A scene's programs belong to one device: their steps run, are captured
   and replay with it as the current device (a mesh of several cards in
   one process has a scene, so programs and a pool, per card).
+- ``EAGER``: the programs of a render that captures nothing.  Each
+  program is made anew and kept nowhere, each step is its body, run on
+  every call; so an eager render keeps nothing once it returns.
+- ``render_programs(data, meta, accel, device)``: the one place where a
+  render chooses between them: the scene's kept programs where
+  ``enabled`` (a CUDA device, outside ``eager()``), else ``EAGER``.
 - ``replica(obj, device)``: one copy of a scene object per (object,
   device), for the shards of a mesh (``parallel.mesh.replicate``), kept
   while the object's tensors are not edited in place, so that another
@@ -56,18 +64,20 @@ Spans (``tracing``): ``program.step`` around a replay and
 ``program.flags`` around a flag read, while a profiler records;
 ``program.first`` (a step's first, eager run), ``program.capture`` and
 ``program.make`` (``Programs.program``'s construction of a program)
-always, as set-up.  Each names its step or program in ``what``.
+always, as set-up.  Each names its step or program in ``what``.  The
+eager programs record no ``program.*`` span but ``program.flags``.
 
 A capture that fails raises, naming the step; nothing falls back to
-eager.  On the CPU there is nothing to capture: the caller asked for the
-CPU, and the bodies run eagerly on every run, kept nowhere.
+eager.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
+import weakref
 from collections import OrderedDict
 
 import torch
@@ -240,6 +250,41 @@ class Programs(dict):
                                     " ".join(map(str, key[:2]))):
                 prog = self[key] = make()
         return prog
+
+
+class Eager:
+    """The programs of a render that captures nothing (``EAGER``): the
+    counterpart of ``Programs`` whose steps run their bodies in place and
+    whose programs are kept nowhere."""
+
+    @staticmethod
+    def step(name: str, body):
+        """``body`` (a bound method, or a ``functools.partial`` of one),
+        run on every call.  It holds the body's object weakly: a program
+        keeps its steps, and steps that held the program would make a
+        reference cycle, which only the garbage collector frees."""
+        args = ()
+        if isinstance(body, functools.partial):
+            body, args = body.func, body.args
+        method = weakref.WeakMethod(body)
+        return lambda: method()(*args)
+
+    @staticmethod
+    def program(key, make):
+        """A new ``make()``, kept nowhere."""
+        return make()
+
+
+EAGER = Eager()
+
+
+def render_programs(data, meta, accel, device):
+    """The programs that a render of the scene (``data``, ``meta``,
+    ``accel``) on ``device`` runs: the scene's kept programs
+    (``scene_programs``) where ``enabled``, else ``EAGER``."""
+    if enabled(device):
+        return scene_programs(data, meta, accel, device)
+    return EAGER
 
 
 def _tensors(obj, skip=()) -> list:

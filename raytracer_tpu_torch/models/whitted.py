@@ -35,21 +35,24 @@ order.
 reduces each band on the device (SSAA, quantization), so ray state stays
 about one chunk; it is the route of every render request but adaptive
 sampling, jittered sampling included, and over a device mesh it splits
-each band's rays into the mesh's shards (``parallel.render``).
+each band's rays into the mesh's shards.
 
-On a CUDA device the forward renders of every engine (``render_rays``,
-``trace``, ``render_camera``, ``render_camera_streamed``, on one device
-or a mesh) replay captured CUDA graphs (``models.programs``): the bounce
-loop as steps on static buffers (``_Wavefront``, cut into chunks by
-``_Rays``; the BVH engine's bounce cut at its two walks, whose blocks of
-iterations replay while their flag reads true), a band or camera as a
-program around it (``_Frame``; on a mesh ``_MeshFrame``, its shards
-``_Shard``s), the counterparts of the JAX package's jitted
-``_render_rays_jit``, ``_render_band_jit`` (with its ``shard_map``) and
+Every forward render of every engine (``render_rays``, ``trace``,
+``render_camera``, ``render_band``, ``render_camera_streamed``, on one
+device or a mesh) runs one route of program objects: the bounce loop as
+steps on static buffers (``_Wavefront``, cut into chunks by ``_Rays``;
+the BVH engine's bounce cut at its two walks, whose blocks of iterations
+run while their flag reads true), a band or camera as a program around
+it (``_Frame``; on a mesh ``_MeshFrame``, its shards ``_Shard``s), the
+counterparts of the JAX package's jitted ``_render_rays_jit``,
+``_render_band_jit`` (with its ``shard_map``) and
 ``_render_camera_jit``; the adaptive frame (``ops.adaptive``) and the
-training step through the differentiable path (``parallel.train``)
-replay programs of their own.  The same bodies run eagerly on the CPU,
-inside ``eager()`` and under ``debug_nans()``.
+training step through the differentiable path (``parallel.train``) are
+programs of their own.  ``programs.render_programs`` chooses how they
+run: on a CUDA device kept and replayed as CUDA graphs
+(``models.programs``); on the CPU, inside ``eager()`` and under
+``debug_nans()`` made anew for each render and run in place
+(``programs.EAGER``), kept nowhere.
 
 The differentiable path on the BVH engine runs in two passes: a
 recording wavefront (``_Wavefront`` with ``record``, no gradient) traces
@@ -64,6 +67,7 @@ those of one pass.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 
 import torch
@@ -111,14 +115,16 @@ def debug_nans(on: bool = True):
     """Inside the block (``--debug-nans``) the radiance of every wave is
     checked after each bounce, one device sync a bounce, and a value that
     is not finite raises FloatingPointError naming the bounce (and the
-    band or adaptive wave); the autograd anomaly mode is on too, so a
+    band or adaptive wave); the renders and training steps run eagerly
+    (``programs.eager()``), and the autograd anomaly mode is on, so a
     differentiable render's backward names the forward op behind a NaN.
     The port's counterpart of the JAX package's ``jax_debug_nans``, not
     the same switch: that one checks the output of every op."""
     prev = _debug["nans"]
     _debug["nans"] = on
     try:
-        with torch.autograd.set_detect_anomaly(on):
+        with torch.autograd.set_detect_anomaly(on), (
+                programs.eager() if on else contextlib.nullcontext()):
             yield
     finally:
         _debug["nans"] = prev
@@ -290,7 +296,7 @@ class _Wavefront:
     package).  ``run`` reads the flags once between bounces, as XLA's
     while_loop reads its predicate, so the early exit (no ray active) and
     both branches of the gate stay: each bounce runs exactly the ops of
-    the eager loop.  While a profiler records, ``run`` samples
+    the JAX package's loop.  While a profiler records, ``run`` samples
     (``tracing.sample``) each bounce's ``wave.active``, the rays active
     entering it, and on the cluster engine ``wave.lanes``, 128 x the live
     tiles its kernels see (after a compaction's sort ceil(active / 128));
@@ -319,11 +325,10 @@ class _Wavefront:
     every bounce runs, no early exit, and each writes its primitive ids
     into ``ids[d]`` and its occlusion bits into ``occ[d]``.
 
-    ``step(name, body)`` makes each step, captured
-    (``programs.Programs.step``); with ``step`` None the bodies run
-    eagerly and nothing is kept (a kept step refers back to the
-    wavefront: a cycle that would hold its buffers until the garbage
-    collector runs)."""
+    ``step(name, body)`` makes each step: captured
+    (``programs.Programs.step``) or run in place (``programs.EAGER``).
+    The steps are kept per bounce, their bodies bound methods of the
+    wavefront or partials of them."""
 
     def __init__(self, data: SceneData, meta: SceneMeta, accel, r: int,
                  shared: bool, bfc: bool, relaxed: bool, compact_mode: str,
@@ -434,11 +439,9 @@ class _Wavefront:
     def _run(self, depth, compacted: bool) -> None:
         steps = self.steps.get((depth, compacted))
         if steps is None:
-            steps = [self._walk(p) if isinstance(p, int)
-                     else p[1] if self.step is None else self.step(*p)
-                     for p in self._parts(depth, compacted)]
-            if self.step is not None:
-                self.steps[(depth, compacted)] = steps
+            steps = self.steps[(depth, compacted)] = [
+                self._walk(p) if isinstance(p, int) else self.step(*p)
+                for p in self._parts(depth, compacted)]
         for step in steps:
             step()
 
@@ -449,21 +452,20 @@ class _Wavefront:
             return [("uncompact", self._uncompact)]
         if self.engine != "bvh":
             name = f"bounce {depth}" + (", compacted" if compacted else "")
-            return [(name, self._bounce_body(depth, compacted))]
+            return [(name, functools.partial(self._bounce_step, depth,
+                                             compacted))]
         parts = [(f"bounce {depth} closest set-up",
-                  lambda: self._bvh_closest(depth)), 0,
+                  functools.partial(self._bvh_closest, depth)), 0,
                  (f"bounce {depth} shadow set-up",
-                  lambda: self._bvh_shadows(depth))]
+                  functools.partial(self._bvh_shadows, depth))]
         if len(self.walks) > 1:
             parts.append(1)
         return parts + [(f"bounce {depth} shading",
-                         lambda: self._bvh_shade(depth))]
+                         functools.partial(self._bvh_shade, depth))]
 
     def _walk(self, i: int):
         """Runs walk ``i``'s blocks: its one block step, kept."""
         walk = self.walks[i]
-        if self.step is None:
-            return walk.run
         if i not in self.blocks:
             self.blocks[i] = self.step(f"{('closest', 'shadow')[i]} walk "
                                        "block", walk.block)
@@ -511,25 +513,22 @@ class _Wavefront:
             flags = self.flags if self.masks is None else self.flags[:3]
             flags.copy_(torch.stack([count, tiles, scattered]))
 
-    def _bounce_body(self, depth: int, compacted: bool):
-        def body():
-            carry = self._carry(depth)
-            if compacted:
-                carry = _compact_carry(carry)
-            if self.engine == "cluster":
-                shared = self.origin if depth == 0 and self.shared else None
-                with ctr.counting_masks(self.masks):
-                    carry = _fused_bounce(self.data, self.meta, self.accel,
-                                          self.bfc, self.fns, carry, shared,
-                                          self.relaxed,
-                                          self._buffers(depth)[1:6])
-                self.fused.add((depth, compacted))
-            else:
-                carry = _bounce(self.data, self.meta, self.accel, self.engine,
-                                self.bfc, self.fns, carry)
-            self._store(carry)
-            self._flags(depth, carry[3])
-        return body
+    def _bounce_step(self, depth: int, compacted: bool) -> None:
+        carry = self._carry(depth)
+        if compacted:
+            carry = _compact_carry(carry)
+        if self.engine == "cluster":
+            shared = self.origin if depth == 0 and self.shared else None
+            with ctr.counting_masks(self.masks):
+                carry = _fused_bounce(self.data, self.meta, self.accel,
+                                      self.bfc, self.fns, carry, shared,
+                                      self.relaxed, self._buffers(depth)[1:6])
+            self.fused.add((depth, compacted))
+        else:
+            carry = _bounce(self.data, self.meta, self.accel, self.engine,
+                            self.bfc, self.fns, carry)
+        self._store(carry)
+        self._flags(depth, carry[3])
 
     def _bvh_closest(self, depth: int) -> None:
         if depth == 0:
@@ -564,25 +563,20 @@ class _Wavefront:
         self.color.copy_(_uncompact_color(self.color, self.idx))
 
 
-def _programs_on(device) -> bool:
-    """True when a render on ``device`` replays captured programs: on a
-    CUDA device, outside ``eager()`` and ``debug_nans()``, whatever the
-    engine."""
-    return not _debug["nans"] and programs.enabled(device)
-
-
 def _wavefront(progs, data, meta, accel, r: int, shared: bool, bfc: bool,
                relaxed: bool, compact_mode: str, device,
                engine: str = "cluster") -> _Wavefront:
-    """The scene's cached wavefront program of this engine and shape
-    (``progs``: ``programs.scene_programs``), or with ``progs`` None a new
-    eager one."""
+    """The wavefront program of this engine and shape from ``progs``
+    (``programs.render_programs``): the scene's kept one, or a new one."""
     args = (data, meta, accel, r, shared, bfc, relaxed, compact_mode, device)
-    if progs is None:
-        return _Wavefront(*args, None, engine)
     return progs.program(("rays", engine, r, shared, bfc, relaxed,
                           compact_mode),
                          lambda: _Wavefront(*args, progs.step, engine))
+
+
+def _check_compact_mode(compact_mode: str) -> None:
+    if compact_mode not in ("auto", "deep"):
+        raise ValueError(f"unknown compact_mode {compact_mode!r}")
 
 
 def _visibility(data, meta, accel, origin, dirs, bfc: bool):
@@ -590,7 +584,8 @@ def _visibility(data, meta, accel, origin, dirs, bfc: bool):
     traced eagerly by a recording wavefront (no gradient): (ids (D+1, R),
     occ (D+1, L*R) or None without lights)."""
     wf = _Wavefront(data, meta, accel, dirs.shape[0], origin.dim() == 1, bfc,
-                    False, "auto", dirs.device, None, "bvh", record=True)
+                    False, "auto", dirs.device, programs.EAGER.step, "bvh",
+                    record=True)
     wf.load(origin.detach(), dirs.detach())
     wf.run()
     return wf.ids, wf.occ
@@ -611,27 +606,21 @@ def render_rays(data: SceneData, meta: SceneMeta, origin, dirs, accel,
     compaction, no peeled eye bounce.  On the BVH engine the ids and the
     occlusion bits come from ``visibility`` ((ids, occ) of a recording
     ``_Wavefront``), traced first (``_visibility``) when not given.
-    Otherwise the wavefront runs as ``_Wavefront`` (on a CUDA device a
-    captured program of this scene, engine and shape, replayed,
-    ``programs``): the cluster engine takes its hits from the kernel's
-    slot table, brute and bvh refine their ids the same way, stopping once
-    no ray is active.  The cluster engine's shadow kernels (plane tables
-    within ``SHADOW_PLANES_BYTES_MAX``) serve both paths.
+    Otherwise the rays are ``trace``'s one wavefront (``_Wavefront``, the
+    program of this scene, engine and shape, ``programs``): the cluster
+    engine takes its hits from the kernel's slot table, brute and bvh
+    refine their ids the same way, stopping once no ray is active.  The
+    cluster engine's shadow kernels (plane tables within
+    ``SHADOW_PLANES_BYTES_MAX``) serve both paths.
     ``compact_mode`` (fast path only): ``auto`` gates the activity
     compaction off below max depth _COMPACT_MIN_DEPTH; ``deep`` keeps only
     the runtime scatter gate (adaptive refinement waves, scattered by
     construction)."""
-    if compact_mode not in ("auto", "deep"):
-        raise ValueError(f"unknown compact_mode {compact_mode!r}")
     r, dev = dirs.shape[0], dirs.device
     if not differentiable:
-        progs = (programs.scene_programs(data, meta, accel, dev)
-                 if _programs_on(dev) else None)
-        wf = _wavefront(progs, data, meta, accel, r, origin.dim() == 1, bfc,
-                        relaxed, compact_mode, dev, engine)
-        wf.load(origin, dirs)
-        color = wf.run()
-        return color if progs is None else color.clone()
+        return trace(data, meta, origin, dirs, accel, r, bfc=bfc,
+                     relaxed=relaxed, compact_mode=compact_mode, engine=engine)
+    _check_compact_mode(compact_mode)
     if engine == "bvh" and visibility is None:
         visibility = _visibility(data, meta, accel, origin, dirs, bfc)
     fns = _occlusion(data, meta, accel, engine, bfc, relaxed)
@@ -728,23 +717,18 @@ def trace(data: SceneData, meta: SceneMeta, origin, dirs, accel,
           chunk: int, bfc: bool = False, relaxed: bool = False,
           compact_mode: str = "auto", engine: str = "cluster"):
     """(R, 3) radiance of rays (``origin`` (3,) shared or (R, 3) per ray;
-    in tile order for the cluster engine): one wavefront when R <=
-    ``chunk``, else wavefronts of ``chunk`` rays rounded down to whole
-    tiles, the last padded with copies of the last ray."""
-    r = dirs.shape[0]
-    kw = dict(engine=engine, bfc=bfc, relaxed=relaxed,
-              compact_mode=compact_mode)
-    if r <= chunk:
-        return render_rays(data, meta, origin, dirs, accel, **kw)
-    chunk, _, pad = _chunks(r, chunk)
-    dirs = torch.cat([dirs, dirs[-1:].expand(pad, 3)])
-    per_ray = origin.dim() == 2
-    if per_ray:
-        origin = torch.cat([origin, origin[-1:].expand(pad, 3)])
-    return torch.cat([
-        render_rays(data, meta, origin[s:s + chunk] if per_ray else origin,
-                    dirs[s:s + chunk], accel, **kw)
-        for s in range(0, r + pad, chunk)])[:r]
+    in tile order for the cluster engine), traced by a ``_Rays`` of the
+    render's programs (``programs.render_programs``): one wavefront when
+    R <= ``chunk``, else wavefronts of ``chunk`` rays rounded down to
+    whole tiles, the last padded with copies of the last ray."""
+    _check_compact_mode(compact_mode)
+    dev = dirs.device
+    rays = _Rays(programs.render_programs(data, meta, accel, dev), data, meta,
+                 accel, dirs.shape[0], chunk, origin.dim() == 1, bfc, relaxed,
+                 compact_mode, dev, engine)
+    rays.load(origin, dirs)
+    rays.run()
+    return rays.color.clone()
 
 
 def render_camera(data: SceneData, meta: SceneMeta, cam: Camera, accel,
@@ -756,25 +740,17 @@ def render_camera(data: SceneData, meta: SceneMeta, cam: Camera, accel,
     8x16 pixel blocks so every kernel tile is a coherent frustum.  A frame
     of at most ``chunk`` rays (capped for big cluster scenes) is one
     wavefront; larger frames render chunk by chunk: whole tiles, the last
-    chunk padded with copies of the last ray."""
+    chunk padded with copies of the last ray.  The frame is the camera's
+    ``_Frame`` of the render's programs (``programs.render_programs``)."""
     dev = _render_device(data, accel, device)
     engine = resolve_engine(engine, accel, meta)
     h, w = cam.height, cam.width
     chunk = _cap_chunk_for_big_scenes(max(TILE, (chunk // TILE) * TILE),
                                       accel)
     vec = torch.from_numpy(camera_vectors(cam)).to(dev)
-    if _programs_on(dev):
-        progs = programs.scene_programs(data, meta, accel, dev)
-        return _frame(progs, data, meta, accel, "camera", h, w, h, chunk,
-                      1, "parity", True, False, bfc, relaxed,
-                      engine)(vec).clone()
-    blocks, perm, inv = _tile_order(h, w, dev, engine)
-    origin, dirs = eye_rays_from(vec, w, h)
-    dirs = apply_tile_order(dirs, h, w, blocks, perm).contiguous()
-    color = trace(data, meta, origin, dirs, accel, chunk, bfc=bfc,
-                  relaxed=relaxed, engine=engine)
-    color = undo_tile_order(color, h, w, blocks, inv)
-    return color.reshape(h, w, 3)
+    progs = programs.render_programs(data, meta, accel, dev)
+    return _frame(progs, data, meta, accel, "camera", h, w, h, chunk, 1,
+                  "parity", True, False, bfc, relaxed, engine)(vec).clone()
 
 
 def render_band(data: SceneData, meta: SceneMeta, accel, vec,
@@ -787,24 +763,16 @@ def render_band(data: SceneData, meta: SceneMeta, accel, vec,
     cluster engine, traced, back in row order, then reduced on the device:
     ``hdr`` f32 radiance (SSAA as a float mean), else uint8 (SSAA parity:
     quantize, then the truncating mean; otherwise the float mean, then
-    quantize).  ``mesh`` (``parallel.mesh.Mesh``): the tile-ordered rays
-    are traced shard by shard and gathered across processes; everything
-    around the trace is the same code, so the band is the same bit for bit
+    quantize).  The band is the ``_Frame`` of the render's programs
+    (``programs.render_programs``); with ``mesh``
+    (``parallel.mesh.Mesh``) the ``_MeshFrame``, whose tile-ordered rays
+    are traced shard by shard and gathered across processes, everything
+    around the trace the same code, so the band is the same bit for bit
     (bh must hold whole blocks per shard, ``render_camera_streamed``)."""
-    origin, dirs = eye_rays_band(vec, ws, hs, row0, bh, jitter=jitter)
-    blocks, perm, inv = _tile_order(bh, ws, vec.device, engine)
-    dirs = apply_tile_order(dirs, bh, ws, blocks, perm).contiguous()
-    if mesh is None:
-        color = trace(data, meta, origin, dirs, accel, chunk, bfc=bfc,
-                      relaxed=relaxed, engine=engine)
-    else:
-        from raytracer_tpu_torch.parallel.distributed import gather_rows
-        from raytracer_tpu_torch.parallel.render import render_rays_sharded
-
-        color = gather_rows(render_rays_sharded(
-            data, meta, origin, dirs, mesh, accel, engine, chunk=chunk,
-            bfc=bfc, relaxed=relaxed), mesh)
-    return _band_image(color, bh, ws, blocks, inv, ssaa, ssaa_mode, hdr)
+    progs = programs.render_programs(data, meta, accel, vec.device)
+    return _frame(progs, data, meta, accel, "band", hs, ws, bh, chunk, ssaa,
+                  ssaa_mode, hdr, jitter is not None, bfc, relaxed, engine,
+                  mesh)(vec, row0, jitter).clone()
 
 
 def _band_image(color, bh: int, ws: int, blocks, inv, ssaa: int,
@@ -824,35 +792,40 @@ def _band_image(color, bh: int, ws: int, blocks, inv, ssaa: int,
 
 
 class _Rays:
-    """A wavefront program over ``r`` rays with a shared (3,) origin on
-    ``engine``, cut
-    into chunks as ``trace`` cuts them (``_chunks``): one ``_Wavefront`` of
-    r rays, or of ``chunk`` rays rounded down to whole tiles run chunk by
-    chunk over ``dirs_all``, the rays padded with copies of the last one,
-    into ``color_all``.  ``load`` (inside a step's body) copies the rays
-    in, ``run`` traces them, ``color`` is the (r, 3) radiance buffer."""
+    """A wavefront program over ``r`` rays (``shared``: one (3,) origin,
+    else one a ray) on ``engine``, cut into chunks as ``trace`` cuts them
+    (``_chunks``): one ``_Wavefront`` of r rays, or of ``chunk`` rays
+    rounded down to whole tiles run chunk by chunk over ``dirs_all`` (and
+    ``origin_all``), the rays padded with copies of the last one, into
+    ``color_all``.  ``load`` (inside a step's body) copies the rays in,
+    ``run`` traces them, ``color`` is the (r, 3) radiance buffer."""
 
     def __init__(self, progs, data: SceneData, meta: SceneMeta, accel, r: int,
-                 chunk: int, bfc: bool, relaxed: bool, compact_mode: str,
-                 device, engine: str = "cluster"):
+                 chunk: int, shared: bool, bfc: bool, relaxed: bool,
+                 compact_mode: str, device, engine: str = "cluster"):
         self.r = r
         c, self.n, pad = _chunks(r, chunk)
-        self.wf = _wavefront(progs, data, meta, accel, c, True, bfc, relaxed,
+        self.wf = _wavefront(progs, data, meta, accel, c, shared, bfc, relaxed,
                              compact_mode, device, engine)
         self.whole = self.n == 1 and pad == 0
         if not self.whole:
             f32 = dict(dtype=torch.float32, device=device)
             self.dirs_all = torch.zeros((self.n * c, 3), **f32)
+            self.origin_all = (None if shared
+                               else torch.zeros((self.n * c, 3), **f32))
             self.color_all = torch.zeros((self.n * c, 3), **f32)
 
+    @torch.no_grad()
     def load(self, origin, dirs) -> None:
-        self.wf.origin.copy_(origin)
         if self.whole:
-            self.wf.dirs.copy_(dirs)
-        else:
-            self.dirs_all[:self.r].copy_(dirs)
-            self.dirs_all[self.r:].copy_(
-                dirs[-1:].expand(self.dirs_all.shape[0] - self.r, 3))
+            self.wf.load(origin, dirs)
+            return
+        if self.origin_all is None:
+            self.wf.origin.copy_(origin)
+        for buf, x in ((self.dirs_all, dirs), (self.origin_all, origin)):
+            if buf is not None:
+                buf[:self.r].copy_(x)
+                buf[self.r:].copy_(x[-1:].expand(buf.shape[0] - self.r, 3))
 
     @torch.no_grad()
     def run(self) -> None:
@@ -861,8 +834,11 @@ class _Rays:
             wf.run()
             return
         for i in range(self.n):
-            wf.dirs.copy_(self.dirs_all[i * wf.r:(i + 1) * wf.r])
-            self.color_all[i * wf.r:(i + 1) * wf.r].copy_(wf.run())
+            rows = slice(i * wf.r, (i + 1) * wf.r)
+            wf.dirs.copy_(self.dirs_all[rows])
+            if self.origin_all is not None:
+                wf.origin.copy_(self.origin_all[rows])
+            self.color_all[rows].copy_(wf.run())
 
     @property
     def color(self) -> torch.Tensor:
@@ -872,7 +848,8 @@ class _Rays:
 class _Frame:
     """Rows [row0, row0 + bh) of the (h, w) frame (``kind`` "band":
     ``render_band`` without a mesh) or the whole camera (``kind``
-    "camera": ``render_camera``'s radiance, bh = h) as a program, the
+    "camera": ``render_camera``'s radiance, bh = h) as a program of
+    ``progs`` (``programs.render_programs``: kept, or run in place), the
     counterpart of ``_render_band_jit`` / ``_render_camera_jit``.  Its
     static inputs ``vec`` (the (5, 3) camera vector) and ``row0`` (f32)
     are copied in before each run, so every band and camera of one shape
@@ -885,8 +862,7 @@ class _Frame:
     caller's ``jitter``).  Steps: a prologue (the draw, eye rays, the
     engine's tile order, the rays' ``load``), the bounce steps of
     ``_Rays`` (chunk by chunk when ``trace`` would cut the band), and an
-    epilogue (``_band_image``) into the static ``out``.  ``progs`` None:
-    eager steps."""
+    epilogue (``_band_image``) into the static ``out``."""
 
     def __init__(self, progs, data: SceneData, meta: SceneMeta, accel,
                  kind: str, h: int, w: int, bh: int, chunk: int, ssaa: int,
@@ -908,11 +884,8 @@ class _Frame:
         s = max(ssaa, 1)
         self.out = torch.zeros((bh // s, w // s, 3), device=device,
                                dtype=torch.float32 if hdr else torch.uint8)
-        if progs is None:
-            self.prologue, self.epilogue = self._prologue, self._epilogue
-        else:
-            self.prologue = progs.step(f"{kind} prologue", self._prologue)
-            self.epilogue = progs.step(f"{kind} epilogue", self._epilogue)
+        self.prologue = progs.step(f"{kind} prologue", self._prologue)
+        self.epilogue = progs.step(f"{kind} epilogue", self._epilogue)
 
     @torch.no_grad()
     def __call__(self, vec, row0: int = 0, jitter=None,
@@ -935,7 +908,7 @@ class _Frame:
     def _init_trace(self, progs, data, meta, accel, chunk, bfc, relaxed,
                     device) -> None:
         self.rays = _Rays(progs, data, meta, accel, self.bh * self.w, chunk,
-                          bfc, relaxed, "auto", device, self.engine)
+                          True, bfc, relaxed, "auto", device, self.engine)
 
     def _load(self, origin, dirs) -> None:
         self.rays.load(origin, dirs)
@@ -1007,13 +980,14 @@ class _MeshFrame(_Frame):
     the mesh's first device, ``device``) writes the band's tile-ordered
     rays into the static ``origin`` and ``dirs``; each of this process's
     shards (``band / mesh.size`` rays, cut into chunks as ``trace`` cuts
-    them) then runs as a ``_Shard`` on its device, in the programs of its
-    device's copy of the scene (``parallel.mesh.replicate``), writing its
+    them) then runs as a ``_Shard`` on its device, in the programs
+    (``programs.render_programs``) of its device's copy of the scene
+    (``parallel.mesh.replicate``), writing its
     slice of this process's radiance ``local``; with several processes the
     gather (``distributed.gather_rows``, over host copies on gloo) runs
     between graphs into the static ``color`` of the whole band; the
-    epilogue reduces it into ``out``.  The image is ``render_band``'s on
-    the mesh bit for bit: the same rays, cut the same way, traced by the
+    epilogue reduces it into ``out``.  The image is the one-device band's
+    bit for bit: the same rays, in whole blocks per shard, traced by the
     same bodies."""
 
     def __init__(self, progs, data, meta, accel, mesh, *args):
@@ -1037,10 +1011,10 @@ class _MeshFrame(_Frame):
         rays, self.shards = {}, []
         for i, (d, d_data, d_accel) in enumerate(zip(
                 mesh.devices, replicate(mesh, data), replicate(mesh, accel))):
-            d_progs = programs.scene_programs(d_data, meta, d_accel, d)
+            d_progs = programs.render_programs(d_data, meta, d_accel, d)
             if d not in rays:
                 rays[d] = _Rays(d_progs, d_data, meta, d_accel, per, chunk,
-                                bfc, relaxed, "auto", d, self.engine)
+                                True, bfc, relaxed, "auto", d, self.engine)
             k = first + i
             self.shards.append(_Shard(
                 d_progs, rays[d], self.origin,
@@ -1068,8 +1042,9 @@ def _frame(progs, data, meta, accel, kind: str, h: int, w: int, bh: int,
            chunk: int, ssaa: int, ssaa_mode: str, hdr: bool, jittered: bool,
            bfc: bool, relaxed: bool, engine: str, mesh=None,
            drawn: bool = False) -> _Frame:
-    """The scene's cached frame program of this engine and shape
-    (``_Frame``), over ``mesh`` when given (``_MeshFrame``, a band); a
+    """The frame program of this engine and shape from ``progs``
+    (``programs.render_programs``: the scene's kept one, or a new one):
+    ``_Frame``, over ``mesh`` when given ``_MeshFrame`` (a band); a
     jittered band's offsets ``drawn`` by its prologue or given to it are
     two programs."""
     jitter = ("drawn" if drawn else "given") if jittered else None
@@ -1093,15 +1068,17 @@ def render_camera_streamed(data: SceneData, meta: SceneMeta, cam: Camera,
                            mesh=None):
     """Render one camera to its final-resolution (H, W, 3) uint8 image (f32
     radiance when ``hdr``) on ``device`` through ``engine``
-    (``resolve_engine``) by streaming row bands of the SSAA-scaled frame
-    (``render_band``).  Bands are ``max(lcm, (chunk // W*ssaa) // lcm *
-    lcm)`` rows, lcm = lcm(16, ssaa), the last one shorter, as in the JAX
-    package: a band holds whole SSAA pixels, and the jitter mode (ssaa >
-    1) draws each band's offsets keyed on (seed, its first row) as the JAX
-    package does (``ops.camera.draw_jitter``; the seed must lie in [0,
-    2**32)).  ``jitter``: optional callable ``(key, shape) -> array`` that
-    supplies those draws instead (key ``("band", row0)``, shape (rows,
-    W*ssaa, 2)).
+    (``resolve_engine``) by streaming row bands of the SSAA-scaled frame,
+    each one run of a band program (``_Frame``, ``render_band``'s) of the
+    render's programs (``programs.render_programs``).  Bands are
+    ``max(lcm, (chunk // W*ssaa) // lcm * lcm)`` rows, lcm = lcm(16,
+    ssaa), the last one shorter, as in the JAX package: a band holds whole
+    SSAA pixels, and the jitter mode (ssaa > 1) draws each band's offsets
+    keyed on (seed, its first row) as the JAX package does
+    (``ops.camera.draw_jitter``; the seed must lie in [0, 2**32)).
+    ``jitter``: optional callable ``(key, shape) -> array`` that supplies
+    those draws instead (key ``("band", row0)``, shape (rows, W*ssaa,
+    2)).
 
     ``mesh`` (``parallel.mesh.Mesh`` of more than one shard, its first
     device ``device``): each band's rays are split over it.  The lcm then
@@ -1109,11 +1086,12 @@ def render_camera_streamed(data: SceneData, meta: SceneMeta, cam: Camera,
     shard, so every shard holds whole blocks, as in the JAX package, whose
     band heights (and so jitter sample sets) this keeps; a short last band
     is padded with virtual rows below the frame (the eye rays extrapolate
-    the image plane), rendered and cropped.  On CUDA devices a band on the
-    mesh replays as one program (``_MeshFrame``) as a band on one device
-    does (``_Frame``), on every engine; without ``jitter`` a jittered
-    band's program draws its offsets itself (on a mesh, on its first
-    device: every process draws the whole band).
+    the image plane), rendered and cropped.  A band on the mesh runs as
+    one program (``_MeshFrame``) as a band on one device does
+    (``_Frame``), on every engine; without ``jitter`` a jittered band's
+    program draws its offsets itself, on every device (on a mesh, on its
+    first device: every process draws the whole band), and a given
+    ``jitter``'s offsets are copied in.
 
     Spans (``tracing``, while a profiler records): ``pipeline.upload``
     (the camera vector's upload and the programs' lookup),
@@ -1143,11 +1121,8 @@ def render_camera_streamed(data: SceneData, meta: SceneMeta, cam: Camera,
     jittered = ssaa_mode == "jitter" and ssaa > 1
     with tracing.span("pipeline.upload"):
         vec = torch.from_numpy(camera_vectors(cam)).to(dev)
-        progs = (programs.scene_programs(data, meta, accel, dev)
-                 if all(_programs_on(d)
-                        for d in (mesh.devices if mesh else [dev]))
-                 else None)
-    drawn = jittered and progs is not None and jitter is None
+        progs = programs.render_programs(data, meta, accel, dev)
+    drawn = jittered and jitter is None
     bands = []
     for row0 in range(0, hs, band_h):
         bh = min(band_h, hs - row0)
@@ -1158,21 +1133,14 @@ def render_camera_streamed(data: SceneData, meta: SceneMeta, cam: Camera,
             if jittered and not drawn:
                 offsets = draw_jitter(jitter, seed, ("band", row0),
                                       (bh, ws, 2), dev)
-            if progs is None:
-                with nan_site(f"band of rows {row0}-{row0 + bh - 1}"):
-                    band = render_band(
-                        data, meta, accel, vec, hs, ws, row0, bh, ssaa=ssaa,
-                        ssaa_mode=ssaa_mode, hdr=hdr, chunk=chunk,
-                        jitter=offsets, bfc=bfc, relaxed=relaxed,
-                        engine=engine, mesh=mesh)
-            else:
+            with nan_site(f"band of rows {row0}-{row0 + bh - 1}"):
                 band = _frame(progs, data, meta, accel, "band", hs, ws, bh,
                               chunk, ssaa, ssaa_mode, hdr, jittered, bfc,
                               relaxed, engine, mesh, drawn=drawn)(
                                   vec, row0, offsets, seed)
         with tracing.span("pipeline.assemble"):
             # a program's band is its static output: copied out
-            bands.append(band if progs is None else band.clone())
+            bands.append(band.clone())
     with tracing.span("pipeline.assemble"):
         out = torch.cat(bands)
         return out[:cam.height] if out.shape[0] != cam.height else out

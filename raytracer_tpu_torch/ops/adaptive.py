@@ -23,16 +23,18 @@ that order).
 
 Every shape is fixed by the arguments (the base wave is (blocks,
 base_spp), round r (k, its share of extra_spp), the selection a device
-tensor), so on a CUDA device the frame is a captured program on every
-engine (``_Adaptive``, the counterpart of the JAX package's
-``_adaptive_jit``); the eager route (``_adaptive_eager``) serves the CPU,
-``eager()`` and ``debug_nans()``.  Both run the same helpers on the same
-float operations.  The refinement waves' ``compact_mode="deep"`` gates
-the cluster engine's compaction only: brute and bvh never compact, as in
-the JAX package.
+tensor), so the frame is one program on every engine (``_Adaptive``, the
+counterpart of the JAX package's ``_adaptive_jit``), run as
+``models.programs.render_programs`` chooses: kept and captured on a CUDA
+device, made anew and run in place on the CPU, inside ``eager()`` and
+under ``debug_nans()``.  The refinement waves' ``compact_mode="deep"``
+gates the cluster engine's compaction only: brute and bvh never compact,
+as in the JAX package.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -40,8 +42,8 @@ import torch
 from raytracer_tpu_torch.models import programs
 from raytracer_tpu_torch.models.scene import Camera, SceneData, SceneMeta
 from raytracer_tpu_torch.models.whitted import (
-    _cap_chunk_for_big_scenes, _programs_on, _Rays, _render_device,
-    _tile_block_shape, nan_site, resolve_engine, trace,
+    _cap_chunk_for_big_scenes, _Rays, _render_device, _tile_block_shape,
+    nan_site, resolve_engine,
 )
 from raytracer_tpu_torch.ops.camera import (
     camera_vectors, draw_jitter, draw_jitter_into, eye_rays_pixels,
@@ -145,11 +147,12 @@ def _mean_image(sum1, counts, h: int, w: int, inv):
 
 
 class _Adaptive:
-    """The adaptive frame of an (h, w) camera as a program
-    (``models.programs``), the counterpart of the JAX package's
-    ``_adaptive_jit``.  Made once per scene and shape: the tile-ordered
-    pixel coordinates and ``inv`` are uploaded then; the camera vector is
-    copied into a static buffer before each run.  Each wave samples the
+    """The adaptive frame of an (h, w) camera as a program of ``progs``
+    (``models.programs.render_programs``: kept, or run in place), the
+    counterpart of the JAX package's ``_adaptive_jit``.  Made once per
+    scene and shape (when kept): the tile-ordered pixel coordinates and
+    ``inv`` are uploaded then; the camera vector is copied into a static
+    buffer before each run.  Each wave samples the
     offsets in its static jitter buffer: with ``drawn`` its prologue draws
     them (one threefry launch inside the program, as ``_adaptive_jit``
     draws), under the key words that each run writes into row i of the
@@ -162,7 +165,8 @@ class _Adaptive:
     blocks' rays), the round wave's bounce steps (``"deep"``) and an
     epilogue (``_add_samples``); a final step (the mean, back to row order)
     into the static ``out``.  Every wave keeps its flags read between
-    bounces, so the early exit and the compaction gate stay as eager."""
+    bounces, so the early exit and the compaction gate stay; a wave's steps
+    run inside ``nan_site`` naming it."""
 
     def __init__(self, progs, data: SceneData, meta: SceneMeta, accel, h: int,
                  w: int, base_spp: int, per_round: tuple, k: int, bfc: bool,
@@ -196,8 +200,9 @@ class _Adaptive:
 
         def rays(r, compact_mode):
             return _Rays(progs, data, meta, accel, r,
-                         _cap_chunk_for_big_scenes(r, accel), bfc, relaxed,
-                         compact_mode, device, engine)
+                         _cap_chunk_for_big_scenes(r, accel), True, bfc,
+                         relaxed, compact_mode=compact_mode, device=device,
+                         engine=engine)
         self.base = rays(nblk * base_spp * tile, "auto")
         self.waves = {spp: rays(k * spp * tile, "deep") for spp in set(per_round)}
         # the steps of each wave (its prologue draws into its jitter buffer)
@@ -208,10 +213,10 @@ class _Adaptive:
         for rnd, spp in enumerate(per_round):
             self.waves_steps.append((("round", rnd), [
                 progs.step(f"adaptive round {rnd} prologue",
-                           lambda rnd=rnd: self._round_prologue(rnd)),
+                           functools.partial(self._round_prologue, rnd)),
                 self.waves[spp].run,
                 progs.step(f"adaptive round {rnd} epilogue",
-                           lambda rnd=rnd: self._round_epilogue(rnd))]))
+                           functools.partial(self._round_epilogue, rnd))]))
         self.final = progs.step("adaptive final", self._final)
 
     @torch.no_grad()
@@ -228,8 +233,9 @@ class _Adaptive:
             if self.keys is None:
                 buf = self.jitter[key]
                 buf.copy_(draw_jitter(jitter, seed, key, buf.shape, buf.device))
-            for step in steps:
-                step()
+            with nan_site(f"adaptive {key[0]} wave {key[1]}"):
+                for step in steps:
+                    step()
         self.final()
         return self.out
 
@@ -283,9 +289,10 @@ def render_camera_adaptive(data: SceneData, meta: SceneMeta, cam: Camera,
     records the budget spent.  ``jitter``: optional callable ``(key,
     shape) -> array`` supplying the draws (see the module docstring).
 
-    On a CUDA device the frame replays a captured program of this scene,
-    engine and shape (``_Adaptive``); the CPU, ``eager()`` and
-    ``debug_nans()`` run it eagerly."""
+    The frame is the ``_Adaptive`` of this scene, engine and shape from
+    the render's programs (``programs.render_programs``): replayed on a
+    CUDA device, run in place on the CPU, inside ``eager()`` and under
+    ``debug_nans()``."""
     if base_spp < 2:
         raise ValueError("adaptive sampling needs base_spp >= 2 "
                          "(variance of one sample is identically zero)")
@@ -309,19 +316,14 @@ def render_camera_adaptive(data: SceneData, meta: SceneMeta, cam: Camera,
         for i in range(rounds)) if extra_spp > 0 else ()
     per_round = tuple(x for x in per_round if x > 0)
     vec = torch.from_numpy(camera_vectors(cam)).to(dev)
-    if _programs_on(dev):
-        progs = programs.scene_programs(data, meta, accel, dev)
-        drawn = jitter is None
-        prog = progs.program(
-            ("adaptive", engine, h, w, base_spp, per_round, k, bfc, relaxed,
-             "drawn" if drawn else "given"),
-            lambda: _Adaptive(progs, data, meta, accel, h, w, base_spp,
-                              per_round, k, bfc, relaxed, dev, engine, drawn))
-        img = prog(vec, jitter, seed).clone()
-    else:
-        img = _adaptive_eager(data, meta, accel, vec, h, w, base_spp,
-                              per_round, k, seed, bfc, relaxed, jitter,
-                              engine)
+    progs = programs.render_programs(data, meta, accel, dev)
+    drawn = jitter is None
+    prog = progs.program(
+        ("adaptive", engine, h, w, base_spp, per_round, k, bfc, relaxed,
+         "drawn" if drawn else "given"),
+        lambda: _Adaptive(progs, data, meta, accel, h, w, base_spp,
+                          per_round, k, bfc, relaxed, dev, engine, drawn))
+    img = prog(vec, jitter, seed).clone()
     extra_total = k * p_sel * sum(per_round)
     total = nblk * tile * base_spp + extra_total
     stats = {
@@ -337,41 +339,3 @@ def render_camera_adaptive(data: SceneData, meta: SceneMeta, cam: Camera,
     }
     return img, stats
 
-
-def _adaptive_eager(data, meta, accel, vec, h: int, w: int, base_spp: int,
-                    per_round: tuple, k: int, seed: int, bfc: bool,
-                    relaxed: bool, jitter, engine: str):
-    """``render_camera_adaptive``'s (h, w, 3) image, eagerly, through
-    ``engine``: the waves trace through ``trace``."""
-    dev = vec.device
-    bh, bw = _tile_block_shape()
-    tile = bh * bw
-    rows, cols, inv = _tile_pixel_coords(h, w, bh, bw)
-    nblk = len(rows) // tile
-    rows_t = torch.from_numpy(rows.astype(np.float32)).to(dev).view(nblk, tile)
-    cols_t = torch.from_numpy(cols.astype(np.float32)).to(dev).view(nblk, tile)
-
-    def wave(rows2, cols2, spp, key, center_first):
-        """(B, np) pixel coords -> (B, spp, np, 3) per-sample radiance;
-        refinement waves compact with ``compact_mode="deep"``."""
-        b, npx = rows2.shape
-        offs = draw_jitter(jitter, seed, key, (b, spp, npx, 2), dev)
-        e, dirs = _wave_rays(vec, w, h, rows2, cols2, offs, tile, center_first)
-        chunk = _cap_chunk_for_big_scenes(dirs.shape[0], accel)
-        with nan_site(f"adaptive {key[0]} wave {key[1]}"):
-            color = trace(data, meta, e, dirs, accel, chunk, bfc=bfc,
-                          relaxed=relaxed, engine=engine,
-                          compact_mode="auto" if center_first else "deep")
-        return _wave_color(color, b, spp, npx, tile)
-
-    # running per-pixel statistics in tile order: color sum, luma sum and
-    # sum of squares, sample counts per refinement unit (block)
-    sum1, lsum, lsq = _base_stats(wave(rows_t, cols_t, base_spp, ("base", 0),
-                                       True))
-    counts = torch.full((nblk, 1, 1), float(base_spp), device=dev)
-    for rnd, spp in enumerate(per_round):
-        sel = stable_topk(_score(lsum, lsq, counts), k)
-        extra = wave(rows_t[sel], cols_t[sel], spp, ("round", rnd), False)
-        _add_samples(sum1, lsum, lsq, counts, sel, extra, spp)
-    return _mean_image(sum1, counts, h, w,
-                       None if inv is None else torch.from_numpy(inv).to(dev))

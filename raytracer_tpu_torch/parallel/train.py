@@ -35,9 +35,7 @@ from raytracer_tpu_torch import tracing
 from raytracer_tpu_torch.backend import resolve_device
 from raytracer_tpu_torch.models import programs
 from raytracer_tpu_torch.models.scene import SceneData, SceneMeta
-from raytracer_tpu_torch.models.whitted import (
-    _programs_on, _Wavefront, render_rays,
-)
+from raytracer_tpu_torch.models.whitted import _Wavefront, render_rays
 from raytracer_tpu_torch.parallel.distributed import all_mean
 from raytracer_tpu_torch.parallel.mesh import replicate, shard_rays
 
@@ -296,7 +294,7 @@ def make_train_step(meta: SceneMeta, lr: float = 3e-2, engine: str = "brute",
                         *((f, p) for f, p in state.params.items())):
             if x.device != dev:
                 raise ValueError(f"{name} on {x.device}, training on {dev}")
-        if one_device and _programs_on(dev):
+        if one_device and programs.enabled(dev):
             prog = program(state, data, origin, dirs, target, accel)
             return state, prog(origin, dirs, target)
         for group in state.opt.param_groups:

@@ -412,11 +412,11 @@ def test_chunked_render_equals_whole_frame(chunk):
     calls = []
     from raytracer_tpu_torch.models import whitted
 
-    rays = whitted.render_rays
-    whitted.render_rays = lambda *a, **k: calls.append(a[3].shape[0]) or rays(*a, **k)
+    run = whitted._Wavefront.run
+    whitted._Wavefront.run = lambda self: calls.append(self.r) or run(self)
     try:
         parts = render_camera(pdata, pmeta, cam, pcs, chunk=chunk, device="cpu")
     finally:
-        whitted.render_rays = rays
+        whitted._Wavefront.run = run
     assert calls == [chunk] * -(-cam.width * cam.height // chunk)
     assert torch.equal(parts, whole)

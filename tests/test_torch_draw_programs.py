@@ -6,11 +6,12 @@ bit for bit; jittered bands (``models.whitted._Frame``, on a mesh
 ``_MeshFrame``) and the adaptive frame (``ops.adaptive._Adaptive``) that
 draw their offsets in their prologues, as ``_render_band_jit`` and
 ``_adaptive_jit`` draw inside themselves, replayed through ``StubGraph``
-against ``programs.eager()`` and the JAX package's draws; the key
-written into the static tensor between replays (a body that ignored it
-would replay the first band's draw); the injected ``jitter`` route as a
-program of its own.  On the card the same programs are CUDA graphs
-(tests/test_torch_gpu.py, chip_smoke.py phases 6b, 9 and 10)."""
+against the same programs run in place (``programs.eager()``) and the
+JAX package's draws; the key written into the static tensor between
+replays (a body that ignored it would replay the first band's draw); the
+injected ``jitter`` route as a program of its own.  On the card the
+same programs are CUDA graphs (tests/test_torch_gpu.py, chip_smoke.py
+phases 6b, 9 and 10)."""
 
 import jax
 import jax.numpy as jnp
@@ -138,10 +139,11 @@ def test_streamed_jitter_bands_draw_inside_the_program(stub_graphs, band_spy,
                                                        seed):
     """A jittered camera at --ssaa 2 cut into 4 bands of 32 rows, its band
     program captured on the first frame and replayed on every later band
-    and frame: equal bit for bit to the eager render (``eager()``: each
-    band drawn, then ``render_band``); after each band the program's static
-    ``jitter`` holds JAX's draw for that band's row, its ``key`` the words
-    of ``fold_in(PRNGKey(seed), row0)``."""
+    and frame: equal bit for bit to the eager render (``eager()``: the
+    same band program run in place, its draw too); after each band, eager
+    or replayed, the program's static ``jitter`` holds JAX's draw for that
+    band's row, its ``key`` the words of ``fold_in(PRNGKey(seed),
+    row0)``."""
     from raytracer_tpu_torch.models.whitted import render_camera_streamed
     from raytracer_tpu_torch.ops.camera import jitter_key
 
@@ -151,7 +153,8 @@ def test_streamed_jitter_bands_draw_inside_the_program(stub_graphs, band_spy,
               device="cpu")
     with stub_graphs.eager():
         want = render_camera_streamed(data, meta, cam, cset, **kw)
-    assert not band_spy and not stub_graphs._scenes
+    assert [r for r, _, _ in band_spy] == [0, 32, 64, 96]
+    assert not stub_graphs._scenes
     c0 = stub_graphs.stats["captures"]
     for frame in range(2):
         got = render_camera_streamed(data, meta, cam, cset, **kw)
@@ -164,7 +167,7 @@ def test_streamed_jitter_bands_draw_inside_the_program(stub_graphs, band_spy,
     assert stub_graphs.stats["captures"] == c1
     draw = jax_band_jitter(seed)
     rows = [r for r, _, _ in band_spy]
-    assert rows == [0, 32, 64, 96] * 3
+    assert rows == [0, 32, 64, 96] * 4
     for row0, jit, key in band_spy:
         assert tuple(key.tolist()) == jitter_key(seed, ("band", row0))
         np.testing.assert_array_equal(_bits(jit.numpy()),
@@ -253,10 +256,9 @@ def test_drawn_programs_never_call_the_host_key_draw(stub_graphs,
 @pytest.mark.parametrize("rounds", [1, 2])
 def test_adaptive_drawn_program_equals_eager(stub_graphs, monkeypatch, rounds):
     """The adaptive frame with nothing injected: its program (each wave's
-    draw in its prologue) captured, then replayed, equals
-    ``_adaptive_eager`` (``eager()``) bit for bit: image, stats, each
-    round's block scores and the draws, one a wave (the keyed draw on the
-    program, the host-key one eager)."""
+    draw in its prologue) captured, then replayed, equals the same program
+    run in place (``eager()``) bit for bit: image, stats, each round's
+    block scores and the draws, one keyed draw a wave on both sides."""
     from raytracer_tpu_torch.ops import adaptive
     from raytracer_tpu_torch.ops import kernels as K
 
@@ -274,7 +276,7 @@ def test_adaptive_drawn_program_equals_eager(stub_graphs, monkeypatch, rounds):
     with stub_graphs.eager():
         want, wstats = adaptive.render_camera_adaptive(data, meta, cam, cset,
                                                        **kw)
-    assert draws == ["threefry_uniform"] * (1 + rounds)
+    assert draws == ["threefry_uniform_keyed"] * (1 + rounds)
     want_scores = scores[:]
     for _ in range(2):                 # captures, then replays
         scores.clear()

@@ -127,9 +127,9 @@ def test_render_one_camera_mesh_bitwise(scene, mode, monkeypatch):
     single, _ = render_one_camera(pdata, pmeta, cam, pcs, ssaa=2,
                                   ssaa_mode=mode, device="cpu")
     traced = []
-    trace = whitted.trace
-    monkeypatch.setattr(whitted, "trace", lambda d, m, o, dirs, *a, **k:
-                        traced.append(dirs.shape[0]) or trace(d, m, o, dirs, *a, **k))
+    call = whitted._Shard.__call__
+    monkeypatch.setattr(whitted._Shard, "__call__", lambda self:
+                        traced.append(self.src.shape[0]) or call(self))
     sharded, _ = render_one_camera(pdata, pmeta, cam, pcs, ssaa=2,
                                    ssaa_mode=mode, device="cpu", mesh=_mesh())
     assert traced == [64 * 64 * 4 // 8] * 8
@@ -144,9 +144,10 @@ def test_mesh_dropped(monkeypatch):
 
     _, _, pdata, pmeta, pcs = shared_inputs("entry")
     meshes = []
-    band = whitted.render_band
-    monkeypatch.setattr(whitted, "render_band", lambda *a, **k:
-                        meshes.append(k["mesh"]) or band(*a, **k))
+    call = whitted._Frame.__call__
+    monkeypatch.setattr(whitted._Frame, "__call__", lambda self, *a:
+                        meshes.append(getattr(self, "mesh", None))
+                        or call(self, *a))
     render_one_camera(pdata, pmeta, _cam(pmeta, 20, 16), pcs, device="cpu",
                       mesh=_mesh())
     img, stats = render_one_camera(pdata, pmeta, _cam(pmeta, 16, 16), pcs,
@@ -172,9 +173,9 @@ def test_mesh_streamed_band_padding(scene, height, monkeypatch):
     cam = _cam(pmeta, 128, height)
     single = whitted.render_camera_streamed(pdata, pmeta, cam, pcs, device="cpu")
     bands = []
-    band = whitted.render_band
-    monkeypatch.setattr(whitted, "render_band", lambda *a, **k:
-                        bands.append(a[7]) or band(*a, **k))
+    call = whitted._Frame.__call__
+    monkeypatch.setattr(whitted._Frame, "__call__", lambda self, *a:
+                        bands.append(self.bh) or call(self, *a))
     sharded = whitted.render_camera_streamed(pdata, pmeta, cam, pcs,
                                              device="cpu", mesh=_mesh())
     assert bands == [192]

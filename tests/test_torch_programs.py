@@ -2,10 +2,11 @@
 the cluster engine's bounce loop, bands and cameras as steps on static
 buffers, ``models.whitted``): the restructured loop against PR 9's loop
 (frozen in torch_port_util) bit for bit and against the JAX package at
-its bars; the band program with ``row0``, the camera vector and the
-jitter as tensor inputs against ``render_band`` bit for bit; programs
-replayed through a stub graph (``StubGraph``) against eager renders; the
-launch bookkeeping of a replay; the server's LRU dropping a scene's
+its bars; the band program run in place, with ``row0``, the camera
+vector and the jitter as tensor inputs, against the JAX package's
+``_render_band_jit`` at its bars; programs replayed through a stub graph
+(``StubGraph``) against eager renders; an eager render keeping nothing;
+the launch bookkeeping of a replay; the server's LRU dropping a scene's
 programs.  On the card the same programs are CUDA graphs
 (tests/test_torch_gpu.py, chip_smoke.py)."""
 
@@ -148,10 +149,11 @@ def test_render_rays_within_jax_bars(scene):
     assert radiance_outside(got.numpy(), want) <= limit
 
 
-# (c) the band program with tensor inputs against render_band with a
-# Python row0: the 64x64 terrain's first band whole; the last, shorter
-# band of a 24x20 camera (8x16 blocks do not divide it: the permutation);
-# a band of the 64x64 frame traced as several chunks, the last padded
+# (c) the band program with tensor inputs against the JAX package's band
+# with a traced row0: the 64x64 terrain's first band whole; the last,
+# shorter band of a 24x20 camera (8x16 blocks do not divide it: the
+# permutation); a band of the 64x64 frame traced as several chunks, the
+# last padded
 BANDS = {
     "whole": dict(cam=None, band=0, chunk=1 << 22),
     "last": dict(cam=(24, 20), band=-1, chunk=1 << 22),
@@ -182,7 +184,17 @@ def _band_case(case, ssaa):
     ("parity", 1, False), ("parity", 2, False), ("mean", 2, False),
     ("jitter", 2, False), ("mean", 2, True)])
 def test_band_program_equals_render_band(case, mode, ssaa, hdr):
-    from raytracer_tpu_torch.models import whitted
+    """The band program run in place (``_Frame`` of ``programs.EAGER``,
+    what ``render_band`` runs off the card), ``row0``, the camera vector
+    and the jitter its tensor inputs, against the JAX package's
+    ``_render_band_jit`` on the same band, camera and draws (seed 3), at
+    test_torch_streamed's band bars: at most 4 pixels off by more than 1
+    LSB, or outside the radiance bar for hdr."""
+    import jax.numpy as jnp
+
+    from raytracer_tpu.models.whitted import _render_band_jit
+    from raytracer_tpu.ops.tiling import block_permutation, divides
+    from raytracer_tpu_torch.models import programs, whitted
     from raytracer_tpu_torch.ops.camera import camera_vectors
 
     data, meta, cset, cam, hs, ws, row0, bh, chunk = _band_case(case, ssaa)
@@ -191,15 +203,27 @@ def test_band_program_equals_render_band(case, mode, ssaa, hdr):
     if mode == "jitter":
         offsets = torch.tensor(jax_band_jitter(3)(("band", row0),
                                                       (bh, ws, 2)))
-    want = whitted.render_band(data, meta, cset, vec, hs, ws, row0, bh,
-                               ssaa=ssaa, ssaa_mode=mode, hdr=hdr,
-                               chunk=chunk, jitter=offsets)
-    frame = whitted._Frame(None, data, meta, cset, "band", hs, ws, bh, chunk,
-                           ssaa, mode, hdr, offsets is not None, False, False,
-                           "cpu")
+    frame = whitted._Frame(programs.EAGER, data, meta, cset, "band", hs, ws,
+                           bh, chunk, ssaa, mode, hdr, offsets is not None,
+                           False, False, "cpu")
     assert frame.rays.whole == (case != "chunked")
-    got = frame(vec, row0, offsets)
-    assert got.dtype == want.dtype and torch.equal(got, want)
+    got = frame(vec, row0, offsets).numpy()
+    jdata, jcs = shared_inputs("terrain16")[:2]
+    bh_, bw_ = whitted._tile_block_shape()
+    blocks = perm = inv = None
+    if divides(bh, ws, bh_, bw_):
+        blocks = (bh_, bw_)
+    else:
+        perm, inv = map(jnp.asarray, block_permutation(bh, ws, bh_, bw_))
+    want = np.asarray(_render_band_jit(
+        jdata, jax_accel("terrain16")[1], jnp.asarray(vec.numpy()), hs, ws,
+        jnp.float32(row0), bh, perm, inv, jcs, "cluster", False, ssaa, mode,
+        blocks=blocks, hdr=hdr, seed=jnp.uint32(3)))
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if hdr:
+        assert np.isfinite(got).all() and radiance_outside(got, want) <= 4
+    else:
+        assert got.max() > 0 and bad_pixels(got, want) <= 4
 
 
 # programs replayed through the stub graph: every band of one shape shares
@@ -281,6 +305,80 @@ def test_eager_and_debug_nans_keep_no_programs(stub_graphs):
     assert stub_graphs.cached(data) == 0
     render_camera(data, meta, meta.cameras[0], cset, device="cpu")
     assert stub_graphs.cached(data) > 0
+
+
+def test_eager_render_keeps_nothing():
+    """Off the card every render runs its programs in place
+    (``programs.EAGER``) and keeps nothing: after ``render_camera_streamed``
+    (two bands, jittered, on a 2-shard mesh), ``render_camera`` (cluster,
+    in chunks, and BVH), ``render_band``, ``trace`` and
+    ``render_camera_adaptive``, no program is kept for the scene and no
+    wavefront, ray, frame, shard or adaptive program made by them is
+    alive, with the garbage collector off (no reference cycle holds one)
+    and after it has run.  Under ``debug_nans()`` a NaN still names its
+    band, and its adaptive wave."""
+    import gc
+
+    from raytracer_tpu_torch.models import programs, whitted
+    from raytracer_tpu_torch.ops import adaptive
+    from raytracer_tpu_torch.ops.camera import camera_vectors
+    from raytracer_tpu_torch.parallel.mesh import make_mesh
+    from raytracer_tpu_torch.render import engine_accel
+
+    _, _, data, meta, cset = shared_inputs("terrain16")
+    bvh = engine_accel("bvh", None, data, meta, "cpu")
+    cam = meta.cameras[0]
+    ws = cam.width * 2
+    vec = torch.from_numpy(camera_vectors(cam))
+    origin, dirs = _eye_rays(meta)
+    kinds = (whitted._Wavefront, whitted._Rays, whitted._Frame,
+             whitted._MeshFrame, whitted._Shard, adaptive._Adaptive)
+
+    def alive():
+        return {id(o) for o in gc.get_objects() if type(o) in kinds}
+
+    streamed = functools.partial(whitted.render_camera_streamed, data, meta,
+                                 cam, cset, ssaa=2, device="cpu")
+    renders = {
+        "streamed": lambda: streamed(chunk=ws * 32),
+        "jitter": lambda: streamed(ssaa_mode="jitter", seed=3, chunk=ws * 32),
+        "mesh": lambda: streamed(mesh=make_mesh(devices=["cpu"] * 2)),
+        "camera": lambda: whitted.render_camera(data, meta, cam, cset,
+                                                chunk=1000, device="cpu"),
+        "bvh": lambda: whitted.render_camera(data, meta, cam, bvh,
+                                             device="cpu", engine="bvh"),
+        "band": lambda: whitted.render_band(
+            data, meta, cset, vec, 2 * cam.height, ws, 16, 16, ssaa=2,
+            ssaa_mode="parity", hdr=False, chunk=1000),
+        "trace": lambda: whitted.trace(data, meta, origin.expand(dirs.shape),
+                                       dirs, cset, 1000),
+        "adaptive": lambda: adaptive.render_camera_adaptive(
+            data, meta, cam, cset, base_spp=2, extra_spp=2, rounds=2,
+            device="cpu"),
+    }
+    gc.collect()
+    before = alive()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        for name, render in renders.items():
+            render()
+            assert alive() <= before, name
+    finally:
+        if collecting:
+            gc.enable()
+    gc.collect()
+    assert alive() <= before and programs.cached(data) == 0
+    bad = dataclasses.replace(data, mat_diffuse=data.mat_diffuse * np.nan)
+    with whitted.debug_nans():
+        with pytest.raises(FloatingPointError, match=r"^band of rows \d+-\d+: "
+                           r"radiance not finite after bounce 0$"):
+            whitted.render_camera_streamed(bad, meta, cam, cset, ssaa=2,
+                                           chunk=ws * 32, device="cpu")
+        with pytest.raises(FloatingPointError, match=r"^adaptive base wave 0: "
+                           r"radiance not finite after bounce 0$"):
+            adaptive.render_camera_adaptive(bad, meta, cam, cset, device="cpu")
+    assert programs.cached(bad) == 0
 
 
 # (d) launch bookkeeping: a capture traces the body (its wrappers count in

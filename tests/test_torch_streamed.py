@@ -80,9 +80,9 @@ def test_streamed_equals_whole_frame(ssaa, mode, cam_name, monkeypatch):
                                ssaa_mode=mode, device="cpu")
     np.testing.assert_array_equal(one, whole)
     bands = []
-    band = whitted.render_band
-    monkeypatch.setattr(whitted, "render_band",
-                        lambda *a, **k: bands.append(a[7]) or band(*a, **k))
+    call = whitted._Frame.__call__
+    monkeypatch.setattr(whitted._Frame, "__call__", lambda self, *a:
+                        bands.append(self.bh) or call(self, *a))
     img, _ = render_one_camera(pdata, pmeta, cam, pcs, ssaa=ssaa,
                                ssaa_mode=mode, chunk=_band_chunk(cam, ssaa),
                                device="cpu")
@@ -102,10 +102,9 @@ def test_band_above_chunk_traced_in_chunks(monkeypatch):
     cam = pmeta.cameras[0]
     whole, _ = render_one_camera(pdata, pmeta, cam, pcs, device="cpu")
     sizes = []
-    rays = whitted.render_rays
-    monkeypatch.setattr(whitted, "render_rays",
-                        lambda d, m, o, dirs, *a, **k:
-                        sizes.append(dirs.shape[0]) or rays(d, m, o, dirs, *a, **k))
+    run = whitted._Wavefront.run
+    monkeypatch.setattr(whitted._Wavefront, "run",
+                        lambda self: sizes.append(self.r) or run(self))
     img, _ = render_one_camera(pdata, pmeta, cam, pcs, chunk=1000, device="cpu")
     assert max(sizes) == 896 and len(sizes) == 8
     np.testing.assert_array_equal(img, whole)

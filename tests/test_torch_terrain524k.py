@@ -166,7 +166,7 @@ def _wavefront(bench):
     """An eager cluster wavefront over a small terrain's eye rays, its
     masks hierarchical and its shadows any-hit (the budgets lowered by
     the caller)."""
-    from raytracer_tpu_torch.models import whitted
+    from raytracer_tpu_torch.models import programs, whitted
     from raytracer_tpu_torch.models.scene import from_parsed
     from raytracer_tpu_torch.ops.camera import camera_vectors, eye_rays_from
     from raytracer_tpu_torch.render import engine_accel
@@ -180,8 +180,8 @@ def _wavefront(bench):
     blocks, perm, _ = whitted._tile_order(cam.height, cam.width, "cpu")
     dirs = whitted.apply_tile_order(dirs, cam.height, cam.width, blocks,
                                     perm).contiguous()
-    wf = whitted._wavefront(None, data, meta, accel, dirs.shape[0], True,
-                            False, False, "auto", "cpu")
+    wf = whitted._wavefront(programs.EAGER, data, meta, accel, dirs.shape[0],
+                            True, False, False, "auto", "cpu")
     wf.load(origin, dirs)
     return wf
 
