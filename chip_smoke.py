@@ -81,7 +81,11 @@ then:
    compaction (``csrc/compact.cu``) at the busiest calls of the horse31k
    (and, for 5c, terrain524k) benchmark frames: equal to the plain version,
    timed against the byte bound and (5c) the plain version's torch.sort
-   route on the card, launches and device ms in a replayed frame;
+   route on the card, launches and device ms in a replayed frame; 5d the
+   shared-eye interval tile mask (``csrc/tile_mask.cu``) at the terrain524k
+   band's call (1,024 tiles x 4,096 columns) and the horse31k frame's
+   (32,400 x 247): equal to the plain version, timed against its bound and
+   the plain version on the card, launches and device ms a replayed frame;
 6. the render modes beyond one band, on the full-width terrain through
    ``render_one_camera``: streamed at --ssaa 4 parity (16,777,216 rays in
    4 bands), --ssaa 2 jitter and adaptive (4 base samples a pixel, 12
@@ -264,6 +268,14 @@ OPS = {"ray_mask": 20, "tri": 43, "tri_shared": 34, "sph": 33,
 # issue ceiling over the kernel's SASS instructions, this one printed
 # beside it
 OPS_THREEFRY = 88
+# float operations of the shared-eye interval tile mask (csrc/tile_mask.cu),
+# counted from the source on its four-product path: per (tile, column) pair
+# and axis 2 subtracts, 4 multiplies, 6 min/max (36), 4 for the axis
+# reductions, 2 compares (42; 1 more with a t window); per active ray 12
+# min/max for its tile's bounds (1 more).  Left out, so the bound stays
+# below the work: the eight-product path's 42 more a pair where a bound is
+# not finite (NaN boxes)
+OPS_TILE_MASK = {"pair": 42, "ray": 12}
 
 KERNELS = ("ray_mask", "ray_mask_hier", "closest_shared", "closest",
            "shadow", "any")
@@ -283,6 +295,8 @@ REPLACES = {
                     "reflection_rays; raytracer_tpu/models/whitted.py _shade",
     "compact": "raytracer_tpu/ops/cluster_trace.py _compact (lax.top_k and "
                "the bit packing)",
+    "tile_mask": "raytracer_tpu/ops/cluster_trace.py tile_cluster_mask (XLA "
+                 "glue, no Pallas kernel)",
 }
 SOURCES = {
     "ray_mask": "raytracer_tpu_torch/csrc/ray_mask.cu",
@@ -295,6 +309,7 @@ SOURCES = {
     "hit_record": "raytracer_tpu_torch/csrc/shade.cu",
     "shade_bounce": "raytracer_tpu_torch/csrc/shade.cu",
     "compact": "raytracer_tpu_torch/csrc/compact.cu",
+    "tile_mask": "raytracer_tpu_torch/csrc/tile_mask.cu",
 }
 
 # float operations of the forward bounce epilogue (csrc/shade.cu), counted
@@ -1149,7 +1164,8 @@ EVENT_ROWS = (("ray_mask_hier_kernel", "ray_mask_hier"),
               ("threefry_uniform_kernel", "threefry"),
               ("hit_record_kernel", "hit_record"),
               ("shade_bounce_kernel", "shade_bounce"),
-              ("compact_kernel", "compact"))
+              ("compact_kernel", "compact"),
+              ("tile_mask_kernel", "tile_mask"))
 
 
 def kernel_of(event_name):
@@ -2556,6 +2572,129 @@ def compact_on_card(dev, results):
         del data, accel, best
     row["frames"] = frames
     results["compact"] = row
+    return row
+
+
+def tile_mask_work(args):
+    """(ops, bytes) of the interval tile mask call ``args`` (origin, dirs,
+    active, cmin, cmax, t_hi, tile, subsplit): every (sub-interval, column)
+    pair and every active ray (``OPS_TILE_MASK``); the rays, the boxes and
+    the (tiles, C) bool and f32 outputs."""
+    origin, dirs, active, cmin, cmax, t_hi, tile, sub = args
+    r, c = dirs.shape[0], cmin.shape[0]
+    cap = t_hi is not None
+    n_act = r if active is None else int(active.sum())
+    ops = ((r // tile) * sub * c * (OPS_TILE_MASK["pair"] + cap)
+           + n_act * (OPS_TILE_MASK["ray"] + cap))
+    byt = (nbytes(origin, dirs, cmin, cmax)
+           + (0 if active is None else nbytes(active))
+           + (0 if t_hi is None else nbytes(t_hi)) + (r // tile) * c * 5)
+    return ops, byt
+
+
+def tile_mask_on_card(dev, results):
+    """Phase 5d: the shared-eye interval tile mask (csrc/tile_mask.cu) at
+    the busiest call (the most hits) of the terrain524k benchmark frame (a
+    band's bounce 0: 1,024 tiles x 4,096 columns) and of the horse31k frame
+    (its one call, 32,400 x 247).  At each, the kernel equals its plain version on the
+    card (hit everywhere, entry wherever it is not NaN in both) and is
+    timed on the device (10 launches behind a spin) against its bound and
+    against the plain version on the card (10 launches, device-timed);
+    its launches and device ms in one replayed frame (profiled).  Returns
+    the kernel row."""
+    import torch
+
+    from benchmark import sceneio
+    from benchmark.paths import Bench
+    from raytracer_tpu_torch.models import programs
+    from raytracer_tpu_torch.models.scene import from_parsed
+    from raytracer_tpu_torch.models.whitted import eager
+    from raytracer_tpu_torch.ops import cluster_trace as ctr
+    from raytracer_tpu_torch.ops import kernels as K
+    from raytracer_tpu_torch.pipeline import render_one_camera
+    from raytracer_tpu_torch.render import engine_accel
+
+    bench = Bench(REPO)
+    tr = bench.traffic("frame-ssaa2")
+    frames = {}
+    row = None
+    for config in ("terrain524k", "horse31k"):
+        data, meta = from_parsed(
+            sceneio.generate(bench, bench.config(config), 1), dev)
+        accel = engine_accel(tr["engine"], None, data, meta, dev)
+
+        def frame():
+            return render_one_camera(
+                data, meta, meta.cameras[tr["camera"]], accel, ssaa=tr["ssaa"],
+                ssaa_mode=tr["ssaa_mode"], chunk=tr["chunk"], device=dev)[0]
+
+        first = {"calls": 0, "hits": -1}
+
+        def keep(f):
+            def kept(*a):
+                out = f(*a)
+                n = int(out[0].sum())
+                if n > first["hits"]:
+                    first["args"] = tuple(x.clone() if torch.is_tensor(x) else x
+                                          for x in a) + (1,) * (8 - len(a))
+                    first["hits"] = n
+                first["calls"] += 1
+                return out
+            return kept
+
+        with patched(ctr, "tile_cluster_mask", keep), eager():
+            frame()
+        frame()                                  # captures
+        K.reset_launches()
+        frame()                                  # a replay
+        launches = K.launches["tile_mask"]
+        profile_frame(frame, results, f"tile_mask_profile_{config}")
+        by_kernel = results.get(f"tile_mask_profile_{config}", {}).get(
+            "by_kernel", {})
+        args = first["args"]
+        hit, entry = K.tile_mask(*args)
+        ph, pe = K.tile_mask_plain(*args)
+        check(torch.equal(hit, ph)
+              and torch.equal(torch.isnan(entry), torch.isnan(pe))
+              and bool(((entry == pe) | torch.isnan(pe)).all()),
+              f"tile_mask: the kernel differs from its plain version at the "
+              f"{config} frame's busiest call")
+        ms = time_call(K.tile_mask, args, 10)
+        plain_ms = time_call(K.tile_mask_plain, args, 10)
+        ops, byt = tile_mask_work(args)
+        t_ops, t_bytes = ops / PEAK_ISSUE * 1e3, byt / PEAK_BYTES * 1e3
+        bound_ms = max(t_ops, t_bytes)
+        nt, c = hit.shape
+        dev_ms, n = by_kernel.get("tile_mask", [None, 0])
+        frames[config] = {"device_ms": dev_ms, "launches": n,
+                          "replayed_launches": launches,
+                          "eager_calls": first["calls"], "ms": ms,
+                          "bound_ms": bound_ms, "ops": ops, "bytes": byt,
+                          "bound_by": "ops" if t_ops >= t_bytes else "bytes",
+                          "plain_ms": plain_ms, "tiles": nt, "columns": c,
+                          "hits": int(hit.sum()), "equal": True}
+        log(f"  tile_mask ({config} frame's busiest call: {nt} tiles x {c} "
+            f"columns, {int(hit.sum())} hits): {ms:.4f} ms/launch, bound "
+            f"{bound_ms:.4f} ms ({ops:.3e} ops: {t_ops:.4f} ms; {byt:.3e} "
+            f"bytes: {t_bytes:.4f} ms), {bound_ms / ms:.3f} of the bound; "
+            f"plain {plain_ms:.4f} ms; equal to the plain version; a replayed "
+            f"frame: {launches} launches ({first['calls']} eager calls), "
+            f"device {dev_ms if dev_ms is None else round(dev_ms, 4)} ms "
+            f"({n} events)")
+        check(launches == first["calls"] > 0,
+              f"{config}: {launches} tile_mask launches in a replayed frame, "
+              f"{first['calls']} calls in an eager one")
+        if row is None:
+            row = {"name": "tile_mask", "route": "cuda",
+                   "source": SOURCES["tile_mask"],
+                   "replaces": REPLACES["tile_mask"], "launches": launches,
+                   "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": frames[config]["bound_by"],
+                   "library_ms": None, "ops": ops, "bytes": byt}
+        programs.drop(data)
+        del data, accel, first
+    row["frames"] = frames
+    results["tile_mask"] = row
     return row
 
 
@@ -4365,6 +4504,9 @@ def run():
     log("== phase 5c: the shortlist compaction at the horse and big frames' "
         "busiest calls")
     rows.append(compact_on_card(dev, results))
+    log("== phase 5d: the shared-eye interval tile mask at the big band's and "
+        "the horse frame's calls")
+    rows.append(tile_mask_on_card(dev, results))
     log("  library_ms: null for every kernel; no single PyTorch call computes "
         "a slab mask over cluster shortlists (flat or gated by superclusters), "
         "a shortlist closest hit, a plane-table shadow test or a shortlist "

@@ -50,6 +50,9 @@ SIGNATURES = {
     # counts, nt, c, max_list, stream
     "rt_compact": [_vp, ctypes.c_longlong, _vp, ctypes.c_longlong]
                   + [_vp] * 4 + [_i] * 3 + [_vp],
+    # origin, dirs, active (or null), cmin, cmax, t_hi (or null), hit,
+    # entry, nt, c, tile, subsplit, stream
+    "rt_tile_mask": [_vp] * 8 + [_i] * 4 + [_vp],
     # tw, tl, tc, sw, sl, sc, origin, dirs, tri_dat, sph_dat, t, slot,
     # nt, ct, cs, pt, ps, wt, ws, shared_origin, bfc, stream
     "rt_closest": [_vp] * 12 + [_i] * 9 + [_vp],

@@ -8,7 +8,7 @@ Per trace call:
    SUPER_MIN_CPAD columns first against supercluster boxes, then
    ``ray_mask_hier`` on the chunks the tile crosses), or for shared-origin
    eye tiles the interval-arithmetic tile test (``tile_cluster_mask``,
-   plain PyTorch).
+   the ``tile_mask`` kernel).
 2. ``_compact`` (the ``compact`` kernel): the mask becomes a
    front-to-back id list per tile (ties keep the lower cluster id, like
    ``lax.top_k``), an unclamped count and a bitmask for tiles whose list
@@ -48,11 +48,10 @@ import torch
 
 from raytracer_tpu_torch.models.clusters import ClusterSet
 from raytracer_tpu_torch.ops import kernels, shade
-from raytracer_tpu_torch.ops.kernels import MAX_SPH_LIST, MAX_TRI_LIST, TILE
+from raytracer_tpu_torch.ops.kernels import BIG, MAX_SPH_LIST, MAX_TRI_LIST, TILE
 from raytracer_tpu_torch.ops.shade import cross
 
 MISS = -1
-_BIG = 1e18     # finite reciprocal sentinel: no inf*0 NaN in slab tests
 _INF = float("inf")
 
 # scenes with at most this many spheres test them densely over all rays
@@ -106,13 +105,6 @@ def counting_masks(counts):
         _counting.counts = outer
 
 
-def _interval_mul(alo, ahi, blo, bhi):
-    p1, p2, p3, p4 = alo * blo, alo * bhi, ahi * blo, ahi * bhi
-    lo = torch.minimum(torch.minimum(p1, p2), torch.minimum(p3, p4))
-    hi = torch.maximum(torch.maximum(p1, p2), torch.maximum(p3, p4))
-    return lo, hi
-
-
 def tile_cluster_mask(origin, dirs, active, cmin, cmax, t_hi, tile: int,
                       subsplit: int = 1):
     """(hit (nt, C) bool, entry lower bound (nt, C) f32): could any ray of
@@ -123,61 +115,11 @@ def tile_cluster_mask(origin, dirs, active, cmin, cmax, t_hi, tile: int,
     hit waves).  With ``subsplit`` > 1 each tile is tested as that many
     sub-intervals of consecutive rays whose results are merged (hit: any;
     entry: the least over the sub-intervals that hit), tighter for tiles
-    whose origins straddle depth discontinuities."""
-    r = dirs.shape[0]
-    nt_out = r // tile
-    tile //= subsplit
-    nt = r // tile
-    o = origin.reshape(nt, tile, 3)
-    d = dirs.reshape(nt, tile, 3)
-    if active is None:
-        o_lo, o_hi = o.amin(1), o.amax(1)
-        d_lo, d_hi = d.amin(1), d.amax(1)
-        none_active = None
-        cap = None if t_hi is None else t_hi.reshape(nt, tile).amax(1)
-    else:
-        act = active.reshape(nt, tile, 1)
-        o_lo = torch.where(act, o, _INF).amin(1)
-        o_hi = torch.where(act, o, -_INF).amax(1)
-        d_lo = torch.where(act, d, _INF).amin(1)
-        d_hi = torch.where(act, d, -_INF).amax(1)
-        none_active = ~active.reshape(nt, tile).any(1, keepdim=True)
-        # a fully-inactive tile gets a degenerate point interval at 0
-        o_lo = torch.where(none_active, 0.0, o_lo)
-        o_hi = torch.where(none_active, 0.0, o_hi)
-        d_lo = torch.where(none_active, 1.0, d_lo)
-        d_hi = torch.where(none_active, 1.0, d_hi)
-        cap = None
-        if t_hi is not None:
-            cap = torch.where(active.reshape(nt, tile), t_hi.reshape(nt, tile),
-                              -_INF).amax(1)
-            cap = torch.where(none_active[:, 0], 0.0, cap)
-
-    crosses = (d_lo <= 0.0) & (d_hi >= 0.0)
-    i_lo = torch.where(crosses, -_BIG, 1.0 / d_hi)
-    i_hi = torch.where(crosses, _BIG, 1.0 / d_lo)
-
-    n1_lo = cmin[None] - o_hi[:, None]
-    n1_hi = cmin[None] - o_lo[:, None]
-    n2_lo = cmax[None] - o_hi[:, None]
-    n2_hi = cmax[None] - o_lo[:, None]
-    il, ih = i_lo[:, None], i_hi[:, None]
-    t1_lo, t1_hi = _interval_mul(n1_lo, n1_hi, il, ih)
-    t2_lo, t2_hi = _interval_mul(n2_lo, n2_hi, il, ih)
-    entry_lo = torch.minimum(t1_lo, t2_lo).amax(-1)   # (nt, C)
-    exit_hi = torch.maximum(t1_hi, t2_hi).amin(-1)
-    hit = (entry_lo <= exit_hi) & (exit_hi >= 0.0)
-    if cap is not None:
-        hit &= entry_lo <= cap[:, None]
-    if none_active is not None:
-        hit &= ~none_active
-    if subsplit > 1:
-        c = hit.shape[1]
-        hit_s = hit.reshape(nt_out, subsplit, c)
-        entry_s = entry_lo.reshape(nt_out, subsplit, c)
-        entry_lo = torch.where(hit_s, entry_s, _INF).amin(1)
-        hit = hit_s.any(1)
-    return hit, entry_lo
+    whose origins straddle depth discontinuities.  CUDA tensors take the
+    ``tile_mask`` kernel, CPU tensors its plain version
+    (``kernels.tile_mask``)."""
+    return kernels.tile_mask(origin, dirs, active, cmin, cmax, t_hi, tile,
+                             subsplit)
 
 
 def _super_boxes(cmin, cmax, cpad: int):
@@ -206,8 +148,8 @@ def _super_boxes(cmin, cmax, cpad: int):
 
 
 def _box_table(cmin, cmax):
-    """(8, C) kernel box rows [cmin xyz, _BIG, cmax xyz, _BIG]."""
-    box = torch.full((8, cmin.shape[0]), _BIG, dtype=torch.float32,
+    """(8, C) kernel box rows [cmin xyz, BIG, cmax xyz, BIG]."""
+    box = torch.full((8, cmin.shape[0]), BIG, dtype=torch.float32,
                      device=cmin.device)
     box[0:3] = cmin.T
     box[4:7] = cmax.T
@@ -217,14 +159,14 @@ def _box_table(cmin, cmax):
 def _mask_bundle(origin, dirs, active, t_hi, tile: int):
     """(act (nt,) i32, bundle (8, R) f32) of the mask kernels: per tile,
     whether any ray is active; per ray [o*inv (3), t_hi, inv (3), 0] with
-    inv the reciprocal direction clamped to +-_BIG (_BIG for a zero
+    inv the reciprocal direction clamped to +-BIG (BIG for a zero
     component) and t_hi folded with the active mask (-inf: inactive)."""
     r = dirs.shape[0]
     nt = r // tile
     dev = dirs.device
     nz = dirs != 0.0
     inv = torch.where(
-        nz, torch.clamp(1.0 / torch.where(nz, dirs, 1.0), -_BIG, _BIG), _BIG)
+        nz, torch.clamp(1.0 / torch.where(nz, dirs, 1.0), -BIG, BIG), BIG)
     oi = origin * inv
     thi = (torch.full((r,), _INF, device=dev) if t_hi is None else t_hi)
     if active is not None:
@@ -242,7 +184,7 @@ def ray_cluster_mask(origin, dirs, active, cmin, cmax, t_hi, tile: int):
     cross the cluster box within its t window (the reference's slab test
     per ray), and the least slab entry over those rays (+inf when none).
 
-    Zero direction components use the FINITE reciprocal sentinel _BIG, so
+    Zero direction components use the FINITE reciprocal sentinel BIG, so
     both slab planes land on the same huge-t side exactly when the origin
     is outside the slab, without NaN.  The per-ray terms (o*inv, inv, the
     t window folded with the active mask) are precomputed here into the

@@ -19,6 +19,10 @@ threefry_      csrc/threefry.cu             no Pallas kernel: XLA's draw
 uniform_keyed                               of jax.random.uniform
 (threefry_                                  (models/whitted.py:369), its
 uniform)                                    key read from device memory
+tile_mask      csrc/tile_mask.cu            no Pallas kernel: XLA's fusion
+                                            of tile_cluster_mask, the
+                                            interval tile test of shared-
+                                            origin eye waves
 hit_record     csrc/shade.cu                no Pallas kernel: XLA's fusion
                                             of cluster_closest_hit after
                                             its kernel (:1603) and the
@@ -71,13 +75,15 @@ DENSE_SPH_ROWS = 8   # scenes with <= this many sphere clusters visit all
 
 launches = {"ray_mask": 0, "ray_mask_hier": 0, "closest_shared": 0,
             "closest": 0, "shadow": 0, "any": 0, "threefry": 0,
-            "hit_record": 0, "shade_bounce": 0, "compact": 0}
+            "hit_record": 0, "shade_bounce": 0, "compact": 0,
+            "tile_mask": 0}
 
 # tiles per step of the plain versions: bounds their (tiles, 128, 128)
 # and (tiles, 128, C) temporaries
 _PLAIN_PAIRS = 1 << 23
 
 _INF = float("inf")
+BIG = 1e18           # finite reciprocal sentinel: no inf*0 NaN in slab tests
 
 
 def reset_launches() -> None:
@@ -90,15 +96,18 @@ def reset_launches() -> None:
 # ---------------------------------------------------------------------------
 
 def _check(name: str, x: torch.Tensor, dtype, shape, device,
-           rows: bool = False) -> None:
+           rows: bool = False, layout: bool = True) -> None:
     """Device, dtype, shape and a contiguous layout; with ``rows`` only a
-    unit column stride (a matrix's rows may lie apart)."""
+    unit column stride (a matrix's rows may lie apart); without
+    ``layout`` any strides."""
     if x.device != device:
         raise ValueError(f"{name} is on {x.device}, expected {device}")
     if x.dtype != dtype:
         raise ValueError(f"{name} has dtype {x.dtype}, expected {dtype}")
     if tuple(x.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
+    if not layout:
+        return
     if rows and x.shape[1] > 1 and x.stride(1) != 1:
         raise ValueError(f"{name} must have unit column stride")
     if not rows and not x.is_contiguous():
@@ -314,6 +323,119 @@ def ray_mask_hier_plain(act: torch.Tensor, sup: torch.Tensor,
                             bundle) for j in range(s)]
     return (torch.cat([p[0] for p in parts], 1),
             torch.cat([p[1] for p in parts], 1))
+
+
+# ---------------------------------------------------------------------------
+# tile_mask: the interval tile test of shared-origin eye waves
+# ---------------------------------------------------------------------------
+
+def tile_mask(origin, dirs, active, cmin, cmax, t_hi, tile: int,
+              subsplit: int = 1):
+    """(hit (nt, C) bool, entry lower bound (nt, C) f32), nt = R // tile:
+    could any ray of the tile hit the cluster box?  Interval arithmetic
+    over the tile's origin and direction boxes (conservative; near-tight
+    for the coherent frusta of shared-origin eye tiles).
+
+    origin, dirs: (R, 3) f32; active: (R,) bool or None; cmin, cmax: (C,
+    3) f32 cluster boxes (NaN rows never hit); t_hi: (R,) f32 upper bound
+    of the useful t per ray, or None (closest-hit waves).  With
+    ``subsplit`` > 1 each tile is tested as that many sub-intervals of
+    consecutive rays whose results are merged (hit: any; entry: the least
+    over the sub-intervals that hit), tighter for tiles whose origins
+    straddle depth discontinuities.  Equal to the plain version: hit
+    everywhere, entry with NaN at the same places and equal elsewhere (a
+    zero may carry the other sign; csrc/tile_mask.cu's four-product path
+    gives the eight products' values)."""
+    r, c, dev = dirs.shape[0], cmin.shape[0], dirs.device
+    for name, x, dtype, shape in (
+            ("origin", origin, torch.float32, (r, 3)),
+            ("dirs", dirs, torch.float32, (r, 3)),
+            ("active", active, torch.bool, (r,)),
+            ("cmin", cmin, torch.float32, (c, 3)),
+            ("cmax", cmax, torch.float32, (c, 3)),
+            ("t_hi", t_hi, torch.float32, (r,))):
+        if x is not None:
+            _check(name, x, dtype, shape, dev, layout=dev.type != "cpu")
+    if tile < 1 or subsplit < 1 or tile % subsplit or r % tile:
+        raise ValueError(f"{r} rays do not split into tiles of {tile} rays "
+                         f"and {subsplit} sub-intervals")
+    if dev.type == "cpu":
+        return tile_mask_plain(origin, dirs, active, cmin, cmax, t_hi, tile,
+                               subsplit)
+    nt = r // tile
+    hit = torch.empty((nt, c), dtype=torch.bool, device=dev)
+    entry = torch.empty((nt, c), dtype=torch.float32, device=dev)
+    _launch("tile_mask", "tile_mask", dev, origin, dirs,
+            0 if active is None else active, cmin, cmax,
+            0 if t_hi is None else t_hi, hit, entry, nt, c, tile, subsplit)
+    return hit, entry
+
+
+def _interval_mul(alo, ahi, blo, bhi):
+    p1, p2, p3, p4 = alo * blo, alo * bhi, ahi * blo, ahi * bhi
+    lo = torch.minimum(torch.minimum(p1, p2), torch.minimum(p3, p4))
+    hi = torch.maximum(torch.maximum(p1, p2), torch.maximum(p3, p4))
+    return lo, hi
+
+
+def tile_mask_plain(origin, dirs, active, cmin, cmax, t_hi, tile: int,
+                    subsplit: int = 1):
+    """Plain PyTorch version of :func:`tile_mask`: dense (tiles, C, 3)
+    interval products, minima and maxima."""
+    r = dirs.shape[0]
+    nt_out = r // tile
+    tile //= subsplit
+    nt = r // tile
+    o = origin.reshape(nt, tile, 3)
+    d = dirs.reshape(nt, tile, 3)
+    if active is None:
+        o_lo, o_hi = o.amin(1), o.amax(1)
+        d_lo, d_hi = d.amin(1), d.amax(1)
+        none_active = None
+        cap = None if t_hi is None else t_hi.reshape(nt, tile).amax(1)
+    else:
+        act = active.reshape(nt, tile, 1)
+        o_lo = torch.where(act, o, _INF).amin(1)
+        o_hi = torch.where(act, o, -_INF).amax(1)
+        d_lo = torch.where(act, d, _INF).amin(1)
+        d_hi = torch.where(act, d, -_INF).amax(1)
+        none_active = ~active.reshape(nt, tile).any(1, keepdim=True)
+        # a fully-inactive tile gets a degenerate point interval at 0
+        o_lo = torch.where(none_active, 0.0, o_lo)
+        o_hi = torch.where(none_active, 0.0, o_hi)
+        d_lo = torch.where(none_active, 1.0, d_lo)
+        d_hi = torch.where(none_active, 1.0, d_hi)
+        cap = None
+        if t_hi is not None:
+            cap = torch.where(active.reshape(nt, tile), t_hi.reshape(nt, tile),
+                              -_INF).amax(1)
+            cap = torch.where(none_active[:, 0], 0.0, cap)
+
+    crosses = (d_lo <= 0.0) & (d_hi >= 0.0)
+    i_lo = torch.where(crosses, -BIG, 1.0 / d_hi)
+    i_hi = torch.where(crosses, BIG, 1.0 / d_lo)
+
+    n1_lo = cmin[None] - o_hi[:, None]
+    n1_hi = cmin[None] - o_lo[:, None]
+    n2_lo = cmax[None] - o_hi[:, None]
+    n2_hi = cmax[None] - o_lo[:, None]
+    il, ih = i_lo[:, None], i_hi[:, None]
+    t1_lo, t1_hi = _interval_mul(n1_lo, n1_hi, il, ih)
+    t2_lo, t2_hi = _interval_mul(n2_lo, n2_hi, il, ih)
+    entry_lo = torch.minimum(t1_lo, t2_lo).amax(-1)   # (nt, C)
+    exit_hi = torch.maximum(t1_hi, t2_hi).amin(-1)
+    hit = (entry_lo <= exit_hi) & (exit_hi >= 0.0)
+    if cap is not None:
+        hit &= entry_lo <= cap[:, None]
+    if none_active is not None:
+        hit &= ~none_active
+    if subsplit > 1:
+        c = hit.shape[1]
+        hit_s = hit.reshape(nt_out, subsplit, c)
+        entry_s = entry_lo.reshape(nt_out, subsplit, c)
+        entry_lo = torch.where(hit_s, entry_s, _INF).amin(1)
+        hit = hit_s.any(1)
+    return hit, entry_lo
 
 
 # ---------------------------------------------------------------------------

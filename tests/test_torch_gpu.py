@@ -459,6 +459,135 @@ def test_compact_frames_equal_sort_route_on_card(cuda, scene, monkeypatch):
     programs.drop(data)
 
 
+def _tile_mask_inputs(rng, nt, c, shared, active, t_hi):
+    """Eye-like rays of ``nt`` tiles (origin, dirs, active, t_hi) and ``c``
+    cluster boxes (cmin, cmax), numpy float32.  Each tile's directions
+    jitter about their own axis: tile 1's x component is exactly 0 (its
+    rays' signs mixed), tile 2's y -0.0, tile 3's z crosses zero; every
+    7th box is NaN.  ``active``: None, "partial" (90% of the rays) or
+    "tiles" (partial, and tiles 0, 5, 6 wholly inactive)."""
+    import numpy as np
+
+    r = nt * 128
+    axis = rng.normal(size=(nt, 1, 3)) * [0.4, 0.3, 0.2] + [0.0, -0.4, -1.0]
+    d = (axis + rng.normal(size=(nt, 128, 3)) * 0.01).astype(np.float32)
+    if nt > 3:
+        d[1, :, 0] = np.where(rng.random(128) < 0.5, -0.0, 0.0)
+        d[2, :, 1] = -0.0
+        d[3, :, 2] = np.linspace(-0.01, 0.01, 128)
+    d = d.reshape(r, 3)
+    if shared:
+        o = np.broadcast_to(np.float32([0.5, 30.0, 60.0]), (r, 3)).copy()
+    else:
+        o = (rng.normal(size=(r, 3)) * 20.0 + [0.0, 10.0, 0.0]).astype(np.float32)
+    act = None
+    if active is not None:
+        act = rng.random(r) < 0.9
+        if active == "tiles":
+            for t in (0, 5, 6):
+                act[t * 128:(t + 1) * 128] = False
+    th = None if not t_hi else rng.uniform(10.0, 120.0, r).astype(np.float32)
+    cmin = rng.uniform(-60.0, 60.0, (c, 3)).astype(np.float32)
+    cmin[:, 1] = rng.uniform(-5.0, 25.0, c)
+    cmax = (cmin + rng.uniform(0.5, 12.0, (c, 3))).astype(np.float32)
+    cmin[3::7] = cmax[3::7] = np.nan
+    return o, d, act, th, cmin, cmax
+
+
+_TILE_MASK_CASES = (
+    [(c, nt, 1) for c in (1, 6, 247, 4096, 4099) for nt in (1, 1024, 32400)]
+    + [(c, nt, s) for c in (6, 247, 4099) for nt in (1, 1024) for s in (2, 4)])
+
+
+@pytest.mark.parametrize("c,nt,subsplit", _TILE_MASK_CASES)
+def test_tile_mask_equals_plain_on_card(cuda, c, nt, subsplit):
+    """The interval tile mask kernel against its plain version on the card,
+    both active-mask forms and none, with and without a t window, a shared
+    and a per-ray origin, NaN boxes and zero direction components: hit
+    equal everywhere, entry equal everywhere (NaN at the same places; a
+    zero's sign is free), one launch a call."""
+    import numpy as np
+
+    from raytracer_tpu_torch.ops import kernels as K
+
+    rng = np.random.default_rng(c * 31 + nt + subsplit)
+    for shared, active, t_hi in ((True, None, False), (False, "partial", True),
+                                 (True, "tiles", False), (False, "tiles", True),
+                                 (True, None, True)):
+        arrays = _tile_mask_inputs(rng, nt, c, shared, active, t_hi)
+        o, d, act, th, cmin, cmax = (
+            None if x is None else torch.from_numpy(x).to(cuda) for x in arrays)
+        before = K.launches["tile_mask"]
+        hit, entry = K.tile_mask(o, d, act, cmin, cmax, th, 128, subsplit)
+        assert K.launches["tile_mask"] == before + 1
+        want_h, want_e = [], []
+        step = max(1, (1 << 22) // (c * subsplit))   # tiles a plain call
+        for a in range(0, nt, step):
+            rows = slice(a * 128, min(nt, a + step) * 128)
+            ph, pe = K.tile_mask_plain(
+                o[rows], d[rows], None if act is None else act[rows], cmin,
+                cmax, None if th is None else th[rows], 128, subsplit)
+            want_h.append(ph)
+            want_e.append(pe)
+        want_h, want_e = torch.cat(want_h), torch.cat(want_e)
+        what = (f"C={c} nt={nt} subsplit={subsplit} shared={shared} "
+                f"active={active} t_hi={t_hi}")
+        assert torch.equal(hit, want_h), what + ": hit"
+        assert torch.equal(torch.isnan(entry), torch.isnan(want_e)), what + ": NaN"
+        assert bool(((entry == want_e) | torch.isnan(want_e)).all()), what + ": entry"
+        if active == "tiles":
+            assert not hit[0].any(), what
+        if nt >= 1024 and c >= 247:
+            assert hit.any() and not hit.all(), what
+    with pytest.raises(ValueError):
+        K.tile_mask(o[:-1], d[:-1], None, cmin, cmax, None, 128, subsplit)
+    with pytest.raises(ValueError):
+        K.tile_mask(o, d.double(), None, cmin, cmax, None, 128, subsplit)
+
+
+@pytest.mark.parametrize("scene,chunk,per_frame", [("terrain_hier", 128, 32),
+                                                   ("terrain2sph", 1 << 22, 1)])
+def test_tile_mask_frames_equal_plain_on_card(cuda, scene, chunk, per_frame,
+                                              monkeypatch):
+    """Replayed 64x64 frames with the interval tile mask kernel equal, bit
+    for bit, the same frames with ``tile_cluster_mask`` on its plain
+    version: the terrain on the hierarchical mask in 32 wavefronts of one
+    tile (as the big frame's 32 bands) and two small spheres with two
+    lights in one (as the horse frame).  The replayed frame launches the
+    kernel once a wavefront, the plain route never."""
+    import numpy as np
+
+    from raytracer_tpu_torch.models import programs
+    from raytracer_tpu_torch.models.bvh import build_bvh
+    from raytracer_tpu_torch.models.clusters import build_clusters
+    from raytracer_tpu_torch.models.whitted import render_camera
+    from raytracer_tpu_torch.ops import cluster_trace as ctr
+    from raytracer_tpu_torch.ops import kernels as K
+
+    if scene == "terrain_hier":
+        monkeypatch.setattr(ctr, "SUPER_MIN_CPAD", 0)
+    data, meta = _compact_scene(scene, cuda)
+    cset = build_clusters(data, meta, build_bvh(data, meta))
+    cam = meta.cameras[0]
+
+    def replayed():
+        programs.drop(data)
+        render_camera(data, meta, cam, cset, chunk=chunk, device=cuda)
+        K.reset_launches()
+        img = render_camera(data, meta, cam, cset, chunk=chunk, device=cuda)
+        torch.cuda.synchronize()
+        return img.cpu(), dict(K.launches)
+
+    with monkeypatch.context() as m:
+        m.setattr(ctr, "tile_cluster_mask", K.tile_mask_plain)
+        want, plain_launches = replayed()
+    got, launches = replayed()
+    assert plain_launches["tile_mask"] == 0
+    assert launches["tile_mask"] == per_frame
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    programs.drop(data)
+
+
 def _terrain_both(cuda):
     """(meta, camera, CPU (data, cset), CUDA (data, cset)) of one terrain."""
     from raytracer_tpu_torch.models.bvh import build_bvh

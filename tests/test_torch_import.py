@@ -142,7 +142,8 @@ def test_wrappers_dispatch_on_tensor_device(monkeypatch):
     K.reset_launches()
     assert set(K.launches) == {"ray_mask", "ray_mask_hier", "closest_shared",
                                "closest", "shadow", "any", "threefry",
-                               "hit_record", "shade_bounce", "compact"}
+                               "hit_record", "shade_bounce", "compact",
+                               "tile_mask"}
     hit, ent = K.ray_mask(act, box, bundle)
     words, ids, elist, counts = K.compact(hit != 0, ent, 48)
     assert words.shape == (1,) and ids.shape == elist.shape == (48,)
@@ -153,6 +154,10 @@ def test_wrappers_dispatch_on_tensor_device(monkeypatch):
     assert found.shape == (128,) and found.dtype == torch.int32
     u = K.threefry_uniform(0, 3, 10, -0.5, 0.5, "cpu")
     assert u.shape == (10,) and u.dtype == torch.float32
+    boxes = torch.zeros((3, 3))
+    th, te = K.tile_mask(rays, rays, None, boxes, boxes + 1.0, None, 128)
+    assert th.shape == (1, 3) and th.dtype == torch.bool
+    assert te.dtype == torch.float32
     assert sum(K.launches.values()) == 0
 
     def no_nvcc():
@@ -172,4 +177,7 @@ def test_wrappers_dispatch_on_tensor_device(monkeypatch):
         K.threefry_uniform(0, 3, 10, -0.5, 0.5, "meta")
     with pytest.raises(RuntimeError, match="nvcc"):
         K.compact((hit != 0).to("meta"), ent.to("meta"), 48)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        K.tile_mask(*[x.to("meta") for x in (rays, rays)], None,
+                    boxes.to("meta"), boxes.to("meta"), None, 128)
     assert sum(K.launches.values()) == 0

@@ -110,6 +110,89 @@ def test_tile_mask_equals_jax():
     assert not ph[:2].any()
 
 
+def _tile_mask_args():
+    _, _, _, cs = jax_accel("terrain16")
+    o, d, act = scene_rays(cs, R, 3)
+    o[:] = o[0]
+    cmin, cmax = _boxes(cs)
+    th = np.random.default_rng(3).uniform(5.0, 60.0, R).astype(np.float32)
+    return [torch.from_numpy(x) for x in (o, d, act, cmin, cmax, th)]
+
+
+def test_tile_mask_cpu_takes_plain(monkeypatch):
+    """On CPU tensors the wrapper returns its plain version's result
+    (``tile_cluster_mask`` goes through it) and counts no launch."""
+    o, d, act, cmin, cmax, th = _tile_mask_args()
+    calls = []
+    plain = K.tile_mask_plain
+
+    def spy(*a):
+        calls.append(a)
+        return plain(*a)
+
+    monkeypatch.setattr(K, "tile_mask_plain", spy)
+    K.reset_launches()
+    hit, entry = pct.tile_cluster_mask(o, d, act, cmin, cmax, th, 128,
+                                       subsplit=2)
+    want = plain(o, d, act, cmin, cmax, th, 128, 2)
+    assert len(calls) == 1 and K.launches["tile_mask"] == 0
+    assert hit.any() and torch.equal(hit, want[0])
+    assert torch.equal(entry, want[1])
+
+
+@pytest.mark.parametrize("bad", ["dtype", "origin_shape", "box_shape",
+                                 "active_shape", "t_hi_dtype", "device",
+                                 "tiles", "subsplit"])
+def test_tile_mask_rejects_bad_inputs(bad):
+    """A wrong dtype, shape or device, or rays that do not split into
+    whole tiles and sub-intervals, raise ValueError before any work."""
+    o, d, act, cmin, cmax, th = _tile_mask_args()
+    tile, sub = 128, 1
+    if bad == "dtype":
+        d = d.double()
+    elif bad == "origin_shape":
+        o = o[:, :2]
+    elif bad == "box_shape":
+        cmax = cmax[:-1]
+    elif bad == "active_shape":
+        act = act[:-128]
+    elif bad == "t_hi_dtype":
+        th = th.to(torch.float16)
+    elif bad == "device":
+        cmin = torch.empty(cmin.shape, device="meta")
+    elif bad == "tiles":
+        tile = 96
+    else:
+        sub = 3
+    with pytest.raises(ValueError):
+        K.tile_mask(o, d, act, cmin, cmax, th, tile, sub)
+
+
+@pytest.mark.parametrize("chunk,calls", [(128, 32), (1 << 22, 1)])
+def test_tile_mask_once_a_wavefront(chunk, calls, monkeypatch):
+    """A 64x64 terrain frame on the cluster engine calls the interval tile
+    mask once a shared-eye wavefront (bounce 0): 32 when the frame runs in
+    wavefronts of one tile (as the big frame's 32 bands), 1 when it runs
+    whole; every call on the frame's eye origin."""
+    from raytracer_tpu_torch.models.bvh import build_bvh
+    from raytracer_tpu_torch.models.clusters import build_clusters
+    from raytracer_tpu_torch.models.whitted import render_camera
+    from raytracer_tpu_torch.utils import synth
+
+    data, meta = synth.terrain_scene(cells=12, res=64, device="cpu")
+    cset = build_clusters(data, meta, build_bvh(data, meta))
+    seen = []
+    mask = K.tile_mask
+
+    def spy(origin, *a):
+        seen.append(bool((origin == origin[0]).all()))
+        return mask(origin, *a)
+
+    monkeypatch.setattr(K, "tile_mask", spy)
+    render_camera(data, meta, meta.cameras[0], cset, chunk=chunk, device="cpu")
+    assert len(seen) == calls and all(seen)
+
+
 @pytest.mark.parametrize("c,max_list,offset", [
     pytest.param(5, 8, 0, id="5-8"), pytest.param(37, 8, 0, id="37-8"),
     pytest.param(70, 48, 0, id="70-48"), pytest.param(0, 8, 0, id="0-8"),
