@@ -2511,12 +2511,12 @@ def compact_on_card(dev, results):
         best = {}
 
         def keep(f):
-            def kept(hit, entry, max_list):
+            def kept(hit, entry, max_list, tally=None):
                 n = int(hit.sum())
                 if n > best.get("hits", -1):
                     best.update(hits=n, args=(hit.clone(), entry.clone(),
                                               max_list))
-                return f(hit, entry, max_list)
+                return f(hit, entry, max_list, tally)
             return kept
 
         with patched(ctr, "_compact", keep), eager():

@@ -47,9 +47,9 @@ SIGNATURES = {
     # act, sup, box, bundle, hit, ent, nt, c, r, stream
     "rt_ray_mask_hier": [_vp] * 6 + [_i] * 3 + [_vp],
     # hit, hit row stride, entry, entry row stride, words, ids, elist,
-    # counts, nt, c, max_list, stream
+    # counts, tally (or null), nt, c, max_list, stream
     "rt_compact": [_vp, ctypes.c_longlong, _vp, ctypes.c_longlong]
-                  + [_vp] * 4 + [_i] * 3 + [_vp],
+                  + [_vp] * 5 + [_i] * 3 + [_vp],
     # origin, dirs, active (or null), cmin, cmax, t_hi (or null), hit,
     # entry, nt, c, tile, subsplit, stream
     "rt_tile_mask": [_vp] * 8 + [_i] * 4 + [_vp],

@@ -16,6 +16,11 @@
 //                     ascending column (a stable sort; -0 and +0 equal),
 //                     and those entries, bit for bit; past that, id 0 and
 //                     +inf (no visitor reads them)
+//   tally (optional)  += [tiles with a hit column, tiles whose count
+//                     passes max_list]: two int64 running sums (the
+//                     lists a visitor walks, and those it walks as the
+//                     bitmask), one atomic add each from such a tile's
+//                     warp; a null tally counts nothing
 //
 // What bounds it: memory.  It reads C bytes of hit per tile, 4 bytes of
 // entry per hit column, and writes 4 W + 8 max_list + 4 bytes per tile;
@@ -170,7 +175,8 @@ __global__ void __launch_bounds__(kWarps * 32) compact_kernel(
     const unsigned char* __restrict__ hit, long long hstride,
     const float* __restrict__ entry, long long estride,
     int* __restrict__ words, int* __restrict__ ids, float* __restrict__ elist,
-    int* __restrict__ counts, int nt, int c, int max_list, int cap) {
+    int* __restrict__ counts, unsigned long long* __restrict__ tally,
+    int nt, int c, int max_list, int cap) {
   extern __shared__ int smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int i = blockIdx.x * kWarps + warp;
@@ -259,7 +265,13 @@ __global__ void __launch_bounds__(kWarps * 32) compact_kernel(
     nb = dst;
   }
 
-  if (lane == 0) counts[i] = count;
+  if (lane == 0) {
+    counts[i] = count;
+    if (tally != nullptr && count > 0) {
+      atomicAdd(tally, 1ull);
+      if (count > max_list) atomicAdd(tally + 1, 1ull);
+    }
+  }
   if (nb > max_list) {
     select_smallest(skey, sid, hist, nb, max_list, lane);
     nb = max_list;
@@ -287,10 +299,12 @@ __global__ void __launch_bounds__(kWarps * 32) compact_kernel(
 
 // hit: bool rows of c bytes, row i at hit + i * hstride (any alignment);
 // entry: f32 rows, row i at entry + i * estride; words (nt * ceil(c / 32)),
-// ids, elist (nt * max_list), counts (nt): outputs.  max_list in [1, 64].
+// ids, elist (nt * max_list), counts (nt): outputs; tally: two int64 sums
+// added to, or null.  max_list in [1, 64].
 extern "C" int rt_compact(const unsigned char* hit, long long hstride,
                           const float* entry, long long estride, int* words,
-                          int* ids, float* elist, int* counts, int nt, int c,
+                          int* ids, float* elist, int* counts,
+                          unsigned long long* tally, int nt, int c,
                           int max_list, void* stream) {
   if (nt < 0 || c < 0 || max_list < 1 || max_list > kMaxList) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -303,8 +317,8 @@ extern "C" int rt_compact(const unsigned char* hit, long long hstride,
     const size_t smem = sizeof(int) * kWarps * (2 * cap + kBins);
     compact_kernel<<<(nt + kWarps - 1) / kWarps, kWarps * 32, smem,
                      static_cast<cudaStream_t>(stream)>>>(
-        hit, hstride, entry, estride, words, ids, elist, counts, nt, c,
-        max_list, cap);
+        hit, hstride, entry, estride, words, ids, elist, counts, tally, nt,
+        c, max_list, cap);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -80,7 +80,7 @@ from raytracer_tpu_torch.models.clusters import ClusterSet
 from raytracer_tpu_torch.models.programs import eager  # noqa: F401 (re-export)
 from raytracer_tpu_torch.models.scene import Camera, SceneData, SceneMeta
 from raytracer_tpu_torch.ops import cluster_trace as ctr
-from raytracer_tpu_torch.ops import shade, traverse
+from raytracer_tpu_torch.ops import kernels, shade, traverse
 from raytracer_tpu_torch.ops.camera import (
     camera_vectors, draw_jitter, draw_jitter_into, eye_rays_band,
     eye_rays_from, write_jitter_keys,
@@ -104,6 +104,12 @@ from raytracer_tpu_torch.ops.tiling import (
 _COMPACT_FROM = 2
 _COMPACT_MIN_DEPTH = 3
 _COMPACT_SCATTER = 0.15
+
+# the wave counters: ``wave.deep`` samples the rays entering bounce
+# _DEEP_FROM or later; a hierarchical scene's running sums
+# (``cluster_trace.counting_masks``), in their order in the flags buffer
+_DEEP_FROM = 2
+_MASK_SAMPLES = ("mask.tiles", "mask.chunks", "lists.tiles", "lists.over")
 
 
 # debug_nans(): every wave's radiance is checked after each bounce
@@ -300,22 +306,29 @@ class _Wavefront:
     (``tracing.sample``) each bounce's ``wave.active``, the rays active
     entering it, and on the cluster engine ``wave.lanes``, 128 x the live
     tiles its kernels see (after a compaction's sort ceil(active / 128));
-    after a bounce whose step went through ``_fused_bounce`` (``fused``,
-    noted as the body runs), ``wave.fused``, its active rays again.  On a
-    scene whose masks take the hierarchical route
-    (``cluster_trace.hierarchical``) ``flags`` holds two running sums
-    more, ``masks``, which every bounce's mask calls add to
-    (``cluster_trace.counting_masks``): their active tiles and the live
-    (tile, chunk) pairs of their supercluster pass.  At each read in a
-    sampled run the host samples what they grew by since its last read
-    (``mask.tiles``, ``mask.chunks``); a run's last bounce, which no read
-    follows, is counted at the next run's first, so a stretch of sampled
-    runs loses only its final bounce, and no read or sync is added.
+    from bounce _DEEP_FROM on, ``wave.deep``, the same active rays; after
+    a bounce whose step went through ``_fused_bounce`` (``fused``, noted
+    as the body runs), ``wave.fused``, its active rays again.  On a scene
+    whose masks take the hierarchical route
+    (``cluster_trace.hierarchical``) ``flags`` holds four running sums
+    more, ``masks``, which every bounce's mask calls and shortlist
+    compactions add to (``cluster_trace.counting_masks``): the masks'
+    active tiles and the live (tile, chunk) pairs of their supercluster
+    pass, the shortlists with a candidate and those past their cap.  At
+    each read in a sampled run the host samples what they grew by since
+    its last read (``mask.tiles``, ``mask.chunks``, ``lists.tiles``,
+    ``lists.over``); a run's last bounce, which no read follows, is
+    counted at the next run's first, so a stretch of sampled runs loses
+    only its final bounce, and no read or sync is added.
 
     Steps: bounce 0 (on the cluster engine the shared-eye peel for a
     shared origin), bounce d plain or compacting (from _COMPACT_FROM), and
     ``uncompact`` after a run whose carry was permuted (the host knows
-    whether one was; idx is arange otherwise).  A BVH bounce is cut at its
+    whether one was; idx is arange otherwise).  Which of them a run takes
+    follows its rays (a camera sweep flips the compaction gate, or lets a
+    bounce's rays run out), so a kept wavefront (``warm``: brute and
+    cluster) makes them all before its first run (``_warm``): no later
+    run captures.  A BVH bounce is cut at its
     two walks (``traverse.Walk``, static state of r and L*r lanes): the
     closest walk's set-up; its blocks; the hits (``refine_hit``, kept in
     the static ``hit``) and the shadow walk's set-up (``shadow_query``);
@@ -332,9 +345,11 @@ class _Wavefront:
 
     def __init__(self, data: SceneData, meta: SceneMeta, accel, r: int,
                  shared: bool, bfc: bool, relaxed: bool, compact_mode: str,
-                 device, step, engine: str = "cluster", record: bool = False):
+                 device, step, engine: str = "cluster", record: bool = False,
+                 warm: bool = False):
         self.data, self.meta, self.accel, self.bfc = data, meta, accel, bfc
         self.r, self.shared, self.engine, self.record = r, shared, engine, record
+        self.warm = warm and engine != "bvh"
         self.relaxed = relaxed
         self.compact = (engine == "cluster"
                         and (meta.max_depth >= _COMPACT_MIN_DEPTH
@@ -350,10 +365,11 @@ class _Wavefront:
         self.active = torch.zeros((r,), dtype=torch.bool, device=device)
         self.idx = torch.arange(r, device=device)
         hier = engine == "cluster" and not record and ctr.hierarchical(accel)
-        self.flags = torch.zeros((5 if hier else 3,), dtype=torch.int64,
-                                 device=device)
+        self.flags = torch.zeros((3 + len(_MASK_SAMPLES) if hier else 3,),
+                                 dtype=torch.int64, device=device)
         self.masks = self.flags[3:] if hier else None
-        self.masks_seen = [0, 0]   # ``masks`` at the last sampled read
+        # ``masks`` at the last sampled read
+        self.masks_seen = [0] * len(_MASK_SAMPLES)
         nl, i64 = meta.n_lights, dict(dtype=torch.int64, device=device)
         if engine == "bvh":
             bvh = traverse._device_bvh(accel)
@@ -386,6 +402,8 @@ class _Wavefront:
     @torch.no_grad()
     def run(self) -> torch.Tensor:
         """Trace the loaded rays; returns the ``color`` buffer (R, 3)."""
+        if self.warm:
+            self._warm()
         sampled = not self.record and tracing.recording()
         if sampled:
             self._sample(self.r, -(-self.r // TILE))
@@ -408,6 +426,8 @@ class _Wavefront:
                         and scattered > 0)
                 if sampled:
                     self._sample(active, -(-active // TILE) if take else tiles)
+                    if depth >= _DEEP_FROM:
+                        tracing.sample("wave.deep", active)
             self._run(depth, take)
             if sampled:
                 self._sample_fused((depth, take), active)
@@ -416,19 +436,35 @@ class _Wavefront:
             self._run("uncompact", True)
         return self.color
 
+    def _warm(self) -> None:
+        """Every step past bounce 0, made before the first run: each depth
+        on each side of the compaction gate, and ``uncompact``.  Each runs
+        once on the buffers as they are, no ray active (its first, eager
+        run; bounce 0 rewrites every buffer), and is captured; the kernels
+        they launch are set-up, not counted in ``kernels.launches``."""
+        self.warm = False
+        launches = dict(kernels.launches)
+        for depth in range(1, self.meta.max_depth + 1):
+            self._run(depth, False)
+            if self.compact and depth >= _COMPACT_FROM:
+                self._run(depth, True)
+        if self.compact:
+            self._run("uncompact", True)
+        kernels.launches.update(launches)
+
     def _sample(self, active: int, tiles: int) -> None:
         tracing.sample("wave.active", active)
         if self.engine == "cluster":
             tracing.sample("wave.lanes", TILE * tiles)
 
     def _sample_masks(self, masks: list) -> None:
-        """``mask.tiles`` and ``mask.chunks``: what the running sums
-        ``masks`` (as read) grew by since the last sampled read; the first
-        read after an unsampled run only sets the base."""
+        """``_MASK_SAMPLES``: what the running sums ``masks`` (as read)
+        grew by since the last sampled read; the first read after an
+        unsampled run only sets the base."""
         seen, self.masks_seen = self.masks_seen, masks
         if seen is not None:
-            tracing.sample("mask.tiles", masks[0] - seen[0])
-            tracing.sample("mask.chunks", masks[1] - seen[1])
+            for name, now, then in zip(_MASK_SAMPLES, masks, seen):
+                tracing.sample(name, now - then)
 
     def _sample_fused(self, key, active: int) -> None:
         """``wave.fused``: the bounce's ``active`` rays, where its step
@@ -571,7 +607,8 @@ def _wavefront(progs, data, meta, accel, r: int, shared: bool, bfc: bool,
     args = (data, meta, accel, r, shared, bfc, relaxed, compact_mode, device)
     return progs.program(("rays", engine, r, shared, bfc, relaxed,
                           compact_mode),
-                         lambda: _Wavefront(*args, progs.step, engine))
+                         lambda: _Wavefront(*args, progs.step, engine,
+                                            warm=progs is not programs.EAGER))
 
 
 def _check_compact_mode(compact_mode: str) -> None:

@@ -71,7 +71,7 @@ SHADOW_PLANES_BYTES_MAX = 8 << 20
 _SUPER = 128
 SUPER_MIN_CPAD = 512
 
-# the (2,) int64 buffer that counting_masks sets for this thread
+# the (4,) int64 buffer that counting_masks sets for this thread
 _counting = threading.local()
 
 
@@ -95,8 +95,12 @@ def hierarchical(cset: ClusterSet) -> bool:
 def counting_masks(counts):
     """Inside the block, each hierarchical ``ray_cluster_mask`` call of
     this thread adds [its active tiles, the live (tile, 128-cluster chunk)
-    pairs its supercluster pass hands ``ray_mask_hier``] to ``counts``
-    ((2,) int64 on the rays' device; None counts nothing)."""
+    pairs its supercluster pass hands ``ray_mask_hier``] to ``counts[:2]``
+    and each shortlist compaction (``_lists``, inside the ``compact``
+    kernel: no launch of its own) [its tiles with a candidate, those whose
+    count passes MAX_TRI_LIST / MAX_SPH_LIST, which the visitors walk as
+    the bitmask] to ``counts[2:]`` ((4,) int64 on the rays' device; None
+    counts nothing)."""
     outer = getattr(_counting, "counts", None)
     _counting.counts = counts
     try:
@@ -200,7 +204,7 @@ def ray_cluster_mask(origin, dirs, active, cmin, cmax, t_hi, tile: int):
                                   bundle)
         counts = getattr(_counting, "counts", None)
         if counts is not None:
-            counts.add_(torch.stack([act.sum(), sup.sum()]))
+            counts[:2].add_(torch.stack([act.sum(), sup.sum()]))
         hit, ent = kernels.ray_mask_hier(act, sup.reshape(-1), _box_table(cmin, cmax),
                                          bundle)
     else:
@@ -208,7 +212,7 @@ def ray_cluster_mask(origin, dirs, active, cmin, cmax, t_hi, tile: int):
     return hit != 0, ent
 
 
-def _compact(hit, entry, max_list: int):
+def _compact(hit, entry, max_list: int, tally=None):
     """(hit, entry) (nt, C) -> (words (nt*W,) i32, ids (nt*max_list,) i32,
     elist (nt*max_list,) f32, counts (nt,) i32).
 
@@ -216,14 +220,18 @@ def _compact(hit, entry, max_list: int):
     BACK by slab entry (the order decides exact-t ties in the closest
     kernel); ``counts`` is unclamped, so a kernel can see the overflow and
     scan the bitmask ``words`` instead.  CUDA tensors take the ``compact``
-    kernel, CPU tensors its plain version (``kernels.compact``)."""
-    return kernels.compact(hit, entry, max_list)
+    kernel, CPU tensors its plain version (``kernels.compact``), either
+    adding to ``tally`` when given."""
+    return kernels.compact(hit, entry, max_list, tally)
 
 
 def _lists(thit, shit):
-    """Triangle and sphere shortlists (tw, tl, tc, sw, sl, sc)."""
-    tw, tl, _, tc = _compact(*thit, MAX_TRI_LIST)
-    sw, sl, _, sc = _compact(*shit, MAX_SPH_LIST)
+    """Triangle and sphere shortlists (tw, tl, tc, sw, sl, sc), counted
+    inside ``counting_masks``."""
+    counts = getattr(_counting, "counts", None)
+    tally = None if counts is None else counts[2:]
+    tw, tl, _, tc = _compact(*thit, MAX_TRI_LIST, tally)
+    sw, sl, _, sc = _compact(*shit, MAX_SPH_LIST, tally)
     return tw, tl, tc, sw, sl, sc
 
 

@@ -442,7 +442,8 @@ def tile_mask_plain(origin, dirs, active, cmin, cmax, t_hi, tile: int,
 # compact: a tile mask's shortlists (what the visiting kernels read)
 # ---------------------------------------------------------------------------
 
-def compact(hit: torch.Tensor, entry: torch.Tensor, max_list: int):
+def compact(hit: torch.Tensor, entry: torch.Tensor, max_list: int,
+            tally=None):
     """(words (nt*W,) i32, ids (nt*max_list,) i32, elist (nt*max_list,)
     f32, counts (nt,) i32) of a tile mask ``hit`` (nt, C) bool and its slab
     entries ``entry`` (nt, C) f32, W = ceil(C / 32): bit b of word w is
@@ -451,13 +452,17 @@ def compact(hit: torch.Tensor, entry: torch.Tensor, max_list: int):
     entries; the unclamped hit count.  Equal to the plain version on words
     and counts, and on ids and elist below min(count, max_list), which is
     all a visiting kernel reads (past it the kernel writes 0 and +inf).
-    Rows need only a unit column stride."""
+    Rows need only a unit column stride.  ``tally`` ((2,) int64 on the
+    device, or None): adds [the tiles with a hit column, those whose
+    count passes max_list] to it."""
     if hit.device.type == "cpu":
-        return compact_plain(hit, entry, max_list)
+        return compact_plain(hit, entry, max_list, tally)
     nt, c = hit.shape
     dev = hit.device
     _check("hit", hit, torch.bool, (nt, c), dev, rows=True)
     _check("entry", entry, torch.float32, (nt, c), dev, rows=True)
+    if tally is not None:
+        _check("tally", tally, torch.int64, (2,), dev)
     if not 1 <= max_list <= 64:
         raise ValueError(f"max_list {max_list} is outside [1, 64]")
     words = torch.empty((nt * -(-c // 32),), dtype=torch.int32, device=dev)
@@ -465,17 +470,22 @@ def compact(hit: torch.Tensor, entry: torch.Tensor, max_list: int):
     elist = torch.empty((nt * max_list,), dtype=torch.float32, device=dev)
     counts = torch.empty((nt,), dtype=torch.int32, device=dev)
     _launch("compact", "compact", dev, hit, hit.stride(0), entry,
-            entry.stride(0), words, ids, elist, counts, nt, c, max_list)
+            entry.stride(0), words, ids, elist, counts,
+            0 if tally is None else tally, nt, c, max_list)
     return words, ids, elist, counts
 
 
-def compact_plain(hit: torch.Tensor, entry: torch.Tensor, max_list: int):
+def compact_plain(hit: torch.Tensor, entry: torch.Tensor, max_list: int,
+                  tally=None):
     """Plain PyTorch version of :func:`compact`: a stable descending sort
     of -entry over every column (ties keep the lower column id, like
     ``lax.top_k``) and the bitmask summed in int64."""
     nt, c = hit.shape
     dev = hit.device
     counts = hit.sum(1).to(torch.int32)
+    if tally is not None:
+        tally.add_(torch.stack([(counts > 0).sum(),
+                                (counts > max_list).sum()]))
     k = min(max_list, c)
     keys = torch.where(hit, -entry, -_INF)
     vals, ids = torch.sort(keys, dim=1, descending=True, stable=True)

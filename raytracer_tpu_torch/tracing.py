@@ -19,10 +19,14 @@ thread.  Two kinds:
 
 ``sample(name, value)`` records a counter's value at an instant while a
 profiler records: the wavefront's ``wave.active`` (rays active entering a
-bounce) and ``wave.lanes`` (128 x the live tiles its kernels see); on a
-scene whose masks take the hierarchical route, ``mask.tiles`` (the active
-tiles entering its mask calls) and ``mask.chunks`` (the live (tile,
-128-cluster chunk) pairs their supercluster pass hands ``ray_mask_hier``).
+bounce), ``wave.lanes`` (128 x the live tiles its kernels see) and
+``wave.deep`` (the active rays entering bounce 2 or later); on a scene
+whose masks take the hierarchical route, ``mask.tiles`` (the active
+tiles entering its mask calls), ``mask.chunks`` (the live (tile,
+128-cluster chunk) pairs their supercluster pass hands
+``ray_mask_hier``), ``lists.tiles`` (the (tile, list) shortlists with a
+candidate that its compactions build) and ``lists.over`` (those past
+their cap, which the visiting kernels walk as the bitmask).
 
 Stamps are ``time.time_ns()``: Unix-epoch ns, the clock kineto stamps
 host events on, so spans and samples line up with a profiler's events.

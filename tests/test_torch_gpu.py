@@ -53,15 +53,18 @@ def test_treelet_kernels_equal_plain_on_card(cuda, scene, kw):
 
 
 def _render_and_compare(cuda, scene, kw, names, treelet=False, **render_kw):
-    """Render at 64x64 on the card, keeping the inputs of every call of the
-    wrappers ``names``; then each call's kernel equals its plain version."""
+    """Render at 64x64 on the card (``scene``: a ``utils.synth`` scene's
+    name, or a function of the device giving (data, meta)), keeping the
+    inputs of every call of the wrappers ``names``; then each call's
+    kernel equals its plain version.  Returns the calls."""
     from raytracer_tpu_torch.models.bvh import build_bvh
     from raytracer_tpu_torch.models.clusters import build_clusters
     from raytracer_tpu_torch.models.whitted import eager, render_camera
     from raytracer_tpu_torch.ops import kernels as K
     from raytracer_tpu_torch.utils import synth
 
-    data, meta = getattr(synth, scene)(res=64, device=cuda, **kw)
+    data, meta = (scene(cuda) if callable(scene)
+                  else getattr(synth, scene)(res=64, device=cuda, **kw))
     cset = build_clusters(data, meta, build_bvh(data, meta), treelet=treelet)
     calls = []
     wrapped = {n: getattr(K, n) for n in names}
@@ -90,6 +93,35 @@ def _render_and_compare(cuda, scene, kw, names, treelet=False, **render_kw):
         out_p = out_p if isinstance(out_p, tuple) else (out_p,)
         for a, b in zip(out_k, out_p):
             assert torch.equal(a, b), name
+    return calls
+
+
+def test_flake_kernels_equal_plain_on_card(cuda):
+    """The benchmark's SPD sphereflake (66,430 spheres in 519 clusters) at
+    64x64: its masks hierarchical over sphere columns, tiles past their
+    sphere shortlist's cap walking the bitmask, three lights in one shadow
+    launch, mirror bounces to depth 6.  Every ray_mask_hier, closest and
+    shadow call of an eager frame equals its plain version."""
+    import copy
+
+    from benchmark import sceneio
+    from benchmark.paths import Bench
+
+    from raytracer_tpu_torch.models.scene import from_parsed
+    from raytracer_tpu_torch.ops import kernels as K
+
+    def flake(device):
+        bench = Bench()
+        cfg = copy.deepcopy(bench.config("flake66k"))
+        cfg["scene"].update(width=64, height=64)
+        return from_parsed(sceneio.generate(bench, cfg, 2**31 + 5), device)
+
+    calls = _render_and_compare(cuda, flake, {},
+                                ("ray_mask_hier", "closest", "shadow"))
+    over = [int((a[5] > K.MAX_SPH_LIST).sum()) for n, a in calls
+            if n == "closest"]
+    assert sum(over) > 0
+    assert all(a[0].shape[0] == 3 for n, a in calls if n == "shadow")
 
 
 HIT_FIELDS = ("hit", "normal", "mat", "point", "offset", "mask")
@@ -390,6 +422,35 @@ def test_compact_equals_plain_on_card(cuda, c, max_list, density):
         assert torch.equal(elist[keep].view(torch.int32),
                            want[2][keep].view(torch.int32)), what + ": entries"
         assert int(counts[0]) == c and int(counts[1]) == 0
+
+
+@pytest.mark.parametrize("max_list", [8, 48])
+@pytest.mark.parametrize("c", [0, 6, 519, 4099])
+def test_compact_tally_equals_plain_on_card(cuda, c, max_list):
+    """The compaction kernel's optional tally (the counters of the
+    hierarchical route's shortlists): [tiles with a hit column, tiles past
+    max_list] added to what the tally held, as the plain version adds them,
+    on a contiguous mask and on a slice read in place; the outputs equal
+    those of a call without a tally."""
+    import numpy as np
+
+    from raytracer_tpu_torch.ops import kernels as K
+
+    rng = np.random.default_rng(c + max_list)
+    hit, entry = _compact_inputs(rng, 256, c, 0.05, 13)
+    h, e = torch.from_numpy(hit).to(cuda), torch.from_numpy(entry).to(cuda)
+    for th, te in ((h[:, 13:13 + c].contiguous(), e[:, 13:13 + c].contiguous()),
+                   (h[:, 13:13 + c], e[:, 13:13 + c])):
+        tally = torch.tensor([5, 7], dtype=torch.int64, device=cuda)
+        got = K.compact(th, te, max_list, tally)
+        want = torch.tensor([5, 7], dtype=torch.int64)
+        K.compact_plain(th.cpu(), te.cpu(), max_list, want)
+        assert torch.equal(tally.cpu(), want), (c, max_list)
+        counts = got[3].cpu()
+        assert int(want[0]) - 5 == int((counts > 0).sum())
+        assert int(want[1]) - 7 == int((counts > max_list).sum())
+        for a, b in zip(got, K.compact(th, te, max_list)):
+            assert torch.equal(a, b)
 
 
 def _compact_scene(name, cuda):
@@ -963,6 +1024,7 @@ def test_served_frame_kernels_equal_plain_on_card(cuda, tmp_path):
             setattr(K, n, f)
     assert r["ok"], r
     assert {n for n, _ in calls} == set(names)
+    _render_and_compare.calls = calls
     for name, args in calls:
         out_k = wrapped[name](*args)
         out_p = getattr(K, name + "_plain")(*args)
