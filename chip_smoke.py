@@ -498,8 +498,9 @@ def sample_tiles(counts, n, gen):
 
 
 # wrapper arguments with one row per tile (a leading light axis for the
-# shadow kernel's lists) and with one row per ray; the rest (cluster
-# tables, boxes, light positions, a shared origin, flags) are whole
+# shadow kernel's lists; the shadow kernel's per-ray act, (L, R), cut as
+# (L, tiles, 128)) and with one row per ray; the rest (cluster tables,
+# boxes, light positions, a shared origin, flags, a tally) are whole
 TILE_ARGS = ("act", "sup", "tw", "tl", "tc", "sw", "sl", "sc")
 RAY_ARGS = ("origin", "dirs", "t_max")
 
@@ -516,7 +517,7 @@ def named(kname, a):
 
 
 def n_tiles_of(p):
-    return (p["act"] if "act" in p else p["tc"]).shape[-1]
+    return (p["tc"] if "tc" in p else p["act"]).shape[-1]
 
 
 def slice_args(kname, a, tiles, **replace):
@@ -525,6 +526,8 @@ def slice_args(kname, a, tiles, **replace):
     p = named(kname, a)
     nt = n_tiles_of(p)
     for k, x in p.items():
+        if x is None:          # a shadow call's act or tally left out
+            continue
         if k in TILE_ARGS:
             lead = tuple(x.shape[:-1])
             p[k] = x.view(*lead, nt, -1)[..., tiles, :].reshape(*lead, -1).contiguous()

@@ -56,9 +56,10 @@ SIGNATURES = {
     # tw, tl, tc, sw, sl, sc, origin, dirs, tri_dat, sph_dat, t, slot,
     # nt, ct, cs, pt, ps, wt, ws, shared_origin, bfc, stream
     "rt_closest": [_vp] * 12 + [_i] * 9 + [_vp],
-    # tw, tl, tc, sw, sl, sc, lps, origin, planes, sph_dat, found,
-    # nt, nl, ct, cs, pt, ps, wt, ws, relaxed, stream
-    "rt_shadow": [_vp] * 11 + [_i] * 9 + [_vp],
+    # tw, tl, tc, sw, sl, sc, lps, origin, planes, sph_dat, act (or
+    # null), found, tally (or null), nt, nl, ct, cs, pt, ps, wt, ws, act's
+    # light and ray strides, relaxed, stream
+    "rt_shadow": [_vp] * 13 + [_i] * 11 + [_vp],
     # tw, tl, tc, sw, sl, sc, origin, dirs, t_max, tri_dat, sph_dat, found,
     # nt, ct, cs, pt, ps, wt, ws, bfc, relaxed, stream
     "rt_any": [_vp] * 12 + [_i] * 9 + [_vp],

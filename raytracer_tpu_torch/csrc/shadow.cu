@@ -34,18 +34,35 @@
 //     nonneg & ~poison folded into the ray's bit.
 // The triangle walk has no early exit: a later visit can clear a lane.
 //
-// Spheres: with at most 8 sphere clusters, one dense pass over all of
-// them for every light, run when any light has sphere candidates, as
-// (cluster, chunk) items; else, per light, the any-hit kernel's walk: the
-// tile's occluded rays are a shared 128-bit mask per light that every warp
-// ORs its rays into, a warp stops once all 128 are set and skips an item
-// once its own are.  An OR cannot change once set, so any exit rule gives
-// the same bits.
+// Spheres: a live-ray walk.  The result is defined as act & occluded
+// (act: the rays hit & relevant toward each light, every ray without one),
+// so a ray needs the sphere test only while it is active and not yet
+// occluded.  Per light whose tile has sphere candidates (with at most 8
+// sphere clusters: every cluster, when any light has candidates; else
+// the light's list or bitmask), after a block barrier the tile's rays are
+// staged once in shared memory ((o, a_q), (light - o)), and the live rays
+// act & ~occ are snapshotted (the count of shadow.live).  The sphere
+// clusters are cut into items (cluster, 32-lane chunk) as above, staged
+// by cp.async; in an item each thread owns ONE sphere lane and loops over
+// the warp's live rays (act & ~occ as the item starts, uniform over the
+// warp), two rays an iteration (two independent chains in flight),
+// reading each ray's staged segment as a broadcast; a ray's result over
+// the 32 lanes is one vote, ORed into occ by lane 0.  An
+// item costs the live count, not 128; a warp stops once no ray is live,
+// and a light with no live ray walks nothing.  An OR cannot change once
+// set, so no order of warps or items changes a bit.
+//
+// The replaced design tested all 128 rays of every item, 4 a thread,
+// skipping a ray only when every lane of the warp had it occluded: rays
+// whose bit no caller reads (misses, surfaces facing away) and rays
+// already occluded cost as much as live ones.
 //
 // What bounds it: instruction issue.  29 instructions per (ray, triangle)
 // pair in the fast walk's SASS: 24 float operations of the planes rounded
 // one by one (-fmad=false), 3 NaN-propagating mins, the running max and
-// one 128-bit shared load; the exact walk's masks make it 33.5.
+// one 128-bit shared load; the exact walk's masks make it 33.5.  Per live
+// (ray, sphere) pair: the sphere test's float operations, two broadcast
+// 128-bit shared loads of the ray, the vote and the bit loop.
 
 #include "common.cuh"
 
@@ -68,14 +85,21 @@ __global__ void __launch_bounds__(G * 32) shadow_kernel(
     const int* __restrict__ sl, const int* __restrict__ sc,
     const float* __restrict__ lps, const float* __restrict__ origin,
     const float* __restrict__ planes, const float* __restrict__ sph_dat,
-    int* __restrict__ found, int nt, int nl, int ct, int cs, int pt, int ps,
-    int wt, int ws) {
+    const unsigned char* __restrict__ act, int* __restrict__ found,
+    unsigned long long* __restrict__ tally, int nt, int nl, int ct, int cs,
+    int pt, int ps, int wt, int ws, int act_sl, int act_sr) {
   extern __shared__ float4 smem4[];
   // the exact walk's lanes of one light over its visits, [some visit >=
   // 0, some visit NaN][chunk][ray]: bit b of a word is lane 32 * chunk + b
   __shared__ unsigned lane_masks[2][RT_LANE_SPLIT][RT_TILE];
   // bit lane of occ[l][q]: ray lane + 32 q is occluded toward light l
   __shared__ unsigned occ[kMaxLights][kRays];
+  // bit lane of act_w[l][q]: ray lane + 32 q is active toward light l
+  __shared__ unsigned act_w[kMaxLights][kRays];
+  // the sphere walk's rays toward its light: (o, a_q) and (light - o, 0)
+  __shared__ float4 seg[2 * RT_TILE];
+  // the rays live (active, not occluded) as the light's sphere walk starts
+  __shared__ unsigned live0[kRays];
   // nonzero: some ray of the tile meets a NaN plane value toward light l
   __shared__ int poisoned[kMaxLights];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -93,9 +117,16 @@ __global__ void __launch_bounds__(G * 32) shadow_kernel(
   }
   for (int e = threadIdx.x; e < kMaxLights * kRays; e += blockDim.x) (&occ[0][0])[e] = 0u;
   for (int e = threadIdx.x; e < kMaxLights; e += blockDim.x) poisoned[e] = 0;
-  __syncthreads();
   const int w = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  for (int p = w; p < nl * kRays; p += G) {  // uniform over the warp
+    const int l = p / kRays, q = p % kRays;
+    const size_t at = static_cast<size_t>(l) * act_sl +
+                      static_cast<size_t>(i * RT_TILE + 32 * q + lane) * act_sr;
+    const unsigned m = __ballot_sync(RT_FULL_MASK, act == nullptr || act[at] != 0);
+    if (lane == 0) act_w[l][q] = m;
+  }
+  __syncthreads();
   const int h = w % RT_LANE_SPLIT;  // this warp's chunk
   const int l0 = h * RT_CHUNK;
   float* buf = smem + w * 2 * kStage;
@@ -111,49 +142,10 @@ __global__ void __launch_bounds__(G * 32) shadow_kernel(
   auto visits = [&](VisitSide tri, VisitSide sph) {
     return WarpVisits(tri, sph, w / RT_LANE_SPLIT, G / RT_LANE_SPLIT);
   };
-  auto stage_sphere = [&](float* dst, int k) {
-    stage_sph(dst, sph_dat, ps, k, l0, lane);
-  };
-
-  // this warp's rays found toward light l (lane 0's reading), and whether
-  // all 128 are
-  auto read_occ = [&](int l, bool* fnd) {
-    unsigned all = RT_FULL_MASK;
-#pragma unroll
-    for (int q = 0; q < kRays; ++q) {
-      const unsigned m = *static_cast<volatile unsigned*>(&occ[l][q]);
-      fnd[q] = fnd[q] || ((m >> lane) & 1u);
-      all &= m;
-    }
-    return __shfl_sync(RT_FULL_MASK, all == RT_FULL_MASK, 0) != 0;
-  };
-  // OR this warp's staged sphere lanes into fnd toward light l
-  auto test_spheres = [&](const float* sb, int l, bool* fnd) {
-    float dx[kRays], dy[kRays], dz[kRays], a_q[kRays];
-#pragma unroll
-    for (int q = 0; q < kRays; ++q) {
-      dx[q] = lps[3 * l + 0] - ox[q];
-      dy[q] = lps[3 * l + 1] - oy[q];
-      dz[q] = lps[3 * l + 2] - oz[q];
-      a_q[q] = dx[q] * dx[q] + dy[q] * dy[q] + dz[q] * dz[q];
-    }
-    const float4* rows = reinterpret_cast<const float4*>(sb);
-#pragma unroll 2
-    for (int ln = 0; ln < RT_CHUNK; ++ln) {
-      const float4 s = rows[ln];
-#pragma unroll
-      for (int q = 0; q < kRays; ++q) {
-        fnd[q] = fnd[q] || sph_occluded<RELAXED>(ox[q], oy[q], oz[q], dx[q],
-                                                 dy[q], dz[q], a_q[q], s.x,
-                                                 s.y, s.z, s.w, 1.0f);
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < kRays; ++q) {
-      const unsigned m = __ballot_sync(RT_FULL_MASK, fnd[q]);
-      if (lane == 0 && m != 0u) atomicOr(&occ[l][q], m);
-    }
-  };
+  // with at most 8 sphere clusters, every light walks them all when any
+  // light has a sphere candidate in the tile
+  bool any_sc = false;
+  for (int l = 0; l < nl; ++l) any_sc = any_sc || sc[l * nt + i] != 0;
 
   for (int l = 0; l < nl; ++l) {
     const int s = l * nt + i;
@@ -245,44 +237,98 @@ __global__ void __launch_bounds__(G * 32) shadow_kernel(
       }
     }
 
-    if (cs > RT_DENSE_SPH_ROWS && sc[s] != 0) {
-      const int n_s = sc[s];
-      bool fnd[kRays] = {};
-      WarpVisits seq = visits(
-          none, VisitSide{sl + s * RT_MAX_SPH_LIST, sw + static_cast<size_t>(s) * ws,
-                          n_s <= RT_MAX_SPH_LIST ? n_s : -1, cs, 0});
-      auto sph_body = [&](float* sb, int, int) {
-        bool live = false;
+    if (cs > RT_DENSE_SPH_ROWS ? sc[s] != 0 : any_sc) {  // uniform
+      // every warp is past light l - 1's sphere walk (seg, live0 free) and
+      // light l's triangle bits are final
+      __syncthreads();
+      for (int j = threadIdx.x; j < RT_TILE; j += blockDim.x) {
+        const int ray = i * RT_TILE + j;
+        const float x = origin[3 * ray + 0], y = origin[3 * ray + 1],
+                    z = origin[3 * ray + 2];
+        const float dx = lps[3 * l + 0] - x, dy = lps[3 * l + 1] - y,
+                    dz = lps[3 * l + 2] - z;
+        seg[2 * j] = make_float4(x, y, z, dx * dx + dy * dy + dz * dz);
+        seg[2 * j + 1] = make_float4(dx, dy, dz, 0.0f);
+      }
+      if (threadIdx.x < kRays) {
+        live0[threadIdx.x] = act_w[l][threadIdx.x] & ~occ[l][threadIdx.x];
+      }
+      __syncthreads();
+      unsigned start[kRays];
+      int n_live = 0;
 #pragma unroll
-        for (int q = 0; q < kRays; ++q) live = live || !fnd[q];
-        if (__any_sync(RT_FULL_MASK, live)) test_spheres(sb, l, fnd);
-      };
-      warp_walk(seq, buf, kStage, stage_sphere, sph_body,
-                [&] { return read_occ(l, fnd); });
-    }
-  }
-
-  if (cs <= RT_DENSE_SPH_ROWS) {
-    bool any_sc = false;
-    for (int l = 0; l < nl; ++l) any_sc = any_sc || sc[l * nt + i] != 0;
-    if (any_sc) {
-      // every sphere cluster, every light; a light is skipped for an item
-      // once the warp's 128 rays are occluded toward it
-      WarpVisits seq = visits(none, VisitSide{nullptr, nullptr, cs, cs, 0});
-      auto dense_body = [&](float* sb, int, int) {
-        for (int l = 0; l < nl; ++l) {
-          bool fnd[kRays] = {};
-          if (!read_occ(l, fnd)) test_spheres(sb, l, fnd);
-        }
-      };
-      warp_walk(seq, buf, kStage, stage_sphere, dense_body, [] { return false; });
+      for (int q = 0; q < kRays; ++q) {
+        start[q] = live0[q];
+        n_live += __popc(start[q]);
+      }
+      if (tally != nullptr && threadIdx.x == 0) {
+        atomicAdd(tally, static_cast<unsigned long long>(RT_TILE));
+        atomicAdd(tally + 1, static_cast<unsigned long long>(n_live));
+      }
+      if (n_live != 0) {
+        const int n_s = sc[s];
+        WarpVisits seq = visits(
+            none, cs <= RT_DENSE_SPH_ROWS
+                      ? VisitSide{nullptr, nullptr, cs, cs, 0}
+                      : VisitSide{sl + s * RT_MAX_SPH_LIST,
+                                  sw + static_cast<size_t>(s) * ws,
+                                  n_s <= RT_MAX_SPH_LIST ? n_s : -1, cs, 0});
+        // this warp's live rays toward l as an item starts (lane 0's
+        // reading of occ, so uniform over the warp); stop when none is
+        unsigned live[kRays];
+        auto stop = [&] {
+          unsigned any = 0u;
+#pragma unroll
+          for (int q = 0; q < kRays; ++q) {
+            const unsigned o = *static_cast<volatile unsigned*>(&occ[l][q]);
+            live[q] = start[q] & ~__shfl_sync(RT_FULL_MASK, o, 0);
+            any |= live[q];
+          }
+          return any == 0u;
+        };
+        // one sphere lane a thread over the live rays, a vote a ray
+        auto body = [&](float* sb, int, int) {
+          const float4 sp = reinterpret_cast<const float4*>(sb)[lane];
+#pragma unroll
+          for (int q = 0; q < kRays; ++q) {
+            unsigned m = live[q], hit = 0u;
+            while (m != 0u) {
+              // two rays an iteration (the second is the first again when
+              // one is left): two independent chains in flight
+              const int b0 = __ffs(m) - 1;
+              m &= m - 1u;
+              const int b1 = m != 0u ? __ffs(m) - 1 : b0;
+              m &= m - 1u;
+              const float4 o0 = seg[2 * (32 * q + b0)];
+              const float4 d0 = seg[2 * (32 * q + b0) + 1];
+              const float4 o1 = seg[2 * (32 * q + b1)];
+              const float4 d1 = seg[2 * (32 * q + b1) + 1];
+              const bool h0 = sph_occluded<RELAXED>(o0.x, o0.y, o0.z, d0.x, d0.y,
+                                                    d0.z, o0.w, sp.x, sp.y, sp.z,
+                                                    sp.w, 1.0f);
+              const bool h1 = sph_occluded<RELAXED>(o1.x, o1.y, o1.z, d1.x, d1.y,
+                                                    d1.z, o1.w, sp.x, sp.y, sp.z,
+                                                    sp.w, 1.0f);
+              if (__any_sync(RT_FULL_MASK, h0)) hit |= 1u << b0;
+              if (__any_sync(RT_FULL_MASK, h1)) hit |= 1u << b1;
+            }
+            if (lane == 0 && hit != 0u) atomicOr(&occ[l][q], hit);
+          }
+        };
+        warp_walk(seq, buf, kStage,
+                  [&](float* dst, int k) { stage_sph(dst, sph_dat, ps, k, l0, lane); },
+                  body, stop);
+      }
     }
   }
 
   __syncthreads();
   for (int j = threadIdx.x; j < RT_TILE; j += blockDim.x) {
     int f = 0;
-    for (int l = 0; l < nl; ++l) f |= static_cast<int>((occ[l][j >> 5] >> (j & 31)) & 1u) << l;
+    for (int l = 0; l < nl; ++l) {
+      const unsigned m = occ[l][j >> 5] & act_w[l][j >> 5];
+      f |= static_cast<int>((m >> (j & 31)) & 1u) << l;
+    }
     found[i * RT_TILE + j] = f;
   }
 }
@@ -293,8 +339,10 @@ extern "C" int rt_shadow(const int* tw, const int* tl, const int* tc,
                          const int* sw, const int* sl, const int* sc,
                          const float* lps, const float* origin,
                          const float* planes, const float* sph_dat,
-                         int* found, int nt, int nl, int ct, int cs, int pt,
-                         int ps, int wt, int ws, int relaxed, void* stream) {
+                         const unsigned char* act, int* found,
+                         unsigned long long* tally, int nt, int nl, int ct,
+                         int cs, int pt, int ps, int wt, int ws, int act_sl,
+                         int act_sr, int relaxed, void* stream) {
   if (nt <= 0) return static_cast<int>(cudaGetLastError());
   const cudaError_t e = dispatch(wide_launch(nt), relaxed, false,
                                  [&](auto g, auto rx, auto) {
@@ -303,8 +351,8 @@ extern "C" int rt_shadow(const int* tw, const int* tl, const int* tc,
     static const cudaError_t a = allow_smem(kernel, smem_bytes<G>());
     if (a != cudaSuccess) return a;
     kernel<<<nt, G * 32, smem_bytes<G>(), static_cast<cudaStream_t>(stream)>>>(
-        tw, tl, tc, sw, sl, sc, lps, origin, planes, sph_dat, found, nt, nl, ct,
-        cs, pt, ps, wt, ws);
+        tw, tl, tc, sw, sl, sc, lps, origin, planes, sph_dat, act, found,
+        tally, nt, nl, ct, cs, pt, ps, wt, ws, act_sl, act_sr);
     return cudaGetLastError();
   });
   return static_cast<int>(e);

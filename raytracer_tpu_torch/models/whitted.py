@@ -106,10 +106,12 @@ _COMPACT_MIN_DEPTH = 3
 _COMPACT_SCATTER = 0.15
 
 # the wave counters: ``wave.deep`` samples the rays entering bounce
-# _DEEP_FROM or later; a hierarchical scene's running sums
+# _DEEP_FROM or later; a hierarchical scene's running sums and those of a
+# scene whose shadow kernel walks sphere clusters
 # (``cluster_trace.counting_masks``), in their order in the flags buffer
 _DEEP_FROM = 2
 _MASK_SAMPLES = ("mask.tiles", "mask.chunks", "lists.tiles", "lists.over")
+_SHADOW_SAMPLES = ("shadow.slots", "shadow.live")
 
 
 # debug_nans(): every wave's radiance is checked after each bounce
@@ -314,10 +316,14 @@ class _Wavefront:
     more, ``masks``, which every bounce's mask calls and shortlist
     compactions add to (``cluster_trace.counting_masks``): the masks'
     active tiles and the live (tile, chunk) pairs of their supercluster
-    pass, the shortlists with a candidate and those past their cap.  At
-    each read in a sampled run the host samples what they grew by since
-    its last read (``mask.tiles``, ``mask.chunks``, ``lists.tiles``,
-    ``lists.over``); a run's last bounce, which no read follows, is
+    pass, the shortlists with a candidate and those past their cap; on a
+    scene whose shadow kernel walks sphere clusters (more than
+    ``SMALL_SPH`` spheres) two more, ``shadow_sums``, which every shadow
+    kernel call adds to: 128 for each (tile, light) whose sphere walk
+    runs, and that walk's live rays.  At each read in a sampled run the
+    host samples what they grew by since its last read (``mask.tiles``,
+    ``mask.chunks``, ``lists.tiles``, ``lists.over``, ``shadow.slots``,
+    ``shadow.live``); a run's last bounce, which no read follows, is
     counted at the next run's first, so a stretch of sampled runs loses
     only its final bounce, and no read or sync is added.
 
@@ -364,12 +370,19 @@ class _Wavefront:
         self.cur_dir = torch.zeros((r, 3), **f32)
         self.active = torch.zeros((r,), dtype=torch.bool, device=device)
         self.idx = torch.arange(r, device=device)
-        hier = engine == "cluster" and not record and ctr.hierarchical(accel)
-        self.flags = torch.zeros((3 + len(_MASK_SAMPLES) if hier else 3,),
-                                 dtype=torch.int64, device=device)
-        self.masks = self.flags[3:] if hier else None
-        # ``masks`` at the last sampled read
-        self.masks_seen = [0] * len(_MASK_SAMPLES)
+        counted = engine == "cluster" and not record
+        hier = counted and ctr.hierarchical(accel)
+        spheres = (counted and self.fns[0] is not None
+                   and accel.n_sph > ctr.SMALL_SPH)
+        self.sums = (_MASK_SAMPLES if hier else ()) + (
+            _SHADOW_SAMPLES if spheres else ())
+        self.flags = torch.zeros((3 + len(self.sums),), dtype=torch.int64,
+                                 device=device)
+        n_masks = len(_MASK_SAMPLES) if hier else 0
+        self.masks = self.flags[3:3 + n_masks] if hier else None
+        self.shadow_sums = self.flags[3 + n_masks:] if spheres else None
+        # the running sums ``sums`` at the last sampled read
+        self.masks_seen = [0] * len(self.sums)
         nl, i64 = meta.n_lights, dict(dtype=torch.int64, device=device)
         if engine == "bvh":
             bvh = traverse._device_bvh(accel)
@@ -458,12 +471,12 @@ class _Wavefront:
             tracing.sample("wave.lanes", TILE * tiles)
 
     def _sample_masks(self, masks: list) -> None:
-        """``_MASK_SAMPLES``: what the running sums ``masks`` (as read)
-        grew by since the last sampled read; the first read after an
-        unsampled run only sets the base."""
+        """``sums``: what the running sums ``masks`` (as read) grew by
+        since the last sampled read; the first read after an unsampled run
+        only sets the base."""
         seen, self.masks_seen = self.masks_seen, masks
         if seen is not None:
-            for name, now, then in zip(_MASK_SAMPLES, masks, seen):
+            for name, now, then in zip(self.sums, masks, seen):
                 tracing.sample(name, now - then)
 
     def _sample_fused(self, key, active: int) -> None:
@@ -546,8 +559,7 @@ class _Wavefront:
                     act_f = active.to(torch.float32).mean()
                     live_f = live.to(torch.float32).mean()
                     scattered = live_f - act_f > _COMPACT_SCATTER
-            flags = self.flags if self.masks is None else self.flags[:3]
-            flags.copy_(torch.stack([count, tiles, scattered]))
+            self.flags[:3].copy_(torch.stack([count, tiles, scattered]))
 
     def _bounce_step(self, depth: int, compacted: bool) -> None:
         carry = self._carry(depth)
@@ -555,7 +567,7 @@ class _Wavefront:
             carry = _compact_carry(carry)
         if self.engine == "cluster":
             shared = self.origin if depth == 0 and self.shared else None
-            with ctr.counting_masks(self.masks):
+            with ctr.counting_masks(self.masks, self.shadow_sums):
                 carry = _fused_bounce(self.data, self.meta, self.accel,
                                       self.bfc, self.fns, carry, shared,
                                       self.relaxed, self._buffers(depth)[1:6])

@@ -71,7 +71,7 @@ SHADOW_PLANES_BYTES_MAX = 8 << 20
 _SUPER = 128
 SUPER_MIN_CPAD = 512
 
-# the (4,) int64 buffer that counting_masks sets for this thread
+# the (4,) and (2,) int64 buffers that counting_masks sets for this thread
 _counting = threading.local()
 
 
@@ -92,21 +92,24 @@ def hierarchical(cset: ClusterSet) -> bool:
 
 
 @contextlib.contextmanager
-def counting_masks(counts):
+def counting_masks(counts, shadow=None):
     """Inside the block, each hierarchical ``ray_cluster_mask`` call of
     this thread adds [its active tiles, the live (tile, 128-cluster chunk)
     pairs its supercluster pass hands ``ray_mask_hier``] to ``counts[:2]``
     and each shortlist compaction (``_lists``, inside the ``compact``
     kernel: no launch of its own) [its tiles with a candidate, those whose
     count passes MAX_TRI_LIST / MAX_SPH_LIST, which the visitors walk as
-    the bitmask] to ``counts[2:]`` ((4,) int64 on the rays' device; None
-    counts nothing)."""
-    outer = getattr(_counting, "counts", None)
-    _counting.counts = counts
+    the bitmask] to ``counts[2:]`` ((4,) int64 on the rays' device); each
+    shadow kernel call (inside the kernel) [128 for each (tile, light)
+    whose sphere walk runs, the rays live as it starts] to ``shadow``
+    ((2,) int64).  None counts nothing."""
+    outer = (getattr(_counting, "counts", None),
+             getattr(_counting, "shadow", None))
+    _counting.counts, _counting.shadow = counts, shadow
     try:
         yield
     finally:
-        _counting.counts = outer
+        _counting.counts, _counting.shadow = outer
 
 
 def tile_cluster_mask(origin, dirs, active, cmin, cmax, t_hi, tile: int,
@@ -544,7 +547,8 @@ def cluster_shadow(cset: ClusterSet, planes, origin, dirs, light_pos,
     lists = [x[None] for x in _lists(thit, shit)]
     lp = light_pos.detach().to(torch.float32).reshape(3).contiguous()
     found = kernels.shadow(*lists, lp, origin, planes[None], cset.sph_dat,
-                           relaxed)
+                           relaxed, None if active is None else active[None],
+                           getattr(_counting, "shadow", None))
     occ = (found & 1) != 0
     if small_spheres and 0 < cset.n_sph <= SMALL_SPH:
         occ = occ | _small_sphere_occluded(cset, origin, dirs, relaxed)
@@ -571,7 +575,10 @@ def cluster_shadow_multi(cset: ClusterSet, planes_list, origin, light_pos,
                                                 acts[l], ones)))
     lists = [torch.stack(x) for x in zip(*per_light)]
     found = kernels.shadow(*lists, lp, origin, torch.stack(planes_list),
-                           cset.sph_dat, relaxed)
+                           cset.sph_dat, relaxed,
+                           active_per_light.T if r == origin.shape[0]
+                           else torch.stack(acts),
+                           getattr(_counting, "shadow", None))
     occ = torch.stack([(found >> l) & 1 for l in range(nl)], dim=1) != 0
     if small_spheres and 0 < cset.n_sph <= SMALL_SPH:
         occ = occ | _small_sphere_test_multi(cset, origin, lp, relaxed)

@@ -592,18 +592,25 @@ def closest_plain(tw, tl, tc, sw, sl, sc, origin, dirs, tri_dat, sph_dat,
 # ---------------------------------------------------------------------------
 
 def shadow(tw, tl, tc, sw, sl, sc, lps, origin, planes, sph_dat,
-           relaxed: bool = False):
-    """(R,) i32 bitfield, bit l set iff the segment origin -> light l is
-    occluded (a triangle by the 4-plane test, a sphere with t < 1).
+           relaxed: bool = False, act=None, tally=None):
+    """(R,) i32 bitfield, bit l set iff ray r is active toward light l and
+    the segment origin -> light l is occluded (a triangle by the 4-plane
+    test, a sphere with t < 1).
 
     tw, tl, tc, sw, sl, sc: per-light shortlists stacked on a leading
     light axis (as in :func:`closest`); lps: (3*L,) f32 light positions;
     origin: (R, 3) f32; planes: (L, 16, Pt) f32 from
-    ``cluster_trace.build_shadow_planes``; sph_dat: (4, Ps) f32.
+    ``cluster_trace.build_shadow_planes``; sph_dat: (4, Ps) f32.  ``act``
+    ((L, R) bool or uint8 of any strides, or None: every ray active): the
+    rays whose bit is wanted; the sphere walks test only those not yet
+    occluded.
+    ``tally`` ((2,) int64 on the device, or None): adds [128 for each
+    (tile, light) whose sphere walk runs, that walk's live rays (active
+    and not occluded by a triangle) as it starts] to it.
     """
     if origin.device.type == "cpu":
         return shadow_plain(tw, tl, tc, sw, sl, sc, lps, origin, planes,
-                            sph_dat, relaxed)
+                            sph_dat, relaxed, act, tally)
     dev, r, nl = origin.device, origin.shape[0], planes.shape[0]
     nt, pt, ps = r // TILE, planes.shape[2], sph_dat.shape[1]
     ct, cs = pt // CLUSTER, ps // CLUSTER
@@ -618,28 +625,41 @@ def shadow(tw, tl, tc, sw, sl, sc, lps, origin, planes, sph_dat,
     _check("origin", origin, torch.float32, (nt * TILE, 3), dev)
     _check("planes", planes, torch.float32, (nl, 16, ct * CLUSTER), dev)
     _check("sph_dat", sph_dat, torch.float32, (4, cs * CLUSTER), dev)
+    if act is not None:
+        if act.dtype == torch.bool:
+            act = act.view(torch.uint8)
+        _check("act", act, torch.uint8, (nl, nt * TILE), dev, layout=False)
+    if tally is not None:
+        _check("tally", tally, torch.int64, (2,), dev)
     found = torch.empty((r,), dtype=torch.int32, device=dev)
     _launch("shadow", "shadow", dev, tw, tl, tc, sw, sl, sc, lps, origin, planes,
-            sph_dat, found, nt, nl, ct, cs, pt, ps, wt, ws, int(relaxed))
+            sph_dat, 0 if act is None else act, found,
+            0 if tally is None else tally, nt, nl, ct, cs, pt, ps, wt, ws,
+            0 if act is None else act.stride(0),
+            0 if act is None else act.stride(1), int(relaxed))
     return found
 
 
 def shadow_plain(tw, tl, tc, sw, sl, sc, lps, origin, planes, sph_dat,
-                 relaxed: bool = False):
+                 relaxed: bool = False, act=None, tally=None):
     """Plain PyTorch version of :func:`shadow`.  The per-(ray, lane) plane
-    accumulator is a running max that propagates NaN, as on the TPU; the
-    sphere walk's all-lanes early exit is left out (it skips only visits
-    that cannot change a bit)."""
+    accumulator is a running max that propagates NaN, as on the TPU; every
+    ray is tested against every visit (the kernel's sphere walks skip only
+    rays whose bit cannot change or is not wanted), then ANDed with
+    ``act``."""
     dev, r, nl = origin.device, origin.shape[0], planes.shape[0]
     nt, pt = r // TILE, planes.shape[2]
     ct, cs = pt // CLUSTER, sph_dat.shape[1] // CLUSTER
     found = torch.zeros((nt, TILE), dtype=torch.int32, device=dev)
     o = origin.view(nt, TILE, 3)
+    want = (torch.ones((nl, nt, TILE), dtype=torch.bool, device=dev)
+            if act is None else (act != 0).view(nl, nt, TILE))
     for a, e in _chunks(nt, TILE * CLUSTER):
         ox, oy, oz = o[a:e, :, None, 0], o[a:e, :, None, 1], o[a:e, :, None, 2]
         fnd = torch.zeros((e - a, TILE), dtype=torch.int32, device=dev)
         seg = [(lps[3 * l] - ox, lps[3 * l + 1] - oy, lps[3 * l + 2] - oz)
                for l in range(nl)]
+        gate = (sc[:, a:e] != 0).any(0)
         for l in range(nl):
             acc = torch.full((e - a, TILE, CLUSTER), -_INF, device=dev)
             vis = _visit_table(tw[l], tl[l], tc[l], ct, MAX_TRI_LIST, a, e)
@@ -647,7 +667,13 @@ def shadow_plain(tw, tl, tc, sw, sl, sc, lps, origin, planes, sph_dat,
                 k = vis[:, v]
                 m = _plane_min(_gather(planes[l], k), ox, oy, oz)
                 acc = torch.maximum(acc, torch.where((k >= 0)[:, None, None], m, -_INF))
-            fnd |= (acc >= 0.0).any(-1).to(torch.int32) << l
+            tri = (acc >= 0.0).any(-1)
+            fnd |= tri.to(torch.int32) << l
+            if tally is not None:
+                walks = sc[l, a:e] != 0 if cs > DENSE_SPH_ROWS else gate
+                live = (want[l, a:e] & ~tri).sum(1)
+                tally.add_(torch.stack([TILE * walks.sum(),
+                                        (live * walks).sum()]))
             if cs > DENSE_SPH_ROWS:
                 vis = _visit_table(sw[l], sl[l], sc[l], cs, MAX_SPH_LIST, a, e)
                 for v in range(vis.shape[1]):
@@ -656,13 +682,16 @@ def shadow_plain(tw, tl, tc, sw, sl, sc, lps, origin, planes, sph_dat,
                                         *seg[l], relaxed)
                     fnd |= (hit.any(-1) & (k >= 0)[:, None]).to(torch.int32) << l
         if cs <= DENSE_SPH_ROWS:
-            gate = (sc[:, a:e] != 0).any(0)[:, None]
             for k in range(cs):
                 rows = sph_dat[:, k * CLUSTER:(k + 1) * CLUSTER][:, None, None, :]
                 for l in range(nl):
                     hit = _sph_occluded(rows, ox, oy, oz, *seg[l], relaxed)
-                    fnd |= (hit.any(-1) & gate).to(torch.int32) << l
+                    fnd |= (hit.any(-1) & gate[:, None]).to(torch.int32) << l
         found[a:e] = fnd
+    if act is not None:
+        bits = want.to(torch.int32) << torch.arange(
+            nl, dtype=torch.int32, device=dev)[:, None, None]
+        found &= bits.sum(0, dtype=torch.int32)
     return found.reshape(r)
 
 

@@ -26,7 +26,11 @@ tiles entering its mask calls), ``mask.chunks`` (the live (tile,
 128-cluster chunk) pairs their supercluster pass hands
 ``ray_mask_hier``), ``lists.tiles`` (the (tile, list) shortlists with a
 candidate that its compactions build) and ``lists.over`` (those past
-their cap, which the visiting kernels walk as the bitmask).
+their cap, which the visiting kernels walk as the bitmask); on a scene
+whose shadow kernel walks sphere clusters, ``shadow.slots`` (128 for each
+(tile, light) whose sphere walk runs) and ``shadow.live`` (the rays that
+walk starts with: active toward the light and not occluded by a
+triangle).
 
 Stamps are ``time.time_ns()``: Unix-epoch ns, the clock kineto stamps
 host events on, so spans and samples line up with a profiler's events.

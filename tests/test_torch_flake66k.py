@@ -223,17 +223,17 @@ def test_list_and_deep_samples_count_each_bounce_once(bench, tracing,
     ``mask.*`` are (a run's last bounce shows at the next sampled run's
     first read; the first read after an unsampled run sets the base);
     ``wave.deep``: the rays entering each bounce from 2 on, once each.  A
-    scene whose masks are flat keeps three flags and samples no
-    ``lists.*``."""
+    scene whose masks are flat keeps three flags and the shadow kernel's
+    two sums, and samples no ``lists.*``."""
     from raytracer_tpu_torch.models import whitted
     from raytracer_tpu_torch.ops import cluster_trace as ctr
     from raytracer_tpu_torch.ops import kernels as K
 
     flat = _wavefront(bench)
-    assert flat.masks is None and flat.flags.shape == (3,)
+    assert flat.masks is None and flat.flags.shape == (5,)
     monkeypatch.setattr(ctr, "SUPER_MIN_CPAD", 64)
     wf = _wavefront(bench)
-    assert wf.flags.shape == (7,)
+    assert wf.flags.shape == (9,)
     bounces = []
     compact, fused = K.compact, whitted._fused_bounce
 
@@ -273,8 +273,94 @@ def test_list_and_deep_samples_count_each_bounce_once(bench, tracing,
     tracing.clear()
     with profile(activities=[ProfilerActivity.CPU]):
         flat.run()
-    assert {s.name for s in tracing.samples} == {"wave.active", "wave.lanes",
-                                                 "wave.fused", "wave.deep"}
+    assert {s.name for s in tracing.samples} == {
+        "wave.active", "wave.lanes", "wave.fused", "wave.deep",
+        "shadow.slots", "shadow.live"}
+
+
+def test_shadow_samples_count_each_bounce_once(bench, tracing, monkeypatch):
+    """``shadow.slots`` and ``shadow.live``, from the flags the host reads
+    between bounces, against each bounce's shadow calls made again with a
+    tally of their own (the sphere walks' slots, and the rays active and
+    not occluded by a triangle as they start), shifted as ``lists.*`` are;
+    the live rays are fewer than the slots."""
+    from raytracer_tpu_torch.ops import kernels as K
+    from raytracer_tpu_torch.models import whitted
+
+    wf = _wavefront(bench)
+    assert wf.masks is None and wf.shadow_sums is not None
+    bounces = []
+    shadow, fused = K.shadow, whitted._fused_bounce
+
+    def spy_shadow(*a):
+        own = torch.zeros(2, dtype=torch.int64)
+        K.shadow_plain(*a[:12], own)
+        bounces[-1] += own.numpy()
+        return shadow(*a)
+
+    def spy_bounce(*a, **k):
+        bounces.append(np.zeros(2, np.int64))
+        return fused(*a, **k)
+
+    monkeypatch.setattr(K, "shadow", spy_shadow)
+    monkeypatch.setattr(whitted, "_fused_bounce", spy_bounce)
+    wf.run()                                  # unsampled
+    per_bounce = [tuple(b.tolist()) for b in bounces]
+    n = len(per_bounce)
+    assert n >= 4 and all(0 < b[1] < b[0] for b in per_bounce[:2])
+    with profile(activities=[ProfilerActivity.CPU]):
+        wf.run()
+        wf.run()
+    assert [tuple(b.tolist()) for b in bounces[n:]] == per_bounce * 2
+    got = list(zip((s.value for s in tracing.samples if s.name == "shadow.slots"),
+                   (s.value for s in tracing.samples if s.name == "shadow.live")))
+    if n == wf.meta.max_depth + 1:
+        first = tuple(np.add(per_bounce[-1], per_bounce[0]).tolist())
+        assert got == per_bounce[1:-1] + [first] + per_bounce[1:-1]
+    else:
+        assert got == per_bounce[1:] + per_bounce[:1] + per_bounce[1:]
+
+
+@pytest.mark.parametrize("config", ["flake66k", "marbles650"])
+def test_live_ray_walk_renders_the_same_image(bench, monkeypatch, config):
+    """A small flake (its sphere lists past their cap, walked as the
+    bitmask) and marbles (650 spheres: the dense walk) rendered on the CPU
+    with the shadow calls' ``act`` equal, byte for byte, renders whose
+    shadow calls drop it (every ray's bit, as before ``act``); the calls
+    had rays outside ``act``."""
+    from raytracer_tpu_torch.models.scene import from_parsed
+    from raytracer_tpu_torch.ops import cluster_trace as ctr
+    from raytracer_tpu_torch.ops import kernels as K
+    from raytracer_tpu_torch.pipeline import render_one_camera
+    from raytracer_tpu_torch.render import engine_accel
+
+    cfg = copy.deepcopy(bench.config(config))
+    cfg["scene"].update(SMALL if config == CONFIG else dict(width=32, height=32))
+    if config == CONFIG:
+        monkeypatch.setattr(ctr, "SUPER_MIN_CPAD", 64)
+    parsed = sceneio.generate(bench, cfg, 2**31 + 7)
+    data, meta = from_parsed(parsed, "cpu")
+    accel = engine_accel("auto", None, data, meta, "cpu")
+    tr = bench.traffic("frame-ssaa2")
+    cam = port_camera(camera_at(parsed["cameras"][0], 5, tr))
+
+    def render():
+        return render_one_camera(
+            data, meta, cam, accel, ssaa=tr["ssaa"], ssaa_mode=tr["ssaa_mode"],
+            chunk=tr["chunk"], engine=tr["engine"], device="cpu")[0]
+
+    shadow, acts = K.shadow, []
+
+    def keep_act(*a):
+        acts.append(a[11])
+        return shadow(*a)
+
+    monkeypatch.setattr(K, "shadow", keep_act)
+    want = render()
+    assert acts and all(a is not None and not bool(a.all()) for a in acts)
+    monkeypatch.setattr(K, "shadow", lambda *a: shadow(*a[:11]))
+    got = render()
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
 
 
 def test_kept_wavefront_makes_every_bounce_step_on_its_first_run(
@@ -368,12 +454,34 @@ def test_readers_of_lists_and_deep_waves(bench, monkeypatch):
     assert lists(trace) is None and deep(trace) is None
 
 
+def test_reader_of_the_shadow_live_share(bench, monkeypatch):
+    """``kernels.shadow_live_share.render``: the stretch's ``shadow.live``
+    over its ``shadow.slots`` samples in percent (a sample after the
+    stretch left out); None without ``shadow.slots`` (a program without
+    the counters, or a scene whose shadow kernel walks no sphere) and
+    without the recorder."""
+    live = bench.reader("kernels.shadow_live_share.render")
+    trace = _trace()
+    _record(monkeypatch, [("shadow.slots", 20, 1280), ("shadow.live", 20, 300),
+                          ("shadow.slots", 120, 256), ("shadow.live", 120, 84),
+                          ("shadow.slots", 250, 128), ("shadow.live", 250, 128)])
+    assert live(trace) == pytest.approx(100.0 * 384 / 1536)
+    _record(monkeypatch, [("wave.active", 20, 4000), ("lists.tiles", 20, 8)])
+    assert live(trace) is None
+    _record(monkeypatch, [("shadow.slots", 20, 0), ("shadow.live", 20, 0)])
+    assert live(trace) is None
+    monkeypatch.setattr(port_spans, "record", lambda: None)
+    assert live(trace) is None
+
+
 def test_cell_names_its_metrics(bench):
     """The cell reports the route's metrics and the two new ones traced;
     ``lists.overflow_share.render`` belongs to the two hierarchical cells,
     ``wave.deep_share.render`` to the two deep mirror cells."""
     owners = {"lists.overflow_share.render": {"terrain524k.frame-ssaa2", CELL},
-              "wave.deep_share.render": {"marbles650.frame-ssaa2", CELL}}
+              "wave.deep_share.render": {"marbles650.frame-ssaa2", CELL},
+              "kernels.shadow_live_share.render": {"marbles650.frame-ssaa2",
+                                                   CELL}}
     for w in bench.spec["workloads"]:
         names = {m["name"] for m in bench.metrics(w["name"], True)}
         for metric, cells in owners.items():

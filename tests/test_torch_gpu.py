@@ -122,6 +122,9 @@ def test_flake_kernels_equal_plain_on_card(cuda):
             if n == "closest"]
     assert sum(over) > 0
     assert all(a[0].shape[0] == 3 for n, a in calls if n == "shadow")
+    # each shadow call passed its rays' activity, which the kernel took
+    assert all(a[11] is not None and not bool(a[11].all())
+               for n, a in calls if n == "shadow")
 
 
 HIT_FIELDS = ("hit", "normal", "mat", "point", "offset", "mask")
@@ -236,6 +239,133 @@ def test_tie_case_kernels_equal_plain_on_card(cuda, width):
                 f"any bfc={bfc} relaxed={relaxed}"
 
 
+# tiles of the live-ray case: its active rays a tile (8 kinds, each light
+# its own), the 33-ray and 50% kinds over two words and more
+_ACT_KINDS = (0, 1, 31, 32, "word", 33, 128, "half")
+
+
+def _live_ray_case(cuda, size_factor, n_lights, seed=3):
+    """A sphereflake (benchmark/scenes; size factor 5: 519 sphere clusters,
+    walked by list or bitmask; 3: 7, walked densely) and its ground square,
+    with 48 tiles of 128 shadow origins, each tile's clustered around a
+    point above the ground: (lists, lps, origin, planes, sph_dat, act).
+    Lights: the scene's, one below the ground (its triangles occlude every
+    segment toward it), then random ones, the first ``n_lights``.  Tile t
+    is active toward light l by ``_ACT_KINDS[(t + l) % 8]``."""
+    import copy
+
+    import numpy as np
+
+    from benchmark import sceneio
+    from benchmark.paths import Bench
+    from raytracer_tpu_torch.models.bvh import build_bvh
+    from raytracer_tpu_torch.models.clusters import build_clusters
+    from raytracer_tpu_torch.models.scene import from_parsed
+    from raytracer_tpu_torch.ops import cluster_trace as pct
+
+    bench = Bench()
+    cfg = copy.deepcopy(bench.config("flake66k"))
+    cfg["scene"].update(width=32, height=32, size_factor=size_factor)
+    data, meta = from_parsed(sceneio.generate(bench, cfg, 2**31 + 3), cuda)
+    cset = build_clusters(data, meta, build_bvh(data, meta))
+    rng = np.random.default_rng(seed)
+    tmin, tmax = (x[0].cpu().numpy() for x in (cset.tri_cmin, cset.tri_cmax))
+    smin = np.nanmin(cset.sph_cmin.cpu().numpy(), 0)
+    smax = np.nanmax(cset.sph_cmax.cpu().numpy(), 0)
+    up = int(np.argmin(tmax - tmin))              # the ground's normal axis
+    sign = 1.0 if smax[up] > tmax[up] else -1.0
+    below = 0.5 * (tmin + tmax)
+    below[up] -= sign * 5.0
+    n_tiles = 48
+    ext = smax - smin
+    centers = rng.uniform(smin - 0.3 * ext, smax + 0.3 * ext, (n_tiles, 3))
+    centers[:, up] = tmax[up] + sign * rng.uniform(0.05, 1.0, n_tiles) * ext[up]
+    org = centers[:, None] + rng.normal(0, 0.03 * ext, (n_tiles, 128, 3))
+    org[..., up] = np.maximum(sign * org[..., up], sign * tmax[up] + 1e-3) * sign
+    org = org.reshape(-1, 3).astype(np.float32)
+    lights = data.light_pos[:meta.n_lights].cpu().numpy()
+    around = rng.uniform(smin - ext, smax + ext, (32, 3))
+    around[:, up] = smax[up] + sign * rng.uniform(0.5, 3.0, 32)
+    pool = np.concatenate([lights[:1], below[None], lights[1:], around])
+    lps = pool[:n_lights].astype(np.float32)
+    act = np.zeros((n_lights, n_tiles, 128), bool)
+    for l in range(n_lights):
+        for t in range(n_tiles):
+            kind = _ACT_KINDS[(t + l) % len(_ACT_KINDS)]
+            if kind == "word":
+                act[l, t, 64:96] = True
+            elif kind == "half":
+                act[l, t] = rng.random(128) < 0.5
+            else:
+                act[l, t, rng.permutation(128)[:kind]] = True
+    origin = torch.from_numpy(org).to(cuda)
+    ones = torch.ones((origin.shape[0],), device=cuda)
+    per_light = []
+    for l, lp in enumerate(lps):
+        dirs = torch.from_numpy(lp).to(cuda)[None] - origin
+        per_light.append(pct._lists(*pct._cluster_masks(
+            cset, origin, dirs, torch.from_numpy(act[l].reshape(-1)).to(cuda),
+            ones)))
+    lists = [torch.stack(x) for x in zip(*per_light)]
+    planes = torch.stack([pct.build_shadow_planes(cset, torch.from_numpy(lp).to(cuda))
+                          for lp in lps])
+    return (lists, torch.from_numpy(lps.reshape(-1)).to(cuda), origin, planes,
+            cset.sph_dat, torch.from_numpy(act.reshape(n_lights, -1)).to(cuda))
+
+
+@pytest.mark.parametrize("width", ["16-warp", "4-warp"])
+@pytest.mark.parametrize("n_lights", [1, 3, 32])
+@pytest.mark.parametrize("size_factor", [5, 3])
+def test_shadow_live_ray_walk_equals_plain_on_card(cuda, width, n_lights,
+                                                   size_factor):
+    """The live-ray sphere walks (size factor 5: the lists and the
+    bitmask; 3: the dense pass) with ``act``: tiles with no live ray, 1,
+    31, 32 (scattered and one whole word), 33 and 128, rays the ground's
+    planes already occlude (the light below it), 1, 3 and 32 lights, relaxed
+    off and on, in both block widths (the 48 tiles repeated to 2,304 take
+    4-warp blocks): bits and tally equal the plain version's, and without
+    ``act`` as well."""
+    import numpy as np
+
+    from raytracer_tpu_torch import backend
+    from raytracer_tpu_torch.ops import kernels as K
+
+    lists, lps, origin, planes, sph, act = _live_ray_case(cuda, size_factor,
+                                                          n_lights)
+    reps = 1 if width == "16-warp" else 48
+    if reps > 1:
+        nl = planes.shape[0]
+        rep = lambda x: x.view(nl, 48, -1).repeat(1, reps, 1).view(nl, -1)  # noqa: E731
+        lists = [rep(x) for x in lists]
+        origin = origin.repeat(reps, 1)
+        act = rep(act)
+    assert backend.launch_threads(origin.shape[0] // 128) == (
+        512 if width == "16-warp" else 128)
+    cs = sph.shape[1] // K.CLUSTER
+    sc = lists[5]
+    if size_factor == 5:
+        assert bool(((sc > 0) & (sc <= K.MAX_SPH_LIST)).any())
+        assert bool((sc > K.MAX_SPH_LIST).any())
+    else:
+        assert cs <= K.DENSE_SPH_ROWS and bool((sc > 0).any())
+    for relaxed in (False, True):
+        args = (*lists, lps, origin, planes, sph, relaxed)
+        assert torch.equal(K.shadow(*args), K.shadow_plain(*args))
+        for a in (act, act.to(torch.uint8), act.T.contiguous().T):
+            t_k = torch.zeros(2, dtype=torch.int64, device=cuda)
+            t_p = torch.zeros_like(t_k)
+            got = K.shadow(*args, a, t_k)
+            want = K.shadow_plain(*args, a, t_p)
+            assert torch.equal(got, want), f"relaxed={relaxed}"
+            assert torch.equal(t_k, t_p), (t_k.tolist(), t_p.tolist())
+        slots, live = t_k.tolist()
+        assert 0 < live < slots
+    if n_lights > 1:
+        # light 1 is below the ground: its triangles occlude every ray
+        bit = ((got >> 1) & 1).view(-1, 128).cpu().numpy()
+        assert np.array_equal(bit, act[1].view(-1, 128).cpu().numpy())
+
+
 @pytest.mark.parametrize("width", ["16-warp", "4-warp"])
 @pytest.mark.parametrize("n_lights", [1, 2])
 def test_poison_case_shadow_equals_plain_on_card(cuda, width, n_lights):
@@ -244,7 +374,7 @@ def test_poison_case_shadow_equals_plain_on_card(cuda, width, n_lights):
     does not occlude) through the shadow kernel, relaxed off and on, equal
     to its plain version and to the running-max rule, in both block widths
     (the case repeated to a whole frame's 32,768 tiles takes 4-warp
-    blocks)."""
+    blocks); with a random ``act``, the same bits ANDed with it."""
     import numpy as np
 
     from raytracer_tpu_torch import backend
@@ -260,13 +390,21 @@ def test_poison_case_shadow_equals_plain_on_card(cuda, width, n_lights):
     shit = tuple(map(rep, c["shit"]))
     lists = [torch.stack(x) for x in zip(*(pct._lists(tuple(map(rep, th)), shit)
                                            for th in c["thit"]))]
+    truth = torch.from_numpy(np.tile(c["truth"], reps))
+    act = torch.from_numpy(np.random.default_rng(7).random(
+        (n_lights, truth.shape[0])) < 0.7).to(cuda)
+    bits = (act.to(torch.int32) << torch.arange(
+        n_lights, dtype=torch.int32, device=cuda)[:, None]).sum(0).cpu()
     for relaxed in (False, True):
         args = (*lists, torch.from_numpy(c["lps"]).to(cuda), rep(c["origin"]),
                 torch.from_numpy(c["planes"]).to(cuda),
                 torch.from_numpy(c["sph_dat"]).to(cuda), relaxed)
         got = K.shadow(*args)
         assert torch.equal(got, K.shadow_plain(*args)), f"relaxed={relaxed}"
-        assert torch.equal(got.cpu(), torch.from_numpy(np.tile(c["truth"], reps)))
+        assert torch.equal(got.cpu(), truth)
+        got = K.shadow(*args, act)
+        assert torch.equal(got, K.shadow_plain(*args, act)), f"relaxed={relaxed}"
+        assert torch.equal(got.cpu(), truth & bits)
 
 
 @pytest.mark.parametrize("c", [1, 32, 64, 65, 249, 512])
